@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+``dgs_tpu_torch/csrc/*.cu`` compile with nvcc for Hopper (sm_90a) into one
+shared library with a plain C interface, loaded with ctypes.  The build runs
+at first use into the package's build directory (listed in .gitignore) and
+is reused while it is newer than every source; concurrent builders each
+compile to their own temporary name and publish with os.replace.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+from ..utils.native import BUILD_DIR
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+_OUT = os.path.join(BUILD_DIR, "libdgs_kernels.so")
+_LOG = os.path.join(BUILD_DIR, "libdgs_kernels.log")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc() -> str:
+    """The CUDA compiler: on PATH, else under CUDA_HOME (default
+    /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found: dgs_tpu_torch's CUDA kernels build with the CUDA "
+        "toolkit (put nvcc on PATH or set CUDA_HOME)")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _stale() -> bool:
+    if not os.path.exists(_OUT):
+        return True
+    deps = _sources() + glob.glob(os.path.join(_CSRC, "*.cuh"))
+    return os.path.getmtime(_OUT) < max(os.path.getmtime(p) for p in deps)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if it is missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _stale():
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-o", tmp] + _sources()
+            try:
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        "nvcc failed building dgs_tpu_torch kernels:\n"
+                        + res.stdout + res.stderr)
+                with open(_LOG, "w") as f:
+                    f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+                os.replace(tmp, _OUT)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(_OUT)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dgs_tiled_forward.argtypes = [
+            p, i, i, p, i, p, p, i, i, i, i, ctypes.c_float,
+            i, i, i, i, p, p,
+        ]
+        lib.dgs_tiled_forward.restype = i
+        lib.dgs_tiled_forward_block.argtypes = []
+        lib.dgs_tiled_forward_block.restype = i
+        _lib = lib
+        return _lib
+
+
+def build_log() -> str:
+    """nvcc's command line and its -Xptxas -v report (registers, shared
+    memory, spills per kernel) from the last build."""
+    with open(_LOG) as f:
+        return f.read()

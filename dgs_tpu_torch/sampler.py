@@ -1,0 +1,140 @@
+"""Stateful GaussianSampler facade, the reference-shaped public API.
+
+The counterpart of ``dgs_tpu/sampler.py`` for ``method="tiled"``:
+``preprocess`` builds the binning once, the four ``sample_gaussians*``
+methods and ``sample_all`` evaluate over it through the tiled forward
+kernel.  The other methods and the neighbour aggregation are later slices of
+the port and raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .binning import grid as binning
+from .config import SamplerConfig, tri_size
+from .ops import sampling
+from .oracle.dense import radii as compute_radii
+from .utils.debug import check_finite, snapshot_call
+
+_NOT_PORTED = {
+    "pallas": "ROADMAP.md item 10 (dense kernel path)",
+    "dense": "ROADMAP.md item 10 (dense kernel path)",
+    "chunked": "ROADMAP.md item 11 (chunked path)",
+}
+
+
+class GaussianSampler:
+    def __init__(self, debug: bool = False,
+                 config: SamplerConfig = SamplerConfig(),
+                 method: str = "tiled"):
+        if method != "tiled":
+            raise NotImplementedError(
+                f"GaussianSampler(method={method!r}) is not ported to "
+                f"dgs_tpu_torch yet: {_NOT_PORTED.get(method, 'unknown method')}")
+        self.debug = debug
+        self.config = config
+        self.method = method
+
+    # -- sampling ----------------------------------------------------------
+
+    def _validate(self, means, values, covariances, conics, samples):
+        """Shape (and, in debug mode, finiteness) validation with named
+        errors."""
+        P, D = means.shape
+        tri = tri_size(D)
+        checks = [
+            ("values", values, (P, None)),
+            ("covariances", covariances, (P, tri)),
+            ("conics", conics, (P, tri)),
+            ("samples", samples, (None, D)),
+        ]
+        for name, arr, want in checks:
+            if arr.ndim != 2 or any(
+                w is not None and s != w for s, w in zip(arr.shape, want)
+            ):
+                want_s = tuple("*" if w is None else w for w in want)
+                raise ValueError(
+                    f"{name} has shape {tuple(arr.shape)}, expected {want_s} "
+                    f"for P={P} Gaussians in D={D} dims"
+                )
+        if self.debug:
+            check_finite("preprocess inputs", {
+                "means": means, "values": values,
+                "covariances": covariances, "conics": conics,
+                "samples": samples,
+            })
+
+    def preprocess(self, means, values, covariances, conics, samples):
+        """Build and store the acceleration structure."""
+        P, D = means.shape
+        self._validate(means, values, covariances, conics, samples)
+        cfg = self.config.with_dims(D)
+        self.config = cfg
+        self.means, self.values, self.conics = means, values, conics
+        self.covariances, self.samples = covariances, samples
+
+        state = snapshot_call(self.debug, "preprocess", binning.build, cfg,
+                              means, covariances, samples)
+        self.state = state
+        # Scalar collision radii, as the aggregation subsystem consumes them
+        # (per-axis binning radii under cfg.axis_radii are not).
+        self.radii = (state.radii if state.radii.ndim == 1 else
+                      compute_radii(covariances.detach(), D,
+                                    cfg.radius_sigma, cfg.eig_floor))
+        if self.debug:
+            rect_of = int(state.overflow)
+            ent_of = int(state.entry_overflow)
+            if rect_of:
+                raise ValueError(
+                    f"binning overflow: {rect_of} Gaussians exceed "
+                    f"max_tiles_per_gaussian={cfg.max_tiles_per_gaussian}"
+                    "; raise it in SamplerConfig (see "
+                    "dgs_tpu_torch.utils.native.plan_capacities)"
+                )
+            if ent_of:
+                raise ValueError(
+                    f"binning entry overflow: {ent_of} (gaussian, tile) "
+                    "entries dropped; raise "
+                    f"entry_capacity_factor={cfg.entry_capacity_factor} "
+                    "in SamplerConfig"
+                )
+
+    def _run(self, orders) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        outs = snapshot_call(
+            self.debug, "sample", sampling.sample_tiled_multi,
+            tuple(orders), cfg, self.means, self.values, self.conics,
+            self.samples, self.state, unwrapped=cfg.unwrapped_kernels,
+        )
+        return dict(zip(orders, outs))
+
+    def sample_gaussians(self):
+        return self._run(("value",))["value"]
+
+    def sample_gaussians_derivative(self):
+        return self._run(("derivative",))["derivative"]
+
+    def sample_gaussians_laplacian(self):
+        return self._run(("laplacian",))["laplacian"]
+
+    def sample_gaussians_third_derivative(self):
+        return self._run(("third",))["third"]
+
+    def sample_all(self, orders=sampling.ALL_ORDERS):
+        """Fused evaluation of several orders in one pairwise pass."""
+        return self._run(tuple(orders))
+
+    # -- neighbor aggregation ---------------------------------------------
+
+    def preprocess_aggregate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "neighbour aggregation is not ported to dgs_tpu_torch yet: "
+            "ROADMAP.md item 12 (aggregation)")
+
+    def aggregate_neighbors(self, *args, **kwargs):
+        raise NotImplementedError(
+            "neighbour aggregation is not ported to dgs_tpu_torch yet: "
+            "ROADMAP.md item 12 (aggregation)")

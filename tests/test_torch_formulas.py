@@ -1,0 +1,158 @@
+"""dgs_tpu_torch.ops.formulas against dgs_tpu.ops.formulas, and the CUDA
+kernels' copy of the same math (csrc/pair_math.cuh) built for the host with
+g++ against the torch formulas."""
+
+import ctypes
+import os
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgs_tpu.ops import formulas as jf
+from dgs_tpu_torch.config import tri_size
+from dgs_tpu_torch.ops import formulas as tf
+
+from conftest import make_gaussians
+
+torch.set_num_threads(2)
+
+ORDERS = ("value", "derivative", "laplacian", "third")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def assert_close(got, ref, err_msg=""):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(
+        np.asarray(got), ref, rtol=2e-4,
+        atol=1e-5 * max(1.0, float(np.abs(ref).max(initial=0.0))),
+        err_msg=err_msg)
+
+
+def _pairs(rng, D, n=200):
+    """Pair displacements spanning the torus and packed conics."""
+    _, _, _, conics = make_gaussians(rng, n, D, 1)
+    X = rng.uniform(-1.5, 1.5, (n, D)).astype(np.float32)
+    return X, conics
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_pair_terms_match(rng, D):
+    X, conics = _pairs(rng, D)
+    tri = tri_size(D)
+    for period in (None, 2.0):
+        jX = [jf.wrap(jnp.asarray(X[:, d]), period) for d in range(D)]
+        tX = [tf.wrap(torch.from_numpy(X[:, d]), period) for d in range(D)]
+        for a, b in zip(jX, tX):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+        jc = [jnp.asarray(conics[:, t]) for t in range(tri)]
+        tc = [torch.from_numpy(conics[:, t]) for t in range(tri)]
+        jG, ja = jf.power_terms(jX, jc)
+        tG, ta = tf.power_terms(tX, tc)
+        assert_close(tG, jG, "G")
+        for a, b in zip(ja, ta):
+            assert_close(b, a, "a")
+        for order in ORDERS:
+            pairs = [
+                (tf.components(order, tX, tc, tG, ta),
+                 jf.components(order, jX, jc, jG, ja)),
+                (tf.components_unique(order, tX, tc, tG, ta),
+                 jf.components_unique(order, jX, jc, jG, ja)),
+                (tf.component_polys(order, tX, tc, ta),
+                 jf.component_polys(order, jX, jc, ja)),
+            ]
+            for got, ref in pairs:
+                assert len(got) == len(ref)
+                for g, r in zip(got, ref):
+                    assert_close(g, r, f"{order} period={period}")
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_symmetry_tables_match(D):
+    for order in ORDERS:
+        assert tf.sym_indices(order, D) == jf.sym_indices(order, D)
+        assert tf.n_unique(order, D) == jf.n_unique(order, D)
+        assert tf.full_to_unique(order, D) == jf.full_to_unique(order, D)
+        assert tf.sym_multiplicity(order, D) == jf.sym_multiplicity(order, D)
+    assert tf.unique_diag_indices(D) == jf.unique_diag_indices(D)
+
+
+_HARNESS = r"""
+#include "pair_math.cuh"
+
+template <int D, int M>
+static int run(const float* X, const float* con, float* w) {
+  float x[D], c[dgs::tri_size(D)], ww[dgs::total_unique(D, M)];
+  for (int d = 0; d < D; ++d) x[d] = X[d];
+  for (int t = 0; t < dgs::tri_size(D); ++t) c[t] = con[t];
+  if (!dgs::pair_weights<D, M>(x, c, ww)) return 0;
+  for (int k = 0; k < dgs::total_unique(D, M); ++k) w[k] = ww[k];
+  return 1;
+}
+
+#define CASE(D, M) case D * 16 + M: return run<D, M>(X, con, w);
+#define ALL(D) CASE(D, 1) CASE(D, 2) CASE(D, 3) CASE(D, 4) CASE(D, 5)      \
+  CASE(D, 6) CASE(D, 7) CASE(D, 8) CASE(D, 9) CASE(D, 10) CASE(D, 11)     \
+  CASE(D, 12) CASE(D, 13) CASE(D, 14) CASE(D, 15)
+
+extern "C" int pair_weights(int D, int mask, const float* X, const float* con,
+                            float* w) {
+  switch (D * 16 + mask) { ALL(1) ALL(2) ALL(3) }
+  return -1;
+}
+
+extern "C" float wrap(float x, float period) { return dgs::wrap(x, period); }
+"""
+
+
+@pytest.fixture(scope="module")
+def pair_math(tmp_path_factory):
+    d = tmp_path_factory.mktemp("pair_math")
+    src = d / "harness.cpp"
+    src.write_text(_HARNESS)
+    lib = d / "harness.so"
+    subprocess.run(
+        ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
+         os.path.join(REPO, "dgs_tpu_torch", "csrc"), "-o", str(lib),
+         str(src)], check=True, capture_output=True)
+    h = ctypes.CDLL(str(lib))
+    fp = ctypes.POINTER(ctypes.c_float)
+    h.pair_weights.argtypes = [ctypes.c_int, ctypes.c_int, fp, fp, fp]
+    h.pair_weights.restype = ctypes.c_int
+    h.wrap.argtypes = [ctypes.c_float, ctypes.c_float]
+    h.wrap.restype = ctypes.c_float
+    return h
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_cuda_pair_math_matches_formulas(pair_math, rng, D):
+    """The kernel header's per-pair weights, for every order set, equal the
+    torch formulas' unique components (and its wrap equals formulas.wrap)."""
+    X, conics = _pairs(rng, D, n=40)
+    X = tf.wrap(torch.from_numpy(X), 2.0).numpy()
+    fp = ctypes.POINTER(ctypes.c_float)
+    for x in rng.uniform(-3.0, 3.0, 50).astype(np.float32):
+        assert pair_math.wrap(float(x), 2.0) == np.float32(
+            tf.wrap(torch.tensor(x), 2.0).item())
+    tri = tri_size(D)
+    for mask in range(1, 16):
+        orders = [o for b, o in enumerate(ORDERS) if mask & (1 << b)]
+        K = sum(tf.n_unique(o, D) for o in orders)
+        for p in range(X.shape[0]):
+            Xs = [torch.tensor([X[p, d]]) for d in range(D)]
+            con = [torch.tensor([conics[p, t]]) for t in range(tri)]
+            G, a = tf.power_terms(Xs, con)
+            ref = [w.item() for o in orders
+                   for w in tf.components_unique(o, Xs, con, G, a)]
+            xa = np.ascontiguousarray(X[p], np.float32)
+            ca = np.ascontiguousarray(conics[p], np.float32)
+            w = np.zeros(K, np.float32)
+            kept = pair_math.pair_weights(
+                D, mask, xa.ctypes.data_as(fp), ca.ctypes.data_as(fp),
+                w.ctypes.data_as(fp))
+            assert kept in (0, 1)
+            if not kept:
+                w[:] = 0.0   # the kernel skips the pair
+            assert_close(w, ref, f"D={D} mask={mask} pair={p}")

@@ -1,0 +1,141 @@
+"""The port's GaussianSampler facade and PIGS evaluation end to end against
+dgs_tpu's, and the facade's named errors."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgs_tpu.config import SamplerConfig as JConfig
+from dgs_tpu.models import pigs as jpigs
+from dgs_tpu.models.field import init_field as jinit
+from dgs_tpu.sampler import GaussianSampler as JSampler
+from dgs_tpu_torch.config import SamplerConfig as TConfig
+from dgs_tpu_torch.models import pigs as tpigs
+from dgs_tpu_torch.models.field import GaussianField
+from dgs_tpu_torch.sampler import GaussianSampler as TSampler
+
+from conftest import make_gaussians, make_samples
+
+torch.set_num_threads(2)
+
+ORDERS = ("value", "derivative", "laplacian", "third")
+
+
+def assert_close(got, ref, err_msg=""):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(
+        np.asarray(got), ref, rtol=2e-4,
+        atol=1e-5 * max(1.0, float(np.abs(ref).max(initial=0.0))),
+        err_msg=err_msg)
+
+
+def _data(rng, P=300, N=2000, D=2, C=4, **kw):
+    m, v, cov, c = make_gaussians(rng, P, D, C, **kw)
+    s = make_samples(rng, N, D)
+    return (m, v, cov, c, s)
+
+
+def test_facade_matches_jax_facade(rng):
+    arrays = _data(rng, sigma_range=(0.02, 0.1))
+    kw = dict(tile_size=0.1275, max_tiles_per_gaussian=8,
+              entry_capacity_factor=40.0)
+    js = JSampler(debug=True, config=JConfig(**kw))
+    js.preprocess(*map(jnp.asarray, arrays))
+    ts = TSampler(debug=True, config=TConfig(**kw))
+    ts.preprocess(*map(torch.from_numpy, arrays))
+    np.testing.assert_allclose(ts.radii.numpy(), np.asarray(js.radii),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(ts.state.ent_gid.numpy(),
+                                  np.asarray(js.state.ent_gid))
+    singles = [
+        (js.sample_gaussians, ts.sample_gaussians),
+        (js.sample_gaussians_derivative, ts.sample_gaussians_derivative),
+        (js.sample_gaussians_laplacian, ts.sample_gaussians_laplacian),
+        (js.sample_gaussians_third_derivative,
+         ts.sample_gaussians_third_derivative),
+    ]
+    for order, (jfn, tfn) in zip(ORDERS, singles):
+        ref, got = jfn(), tfn()
+        assert got.shape == ref.shape, order
+        assert_close(got, ref, order)
+    ref = js.sample_all(("value", "derivative", "laplacian"))
+    got = ts.sample_all(("value", "derivative", "laplacian"))
+    assert list(got) == list(ref)
+    for order in ref:
+        assert_close(got[order], ref[order], order)
+
+
+def test_facade_unwrapped_config_matches(rng):
+    arrays = _data(rng, P=200, N=600, sigma_range=(0.02, 0.06))
+    kw = dict(tile_size=0.2, max_tiles_per_gaussian=6,
+              entry_capacity_factor=10.0, unwrapped_kernels=True)
+    js = JSampler(config=JConfig(**kw))
+    js.preprocess(*map(jnp.asarray, arrays))
+    ts = TSampler(config=TConfig(**kw))
+    ts.preprocess(*map(torch.from_numpy, arrays))
+    ref, got = js.sample_all(), ts.sample_all()
+    for order in ORDERS:
+        assert_close(got[order], ref[order], order)
+
+
+@pytest.mark.parametrize("name,index,shape", [
+    ("values", 1, (300,)),
+    ("covariances", 2, (300, 2)),
+    ("conics", 3, (299, 3)),
+    ("samples", 4, (10, 3)),
+])
+def test_named_shape_errors(rng, name, index, shape):
+    arrays = [torch.from_numpy(a) for a in _data(rng, N=50)]
+    arrays[index] = torch.zeros(shape)
+    with pytest.raises(ValueError, match=f"^{name} has shape"):
+        TSampler().preprocess(*arrays)
+
+
+def test_debug_errors(rng):
+    arrays = [torch.from_numpy(a) for a in _data(rng, N=50)]
+    bad = [a.clone() for a in arrays]
+    bad[0][3, 1] = float("nan")
+    with pytest.raises(FloatingPointError, match="means"):
+        TSampler(debug=True).preprocess(*bad)
+    # footprints beyond the per-axis duplicate cap
+    wide = [torch.from_numpy(a) for a in _data(rng, N=50,
+                                                sigma_range=(0.5, 0.8))]
+    with pytest.raises(ValueError, match="binning overflow"):
+        TSampler(debug=True, config=TConfig(max_tiles_per_gaussian=1)
+                 ).preprocess(*wide)
+    # entries beyond the entry capacity
+    with pytest.raises(ValueError, match="binning entry overflow"):
+        TSampler(debug=True, config=TConfig(max_tiles_per_gaussian=4,
+                                            entry_capacity_factor=0.1)
+                 ).preprocess(*wide)
+    # without debug the same data runs (the counters report the overflow)
+    s = TSampler(config=TConfig(max_tiles_per_gaussian=1))
+    s.preprocess(*wide)
+    assert int(s.state.overflow) > 0
+
+
+def test_unported_paths_raise():
+    for method in ("pallas", "dense", "chunked"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+            TSampler(method=method)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
+        TSampler().preprocess_aggregate()
+
+
+def test_field_outputs_matches_jax(rng):
+    jf = jinit(jax.random.PRNGKey(3), 120, 2, 4, sigma=0.05)
+    tf = GaussianField.from_numpy(*[np.asarray(a) for a in jf])
+    x = make_samples(rng, 400, 2)
+    kw = dict(tile_size=0.25, max_tiles_per_gaussian=6)
+    ref, jdiag = jpigs.field_outputs(JConfig(**kw), jf, jnp.asarray(x))
+    got, tdiag = tpigs.field_outputs(TConfig(**kw), tf, torch.from_numpy(x))
+    assert set(tdiag) >= set(jdiag)
+    for order in ref:
+        assert_close(got[order].detach(), ref[order], order)
+    with pytest.raises(NotImplementedError, match="tiled backward kernel"):
+        got["value"].sum().backward()
+    with pytest.raises(NotImplementedError):
+        tpigs.field_outputs(TConfig(**kw), tf, torch.from_numpy(x),
+                            method="dense")
