@@ -6,22 +6,49 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
-  1. device  - torch and CUDA versions, the card's name and power limit.
-  2. build   - builds the CUDA kernel library (nvcc, sm_90a) and the host
-               capacity planner (g++) from the sources; seconds and the
-               ptxas register / spill report.
-  3. parity  - the tiled forward CUDA kernel against its plain torch version
-               on the same operands: D in {1, 2, 3}, all four orders,
-               wrapped and unwrapped, plus full-cover (wide) Gaussians, at
-               P = 5,000 x N = 50,000; and the facade against the dense
-               masked oracle on a small input.
-  4. slice   - the evaluation path at full width: GaussianSampler
-               (method "tiled") preprocess + sample_all(value, derivative,
-               laplacian) at P = 100,000 Gaussians x N = 1,000,000 samples,
-               D = 2, C = 4, with capacities from the host planner.  Checks
-               the diagnostics, that the main path launched the kernel,
-               finite outputs, and kernel-vs-plain parity on all samples;
-               times the kernel, the plain version and the path end to end.
+  1. device      - torch and CUDA versions, the card's name and power limit.
+  2. build       - builds the CUDA kernel library (one nvcc per source, in
+                   parallel, sm_90a) and the host capacity planner (g++) from
+                   the sources; seconds and the ptxas register / spill
+                   report.
+  3. parity      - the tiled forward CUDA kernel against its plain torch
+                   version on the same operands: D in {1, 2, 3}, all four
+                   orders, wrapped and unwrapped, plus full-cover (wide)
+                   Gaussians, at P = 5,000 x N = 50,000; and the facade
+                   against the dense masked oracle on a small input.
+     parity_bwd  - the tiled backward CUDA kernel against its plain version
+                   on the same operands and a random cotangent: D in
+                   {1, 2, 3} x wrapped/unwrapped x C in {1, 4, 6}, all four
+                   orders, plus the wide case and a non-canonical order set;
+                   then the op's gradients on the card against autograd
+                   through the dense masked oracle (twice, bitwise equal).
+  4. slice       - the evaluation path at full width: GaussianSampler
+                   (method "tiled") preprocess + sample_all(value,
+                   derivative, laplacian) at P = 100,000 Gaussians x
+                   N = 1,000,000 samples, D = 2, C = 4, with capacities from
+                   the host planner.  Checks the diagnostics, that the path
+                   launched the forward kernel once per evaluation and the
+                   backward kernel never, finite outputs, and kernel-vs-plain
+                   parity on all samples; times the kernel, the plain
+                   version and the path end to end.
+  5. train_step  - the training step at the same width: binning, the fused
+                   forward, the loss (the multiplicity-weighted sum of
+                   squares of the padded, sorted, unique outputs over N) and
+                   backward() to means, values and conics.  Checks the
+                   diagnostics, one launch of each kernel per step, finite
+                   and bitwise-reproducible gradients, and the backward
+                   kernel's per-entry rows against its plain version; times
+                   the backward kernel, its plain version and the step.
+  6. pigs        - PIGS training (config 4, phase A of tools/train_100k.py)
+                   through dgs_tpu_torch.models.pigs.train: P = 100,000,
+                   D = 2, C = 1, 262,144 collocation points, Adam lr 2e-3,
+                   120 steps.  Checks overflow 0 on every logged chunk, that
+                   the loss at least halves and that both kernels ran.
+  7. profile     - where a step's time goes, for the training step and the
+                   PIGS step: device busy time per step under torch.profiler
+                   (the union of the device's activity intervals), the
+                   unprofiled step time, the device's idle share and the
+                   largest device items.
 
 Then the kernels line and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -42,6 +69,7 @@ from dgs_tpu_torch.binning import grid as binning
 from dgs_tpu_torch.config import ORDERS, SamplerConfig
 from dgs_tpu_torch.kernels import _build
 from dgs_tpu_torch.kernels import tiled as ktiled
+from dgs_tpu_torch.models import pigs
 from dgs_tpu_torch.models.field import init_field
 from dgs_tpu_torch.ops import formulas, sampling
 from dgs_tpu_torch.oracle import dense as oracle
@@ -50,7 +78,10 @@ from dgs_tpu_torch.utils import native
 
 RTOL = 2e-4          # the JAX suite's kernel-vs-oracle tolerance:
 ATOL_REL = 1e-5      # atol = 1e-5 * max(1, max|ref|)
+GRAD_RTOL = 2e-3     # its gradient tolerance (test_binning_tiled.py:155)
 SLICE_ORDERS = ("value", "derivative", "laplacian")
+HEADLINE = dict(tile_size=0.051, eig_floor=1e-12, max_tiles_per_gaussian=3,
+                axis_radii=True, ellip_cull=False)
 
 
 def emit(phase, **fields):
@@ -74,6 +105,29 @@ def compare(got, ref, orders, D, C):
         errs[order] = (float(diff.max()),
                        float(diff.max()) / max(float(r.abs().max()), 1e-30))
         k0 += formulas.n_unique(order, D)
+    return errs
+
+
+def compare_rows(got, ref, D, C, rtol=GRAD_RTOL):
+    """Per row group (means, conics, values) of the backward's packed
+    (D + tri + C, Ep) rows: max abs error and max abs error / max|ref|,
+    raising when a group is outside the tolerance."""
+    tri = D * (D + 1) // 2
+    groups = {"means": slice(0, D), "conics": slice(D, D + tri),
+              "values": slice(D + tri, D + tri + C)}
+    errs = {}
+    for name, rows in groups.items():
+        g, r = got[rows], ref[rows]
+        scale = max(1.0, float(r.abs().max()))
+        diff = (g - r).abs()
+        bad = diff > ATOL_REL * scale + rtol * r.abs()
+        if bool(bad.any()):
+            raise AssertionError(
+                f"backward kernel disagrees with the plain version on "
+                f"{name}: {int(bad.sum())} values, max abs err "
+                f"{float(diff.max())}")
+        errs[name] = (float(diff.max()),
+                      float(diff.max()) / max(float(r.abs().max()), 1e-30))
     return errs
 
 
@@ -199,21 +253,122 @@ def phase_parity(dev, P_small=5000, N_small=50000):
         emit("parity_oracle", D=D, P=300, N=2000, max_abs_err=err)
 
 
-def phase_slice(dev, P=100_000, N=1_000_000):
-    D, C = 2, 4
-    g = torch.Generator(device=dev).manual_seed(0)
+def phase_parity_bwd(dev, P_small=5000, N_small=50000):
+    cases = [(D, unwrapped, 0.03, C, ORDERS)
+             for D in (1, 2, 3) for unwrapped in (False, True)
+             for C in (1, 4, 6)]
+    cases.append((2, False, 0.6, 4, ORDERS))            # full-cover, wrapped
+    cases.append((3, False, 0.03, 3, ("laplacian", "value", "third")))
+    for D, unwrapped, sigma, C, orders in cases:
+        P, N = (P_small if sigma < 0.5 else 200), N_small
+        g = torch.Generator(device=dev).manual_seed(30 + D)
+        field = init_field(g, P, D, C, sigma=sigma)
+        samples = 2.0 * torch.rand((N, D), generator=g, device=dev) - 1.0
+        with torch.no_grad():
+            means, values = field.means.detach(), field.values.detach()
+            covs, conics = field.covariances(), field.conics()
+        cfg, plan = planned_config(
+            SamplerConfig(tile_size=0.1275, eig_floor=1e-12).with_dims(D),
+            means, covs, samples)
+        if unwrapped and not plan["safe_unwrapped"]:
+            raise AssertionError(f"D={D}: planner does not certify the "
+                                 "unwrapped kernels for this case")
+        cfg = dataclasses.replace(cfg, unwrapped_kernels=unwrapped)
+        state = binning.build(cfg, means, covs, samples)
+        assert int(state.overflow) == 0 and int(state.entry_overflow) == 0
+        geom, smp, _, _ = operands(state, (means, values, conics), samples,
+                                   cfg)
+        s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+        K = ktiled.total_unique(orders, D)
+        ct = torch.randn((K * C, smp.shape[1]), generator=g, device=dev)
+        period = None if unwrapped else cfg.period
+        got = ktiled.tiled_backward(orders, period, D, C, geom, smp, ct,
+                                    s_lo, s_n)
+        ref = ktiled.tiled_backward_plain(orders, period, D, C, geom, smp,
+                                          ct, s_lo, s_n)
+        torch.cuda.synchronize()
+        errs = compare_rows(got, ref, D, C)
+        emit("parity_bwd", D=D, unwrapped=unwrapped, sigma=sigma, C=C,
+             orders=list(orders), P=P, N=N,
+             entries=int((state.ent_tile < binning.num_tiles(cfg, D)).sum()),
+             err={k: {"max_abs": e[0], "rel": e[1]} for k, e in errs.items()})
+
+    # The op's gradients on the card against autograd through the dense
+    # masked oracle, all four orders through the mirrored public outputs;
+    # two runs must agree bitwise (the segment-sum and the mirror's
+    # backward are deterministic).
+    for D in (1, 2, 3):
+        g = torch.Generator(device=dev).manual_seed(40 + D)
+        field = init_field(g, 300, D, 3, sigma=0.05)
+        samples = 2.0 * torch.rand((2000, D), generator=g, device=dev) - 1.0
+        with torch.no_grad():
+            m, v = field.means.detach(), field.values.detach()
+            cov, con = field.covariances(), field.conics()
+        cfg, _ = planned_config(SamplerConfig(tile_size=0.25).with_dims(D),
+                                m, cov, samples)
+        state = binning.build(cfg, m, cov, samples)
+        mask = binning.pair_mask_dense(cfg, state, samples, 300)
+
+        def grads(loss):
+            args = [a.clone().requires_grad_() for a in (m, v, con)]
+            return torch.autograd.grad(loss(*args), args)
+
+        def loss_tiled(m_, v_, c_):
+            outs = sampling.sample_tiled_multi(
+                ORDERS, cfg, m_, v_, c_, samples, state,
+                unwrapped=cfg.unwrapped_kernels)
+            return sum((o ** 2).sum() for o in outs)
+
+        def loss_oracle(m_, v_, c_):
+            return sum((oracle.evaluate(o, m_, v_, c_, samples,
+                                        period=cfg.period,
+                                        pair_mask=mask) ** 2).sum()
+                       for o in ORDERS)
+
+        got, again = grads(loss_tiled), grads(loss_tiled)
+        ref = grads(loss_oracle)
+        err = {}
+        for name, a, b, r in zip(("means", "values", "conics"), got, again,
+                                 ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"D={D} d{name}: two runs differ")
+            scale = max(1.0, float(r.abs().max()))
+            diff = (a - r).abs()
+            if bool((diff > ATOL_REL * scale + GRAD_RTOL * r.abs()).any()):
+                raise AssertionError(f"op grads vs oracle D={D} d{name}: "
+                                     f"max abs err {float(diff.max())}")
+            err[name] = float(diff.max())
+        emit("parity_bwd_oracle", D=D, P=300, N=2000, max_abs_err=err,
+             bitwise_repeatable=True)
+
+
+def headline(dev, P, N, C=4, seed=0):
+    """The headline field and samples (D = 2, sigma = 2 / sqrt(P)) and
+    its planned config."""
+    D = 2
+    g = torch.Generator(device=dev).manual_seed(seed)
     field = init_field(g, P, D, C, sigma=2.0 / math.sqrt(P))
     samples = 2.0 * torch.rand((N, D), generator=g, device=dev) - 1.0
     with torch.no_grad():
         means, values = field.means.detach(), field.values.detach()
         covs, conics = field.covariances(), field.conics()
     t0 = time.perf_counter()
-    cfg, plan = planned_config(
-        SamplerConfig(tile_size=0.051, eig_floor=1e-12,
-                      max_tiles_per_gaussian=3, axis_radii=True,
-                      ellip_cull=False),
-        means, covs, samples)
-    plan_s = time.perf_counter() - t0
+    cfg, _ = planned_config(SamplerConfig(**HEADLINE), means, covs, samples)
+    return (means, values, covs, conics), samples, cfg, \
+        time.perf_counter() - t0
+
+
+def pair_counts(state, cfg, D):
+    T = binning.num_tiles(cfg, D)
+    ent_count = torch.diff(state.ent_start)[:T].long()
+    smp_count = torch.diff(state.s_start)[:T].long()
+    return int((ent_count * smp_count).sum()), int(ent_count.sum())
+
+
+def phase_slice(dev, P=100_000, N=1_000_000):
+    D, C = 2, 4
+    (means, values, covs, conics), samples, cfg, plan_s = headline(
+        dev, P, N, C)
     sampler = GaussianSampler(config=cfg)
 
     def run():
@@ -223,16 +378,18 @@ def phase_slice(dev, P=100_000, N=1_000_000):
     run()                               # warm-up (allocator, planner caches)
     torch.cuda.synchronize()
     ktiled.tiled_forward.launches = 0
+    ktiled.tiled_backward.launches = 0
     e2e = []
     for _ in range(5):
         t0 = time.perf_counter()
         outs = run()
         torch.cuda.synchronize()
         e2e.append((time.perf_counter() - t0) * 1e3)
-    launches = ktiled.tiled_forward.launches
-    if launches != 5:
-        raise AssertionError(f"main path launched tiled_forward {launches} "
-                             "times in 5 runs")
+    launches = {"tiled_forward": ktiled.tiled_forward.launches,
+                "tiled_backward": ktiled.tiled_backward.launches}
+    # Evaluation takes no gradient: five forward launches, no backward.
+    if launches != {"tiled_forward": 5, "tiled_backward": 0}:
+        raise AssertionError(f"5 evaluations launched {launches}")
 
     state = sampler.state
     _, diag = sampling.sample_binned(cfg, means, values, conics, covs,
@@ -249,11 +406,7 @@ def phase_slice(dev, P=100_000, N=1_000_000):
         if not bool(torch.isfinite(outs[o]).all()):
             raise AssertionError(f"non-finite {o} output")
 
-    T = binning.num_tiles(cfg, D)
-    ent_count = torch.diff(state.ent_start)[:T].long()
-    smp_count = torch.diff(state.s_start)[:T].long()
-    pairs = int((ent_count * smp_count).sum())
-    entries = int(ent_count.sum())
+    pairs, entries = pair_counts(state, cfg, D)
 
     period = None if cfg.unwrapped_kernels else cfg.period
     geom, smp, lo, n = operands(state, (means, values, conics), samples, cfg)
@@ -277,9 +430,209 @@ def phase_slice(dev, P=100_000, N=1_000_000):
          kernel_ms=kernel_ms, plain_ms=plain_ms,
          e2e_ms_median=statistics.median(e2e), e2e_ms=e2e,
          planner_s=round(plan_s, 3))
-    return {"launches": launches,
-            "max_abs_err": max(e[0] for e in errs.values()),
-            "ms": kernel_ms, "plain_ms": plain_ms}
+    return launches, {"max_abs_err": max(e[0] for e in errs.values()),
+                      "ms": kernel_ms, "plain_ms": plain_ms}
+
+
+def phase_train_step(dev, P=100_000, N=1_000_000):
+    D, C = 2, 4
+    (means, values, covs, conics), samples, cfg, plan_s = headline(
+        dev, P, N, C)
+    sb = binning.bin_samples(cfg, samples)   # the samples are fixed
+    mult = {o: torch.tensor(formulas.sym_multiplicity(o, D),
+                            dtype=torch.float32, device=dev)
+            for o in SLICE_ORDERS}
+    params = [t.clone().requires_grad_() for t in (means, values, conics)]
+
+    def step():
+        """One training step of the bench's loss (bench.py:195-214): the
+        Gaussians re-binned, the fused forward, backward()."""
+        for p in params:
+            p.grad = None
+        outs, diag = sampling.sample_binned(
+            cfg, params[0], params[1], params[2], covs, samples,
+            SLICE_ORDERS, sorted_outputs=True, unique_outputs=True,
+            padded_outputs=True, sample_binning=sb)
+        loss = sum(torch.einsum("ucn,u->", o * o, mult[k])
+                   for k, o in outs.items()) / N
+        loss.backward()
+        return loss.detach(), diag
+
+    loss, diag = step()                      # warm-up
+    torch.cuda.synchronize()
+    ktiled.tiled_forward.launches = 0
+    ktiled.tiled_backward.launches = 0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loss, diag = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"tiled_forward": ktiled.tiled_forward.launches,
+                "tiled_backward": ktiled.tiled_backward.launches}
+    if launches != {"tiled_forward": 5, "tiled_backward": 5}:
+        raise AssertionError(f"5 training steps launched {launches}")
+    diag = {k: int(v) for k, v in diag.items() if k != "perm"}
+    if any(diag.values()):
+        raise AssertionError(f"overflow diagnostics not zero: {diag}")
+    grads = [p.grad.clone() for p in params]
+    for name, gr, p in zip(("means", "values", "conics"), grads, params):
+        if gr.shape != p.shape or not bool(torch.isfinite(gr).all()):
+            raise AssertionError(f"d{name}: non-finite or misshapen")
+    step()
+    torch.cuda.synchronize()
+    repeat = [bool(torch.equal(a, p.grad)) for a, p in zip(grads, params)]
+    if not all(repeat):
+        raise AssertionError(f"gradients differ between two runs: {repeat}")
+
+    # The backward kernel against its plain version on this step's own
+    # operands and cotangent (d loss / d packed outputs).
+    state = binning.build(cfg, means, covs, samples, sample_binning=sb)
+    pairs, entries = pair_counts(state, cfg, D)
+    geom, smp, lo, n = operands(state, (means, values, conics), samples, cfg)
+    period = None if cfg.unwrapped_kernels else cfg.period
+    with torch.no_grad():
+        packed = ktiled.tiled_forward(SLICE_ORDERS, period, D, C, geom, smp,
+                                      lo, n)
+        w = torch.cat([mult[o].repeat_interleave(C) for o in SLICE_ORDERS])
+        ct = (2.0 / N) * w[:, None] * packed
+    s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+    swept = int(s_n.long().sum()) * ktiled.BLOCK_E
+    got = ktiled.tiled_backward(SLICE_ORDERS, period, D, C, geom, smp, ct,
+                                s_lo, s_n)
+    ref = ktiled.tiled_backward_plain(SLICE_ORDERS, period, D, C, geom, smp,
+                                      ct, s_lo, s_n)
+    torch.cuda.synchronize()
+    errs = compare_rows(got, ref, D, C)
+    bwd_ms = cuda_ms(lambda: ktiled.tiled_backward(
+        SLICE_ORDERS, period, D, C, geom, smp, ct, s_lo, s_n))
+    bwd_plain_ms = cuda_ms(lambda: ktiled.tiled_backward_plain(
+        SLICE_ORDERS, period, D, C, geom, smp, ct, s_lo, s_n), reps=3)
+    emit("train_step", P=P, N=N, D=D, C=C, tile=cfg.tile_size,
+         unwrapped_kernels=cfg.unwrapped_kernels,
+         max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+         entries=entries, pairs=pairs, swept_pairs_bound=swept,
+         diagnostics=diag, launches=launches, loss=float(loss),
+         grads_bitwise_repeatable=True,
+         err={k: {"max_abs": e[0], "rel": e[1]} for k, e in errs.items()},
+         bwd_kernel_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+         step_ms_median=statistics.median(times), step_ms=times,
+         planner_s=round(plan_s, 3))
+    return launches, {"max_abs_err": max(e[0] for e in errs.values()),
+                      "ms": bwd_ms, "plain_ms": bwd_plain_ms}, step
+
+
+PIGS_CFG = dict(tile_size=0.051, eig_floor=1e-12, axis_radii=True,
+                ellip_cull=True)
+PIGS_P, PIGS_COLLOCATION, PIGS_LR = 100_000, 262_144, 2e-3
+
+
+def phase_pigs(dev, P=PIGS_P, steps=120, n_collocation=PIGS_COLLOCATION):
+    ktiled.tiled_forward.launches = 0
+    ktiled.tiled_backward.launches = 0
+    t0 = time.perf_counter()
+    state, history = pigs.train(
+        SamplerConfig(**PIGS_CFG), P=P, D=2, C=1, steps=steps,
+        n_collocation=n_collocation, learning_rate=PIGS_LR,
+        sigma=2.0 / math.sqrt(P), log_every=max(steps // 6, 1), device=dev)
+    wall = time.perf_counter() - t0
+    launches = {"tiled_forward": ktiled.tiled_forward.launches,
+                "tiled_backward": ktiled.tiled_backward.launches}
+    # Each step evaluates the collocation and the data points: two
+    # launches of each kernel.
+    if launches != {"tiled_forward": 2 * steps,
+                     "tiled_backward": 2 * steps}:
+        raise AssertionError(f"{steps} PIGS steps launched {launches}")
+    for h in history:
+        over = {k: h[k] for k in pigs.DIAGNOSTICS if h[k]}
+        if over:
+            raise AssertionError(f"overflow at step {h['step']}: {over}")
+    first, last = history[0]["loss"], history[-1]["loss"]
+    if not (math.isfinite(last) and last < 0.5 * first):
+        raise AssertionError(f"PIGS loss did not halve: {first} -> {last}")
+    warm = [h["t_step_s"] for h in history[1:]]
+    emit("pigs", P=P, D=2, C=1, steps=steps, n_collocation=n_collocation,
+         t_step_s_warm=min(warm), t_step_s=[h["t_step_s"] for h in history],
+         wall_s=round(wall, 3), loss_first=first, loss_last=last,
+         loss_curve=[h["loss"] for h in history],
+         loss_steps=[h["step"] for h in history], launches=launches)
+    return launches
+
+
+def device_profile(fn, iters):
+    """Device time per call of fn() under torch.profiler, after one
+    warm-up call: ``busy_ms`` is the union of the intervals of every device
+    activity (kernels, copies, sets; user annotations left out), so
+    overlapping or nested items count once; ``top`` lists the largest items
+    by summed device time per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.end - e.time_range.start)
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    spans.sort()
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy_us, lo, hi = busy_us + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy_us += hi - lo
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return busy_us / 1e3 / iters, [[name[:80], t / 1e3 / iters]
+                                   for name, t in top]
+
+
+def host_ms(fn, reps):
+    """Per-call synchronised host-clock times of fn(), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_profile(dev, train_step, pigs_iters=10):
+    """Where a step's time goes: device busy time per step under the
+    profiler against the unprofiled step time (median, synchronised host
+    clock), for the headline training step and the PIGS config 4 step."""
+    pigs_cfg = SamplerConfig(**PIGS_CFG)
+    u_star, f_rhs = pigs.manufactured_solution(2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    field = init_field(gen, PIGS_P, 2, 1, sigma=2.0 / math.sqrt(PIGS_P))
+    opt = torch.optim.Adam(field.parameters(), lr=PIGS_LR, eps=1e-8)
+    probe = 2.0 * torch.rand((PIGS_COLLOCATION, 2), generator=gen,
+                             device=dev) - 1.0
+    pigs_cfg = pigs.auto_config(pigs_cfg, field, probe, PIGS_P)
+    pigs_step = pigs.make_train_step(pigs_cfg, opt, f_rhs, u_star, gen,
+                                     n_collocation=PIGS_COLLOCATION)
+    for path, fn, iters in (("train_step", train_step, 5),
+                            ("pigs", lambda: pigs_step(field), pigs_iters)):
+        times = host_ms(fn, 2 * iters)
+        busy, top = device_profile(fn, iters)
+        step_ms = statistics.median(times)
+        emit("profile", path=path, step_ms_median=step_ms, step_ms=times,
+             device_busy_ms_per_step=busy,
+             idle_share=max(0.0, 1.0 - busy / step_ms), top=top)
 
 
 def main():
@@ -289,13 +642,27 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     phase_parity(dev)
-    k = phase_slice(dev)
-    print(json.dumps({"kernels": [{
-        "name": "tiled_forward", "route": "cuda",
-        "source": "dgs_tpu_torch/csrc/tiled_forward.cu",
-        "replaces": "dgs_tpu/kernels/tiled.py:727",
-        **k,
-    }]}), flush=True)
+    phase_parity_bwd(dev)
+    slice_launches, k_fwd = phase_slice(dev)
+    train_launches, k_bwd, train_step = phase_train_step(dev)
+    pigs_launches = phase_pigs(dev)
+    phase_profile(dev, train_step)
+    by_path = {name: {"slice": slice_launches[name],
+                      "train_step": train_launches[name],
+                      "pigs": pigs_launches[name]}
+               for name in ("tiled_forward", "tiled_backward")}
+    print(json.dumps({"kernels": [
+        {"name": "tiled_forward", "route": "cuda",
+         "source": "dgs_tpu_torch/csrc/tiled_forward.cu",
+         "replaces": "dgs_tpu/kernels/tiled.py:727",
+         "launches": slice_launches["tiled_forward"], **k_fwd,
+         "launches_by_path": by_path["tiled_forward"]},
+        {"name": "tiled_backward", "route": "cuda",
+         "source": "dgs_tpu_torch/csrc/tiled_backward.cu",
+         "replaces": "dgs_tpu/kernels/tiled.py:1338",
+         "launches": train_launches["tiled_backward"], **k_bwd,
+         "launches_by_path": by_path["tiled_backward"]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

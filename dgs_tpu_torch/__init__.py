@@ -1,9 +1,10 @@
 """PyTorch + CUDA port of the dgs_tpu Gaussian sampling engine.
 
-Slice 1, the evaluation path: ``GaussianSampler`` (method "tiled") and the
-functional ``sample_binned`` over the tile binning, with the tiled forward
-pass as a hand-written Hopper CUDA kernel.  Imports torch and numpy only;
-the JAX package ``dgs_tpu`` is the reference this port is tested against.
+The tile-binned path, evaluation and training: ``GaussianSampler`` (method
+"tiled"), the functional ``sample_binned`` and the PIGS trainer
+(``models.pigs``), with the tiled forward and backward passes as
+hand-written Hopper CUDA kernels.  Imports torch and numpy only; the JAX
+package ``dgs_tpu`` is the reference this port is tested against.
 """
 
 from .config import SamplerConfig, ORDERS, tri_size, tri_index  # noqa: F401

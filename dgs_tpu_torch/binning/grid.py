@@ -403,3 +403,13 @@ def forward_geometry(state: BinningState, block_n: int, block_e: int):
         state.s_tile[0], block_n, state.ent_start, block_e,
         state.s_tile.shape[1],
     )
+
+
+def backward_geometry(state: BinningState, block_e: int, block_n: int):
+    """(base, nblocks) over sorted-sample blocks for each entry block; with
+    ``block_n == 1`` these are each block's exact sample range
+    [base, base + nblocks)."""
+    return _range_geometry(
+        state.ent_tile[0], block_e, state.s_start, block_n,
+        state.ent_tile.shape[1],
+    )

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``dgs_tpu_torch/csrc/*.cu`` compile with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, loaded with ctypes.  The build runs
-at first use into the package's build directory (listed in .gitignore) and
-is reused while it is newer than every source; concurrent builders each
-compile to their own temporary name and publish with os.replace.
+``dgs_tpu_torch/csrc/*.cu`` compile with nvcc for Hopper (sm_90a), one nvcc
+per source, all started together, and link into one shared library with a
+plain C interface, loaded with ctypes.  The build runs at first use into the
+package's build directory (listed in .gitignore) and is reused while it is
+newer than every source; concurrent builders each compile to their own
+temporary names and publish with os.replace.
 """
 
 from __future__ import annotations
@@ -62,23 +63,7 @@ def load() -> ctypes.CDLL:
             return _lib
         if _stale():
             os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp] + _sources()
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        "nvcc failed building dgs_tpu_torch kernels:\n"
-                        + res.stdout + res.stderr)
-                with open(_LOG, "w") as f:
-                    f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-                os.replace(tmp, _OUT)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            _build()
         lib = ctypes.CDLL(_OUT)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dgs_tiled_forward.argtypes = [
@@ -86,10 +71,49 @@ def load() -> ctypes.CDLL:
             i, i, i, i, p, p,
         ]
         lib.dgs_tiled_forward.restype = i
-        lib.dgs_tiled_forward_block.argtypes = []
-        lib.dgs_tiled_forward_block.restype = i
+        lib.dgs_tiled_backward.argtypes = [
+            p, i, i, p, i, p, p, p, i, i, i, i, ctypes.c_float,
+            i, i, i, i, p, p,
+        ]
+        lib.dgs_tiled_backward.restype = i
+        for fn in (lib.dgs_tiled_forward_block, lib.dgs_tiled_backward_block):
+            fn.argtypes = []
+            fn.restype = i
         _lib = lib
         return _lib
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise with nvcc's output if any
+    fails, else return their combined logs."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], False
+    for c, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(" ".join(c) + "\n" + out)
+        failed = failed or proc.returncode != 0
+    if failed:
+        raise RuntimeError("nvcc failed building dgs_tpu_torch kernels:\n"
+                           + "\n".join(logs))
+    return logs
+
+
+def _build():
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(src) + ".o")
+                for src in _sources()]
+        logs = _run_all([
+            [nvcc()] + arch + ["-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                               "-c", "-o", obj, src]
+            for src, obj in zip(_sources(), objs)])
+        lib = os.path.join(tmpdir, "lib.so")
+        logs += _run_all([[nvcc()] + arch + ["-shared", "-o", lib] + objs])
+        with open(_LOG, "w") as f:
+            f.write("\n".join(logs))
+        os.replace(lib, _OUT)
 
 
 def build_log() -> str:

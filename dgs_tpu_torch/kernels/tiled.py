@@ -1,17 +1,19 @@
-"""The tiled forward kernel and its operands.
+"""The tiled forward and backward kernels and their operands.
 
-The counterpart of the forward half of ``dgs_tpu/kernels/tiled.py``.  The
-operands keep the JAX package's packing: per-entry parameters ride one
-``geom`` array (1 + D + tri + C, Ep) whose row 0 is the entry's tile id as
-f32 (pad slots -1.0), followed by the period-shifted mean rows, the conic
-rows and the value rows; tile-sorted samples ride one (D + 1, Np) array,
-coordinates then the f32 tile row (pad columns -2.0, so pads never pair).
+The counterpart of ``dgs_tpu/kernels/tiled.py``.  The operands keep the JAX
+package's packing: per-entry parameters ride one ``geom`` array
+(1 + D + tri + C, Ep) whose row 0 is the entry's tile id as f32 (pad slots
+-1.0), followed by the period-shifted mean rows, the conic rows and the
+value rows; tile-sorted samples ride one (D + 1, Np) array, coordinates then
+the f32 tile row (pad columns -2.0, so pads never pair).
 
-``tiled_forward`` is the wrapper: a CUDA tensor launches the hand-written
-Hopper kernel (``dgs_tpu_torch/csrc/tiled_forward.cu``), a CPU tensor runs
-``tiled_forward_plain``, the same function in plain torch.  The TPU kernel
-walked a static work list of (sample block x entry block) items; the CUDA
-kernel's blocks each find their own entry range, so no work list is built
+``tiled_forward`` and ``tiled_backward`` are the wrappers: a CUDA tensor
+launches the hand-written Hopper kernel (``dgs_tpu_torch/csrc/
+tiled_forward.cu`` / ``tiled_backward.cu``), a CPU tensor runs
+``tiled_forward_plain`` / ``tiled_backward_plain``, the same function in
+plain torch.  The TPU kernels walked static work lists of (sample block x
+entry block) items; each CUDA block finds its own contiguous range of the
+other side (``entry_ranges`` / ``sample_ranges``), so no work list is built
 and no work capacity can overflow.
 """
 
@@ -26,10 +28,12 @@ from ..config import tri_size
 from ..ops import formulas
 from ._util import _pad_axis, _round_up
 
-# Sorted samples per CUDA block (kBlock of csrc/tiled_forward.cu, which the
-# wrapper checks against the built library).  Np is padded to a multiple.
+# Sorted samples per forward CUDA block (kBlock of csrc/tiled_forward.cu,
+# which the wrapper checks against the built library).  Np is padded to a
+# multiple.
 BLOCK_N = 128
-# Entry padding of the geom array (keeps its rows 512-byte aligned).
+# Entries per backward CUDA block (kBlock of csrc/tiled_backward.cu); the
+# geom array's entry axis is padded to a multiple.
 BLOCK_E = 128
 
 ORDER_BITS = {"value": 1, "derivative": 2, "laplacian": 4, "third": 8}
@@ -109,6 +113,16 @@ def entry_ranges(state: binning.BinningState, Np: int):
     lo, n = binning.forward_geometry(state, BLOCK_N, 1)
     NB = Np // BLOCK_N
     return _pad_axis(lo, 0, NB).contiguous(), _pad_axis(n, 0, NB).contiguous()
+
+
+def sample_ranges(state: binning.BinningState, Ep: int):
+    """(s_lo, s_n) int32 of length Ep // BLOCK_E: the sorted-sample range
+    [s_lo, s_lo + s_n) of each block of BLOCK_E entries (the backward
+    geometry at one-sample granularity; sentinel-only and pad blocks get
+    empty ranges)."""
+    lo, n = binning.backward_geometry(state, BLOCK_E, 1)
+    EB = Ep // BLOCK_E
+    return _pad_axis(lo, 0, EB).contiguous(), _pad_axis(n, 0, EB).contiguous()
 
 
 def _order_rows(orders, D: int):
@@ -225,4 +239,119 @@ def _tiled_forward_cuda(orders, period, D, C, geom, smp, ent_lo, ent_n):
     if err != 0:
         raise RuntimeError(f"tiled_forward: CUDA launch failed (cudaError {err})")
     tiled_forward.launches += 1
+    return out
+
+
+def tiled_backward_plain(orders, period: Optional[float], D: int, C: int,
+                         geom, smp, ct, s_lo, s_n,
+                         chunk_blocks: int = 8) -> torch.Tensor:
+    """The plain torch version of the backward kernel: same inputs, same
+    packed per-entry rows (D + tri + C, Ep): mean rows, conic rows, value
+    rows, each summed over the entry's same-tile samples.  Works on
+    ``chunk_blocks`` entry blocks at a time over their joint sample range,
+    so it never holds more than one chunk's pairs."""
+    tri = tri_size(D)
+    Ep = geom.shape[1]
+    out = torch.zeros((D + tri + C, Ep), dtype=torch.float32,
+                      device=geom.device)
+    lo = s_lo.tolist()
+    hi = (s_lo + s_n).tolist()
+    n = s_n.tolist()
+    for b0 in range(0, len(lo), chunk_blocks):
+        blocks = [b for b in range(b0, min(b0 + chunk_blocks, len(lo)))
+                  if n[b] > 0]
+        if not blocks:
+            continue
+        s0 = min(lo[b] for b in blocks)
+        s1 = max(hi[b] for b in blocks)
+        e0, e1 = b0 * BLOCK_E, min((b0 + chunk_blocks) * BLOCK_E, Ep)
+        g = geom[:, e0:e1]
+        x = smp[:, s0:s1]
+        Xs = [formulas.wrap(g[1 + d][None, :] - x[d][:, None], period)
+              for d in range(D)]                          # (S, Ec)
+        con = [g[1 + D + t][None, :] for t in range(tri)]
+        G, a = formulas.power_terms(Xs, con)
+        G = G * (g[0][None, :] == x[D][:, None]).to(G.dtype)
+        vals = g[1 + D + tri:1 + D + tri + C]             # (C, Ec)
+        gct = ct[:, s0:s1]                                # (K*C, S)
+        hs, dvals, k = [], 0.0, 0
+        for order in orders:
+            for p in formulas.component_polys(order, Xs, con, a):
+                g_k = gct[k * C:(k + 1) * C]              # (C, S)
+                hs.append(g_k.T @ vals)                   # h_k (S, Ec)
+                dvals = dvals + g_k @ (G if isinstance(p, float) else G * p)
+                k += 1
+        dmu, dcon = formulas.vjp_params_fused(orders, Xs, con, G, a, hs)
+        out[:D + tri, e0:e1] = torch.stack(
+            [r.sum(dim=0) for r in dmu + dcon], dim=0)
+        out[D + tri:, e0:e1] = dvals
+    return out
+
+
+def tiled_backward(orders: Tuple[str, ...], period: Optional[float],
+                   D: int, C: int, geom, smp, ct, s_lo, s_n) -> torch.Tensor:
+    """Packed per-entry gradients (D + tri + C, Ep) fp32: mean rows, conic
+    rows, value rows, in the entry order of ``geom``; sentinel and pad
+    entries come back zero.  ``ct`` is the lane-major (K*C, Np) cotangent
+    of tiled_forward's output; ``period`` is None exactly when the forward
+    ran unwrapped.  The caller segment-sums the rows by Gaussian id.  CUDA
+    tensors launch the CUDA kernel (counted in
+    ``tiled_backward.launches``); CPU tensors run tiled_backward_plain."""
+    _order_rows(orders, D)   # rejects unknown and repeated orders
+    if geom.device.type == "cpu":
+        return tiled_backward_plain(orders, period, D, C, geom, smp, ct,
+                                    s_lo, s_n)
+    if geom.device.type != "cuda":
+        raise ValueError(f"tiled_backward: no kernel for device {geom.device}")
+    return _tiled_backward_cuda(orders, period, D, C, geom, smp, ct, s_lo,
+                                s_n)
+
+
+tiled_backward.launches = 0
+
+
+def _tiled_backward_cuda(orders, period, D, C, geom, smp, ct, s_lo, s_n):
+    from . import _build
+
+    tri = tri_size(D)
+    K = total_unique(orders, D)
+    Ep, Np = geom.shape[1], smp.shape[1]
+    EB = Ep // BLOCK_E
+    checks = (
+        ("geom", geom, torch.float32, (1 + D + tri + C, EB * BLOCK_E)),
+        ("smp", smp, torch.float32, (D + 1, Np)),
+        ("ct", ct, torch.float32, (K * C, Np)),
+        ("s_lo", s_lo, torch.int32, (EB,)),
+        ("s_n", s_n, torch.int32, (EB,)),
+    )
+    for name, t, dtype, shape in checks:
+        if (t.device != geom.device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"tiled_backward: {name} must be a contiguous {dtype} tensor "
+                f"of shape {shape} on {geom.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if not 1 <= D <= 3:
+        raise ValueError(f"tiled_backward: unsupported D={D}")
+    mask, rows = _order_rows(orders, D)
+    lib = _build.load()
+    if lib.dgs_tiled_backward_block() != BLOCK_E:
+        raise RuntimeError("tiled_backward: kernel library block size "
+                           "differs from kernels.tiled.BLOCK_E")
+    out = torch.empty((D + tri + C, Ep), dtype=torch.float32,
+                      device=geom.device)
+    with torch.cuda.device(geom.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dgs_tiled_backward(
+            geom.data_ptr(), Ep, C, smp.data_ptr(), Np, ct.data_ptr(),
+            s_lo.data_ptr(), s_n.data_ptr(), EB, D, mask,
+            0 if period is None else 1,
+            0.0 if period is None else float(period),
+            rows["value"], rows["derivative"], rows["laplacian"],
+            rows["third"], out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"tiled_backward: CUDA launch failed (cudaError {err})")
+    tiled_backward.launches += 1
     return out

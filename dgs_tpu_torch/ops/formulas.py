@@ -1,4 +1,4 @@
-"""Closed-form per-pair Gaussian evaluation weights (forward half).
+"""Closed-form per-pair Gaussian evaluation weights and their VJPs.
 
 The torch counterpart of ``dgs_tpu/ops/formulas.py``:
 
@@ -11,7 +11,7 @@ The torch counterpart of ``dgs_tpu/ops/formulas.py``:
 with X = wrap(mu - x) and a = C X; pairs whose quadratic form is positive
 are masked to zero.  Every function takes *lists* of tensors with the spatial
 dimension and the packed-triangular dimension unrolled in Python, exactly as
-the JAX module does, so the two read line for line.  The CUDA kernel's copy
+the JAX module does, so the two read line for line.  The CUDA kernels' copy
 of this math is ``dgs_tpu_torch/csrc/pair_math.cuh``.
 """
 
@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from ..config import tri_index
+from ..config import tri_index, tri_size
 
 
 def wrap(X, period: Optional[float]):
@@ -172,4 +172,284 @@ def component_polys(order: str, Xs: Sequence, con: Sequence, a) -> List:
             - a[i] * a[j] * a[k]
             for i, j, k in sym_indices(order, D)
         ]
+    raise ValueError(f"unknown order {order!r}")
+
+
+def _power_dcon(Xs: Sequence, D: int) -> List:
+    """d(power)/d(c_t) for each packed index t: -1/2 X_u^2 on the diagonal,
+    -X_u X_v off it (the off-diagonal appears twice in X^T C X)."""
+    out = [None] * tri_size(D)
+    for u in range(D):
+        for v in range(u, D):
+            t = tri_index(D, u, v)
+            out[t] = (-0.5 * Xs[u] * Xs[u]) if u == v else -(Xs[u] * Xs[v])
+    return out
+
+
+def _a_dcon(Xs: Sequence, D: int):
+    """da_l/dc_t as a [l][t] table of tensors-or-0.0: t=(u,u) gives
+    delta_lu X_u, t=(u,v) gives delta_lu X_v + delta_lv X_u."""
+    table = [[0.0] * tri_size(D) for _ in range(D)]
+    for u in range(D):
+        for v in range(u, D):
+            t = tri_index(D, u, v)
+            if u == v:
+                table[u][t] = Xs[u]
+            else:
+                table[u][t] = Xs[v]
+                table[v][t] = Xs[u]
+    return table
+
+
+def fused_pair_accumulators(orders: Sequence[str], con: Sequence, a,
+                            hs: Sequence,
+                            lap_polys: Optional[Sequence] = None,
+                            third_polys: Optional[Sequence] = None):
+    """The collapsed multi-order VJP's shared per-pair accumulators
+    (S0, w, hl, Y) of vjp_params_fused, functions of (con, a, hs) only.
+
+    ``hs`` is the flat list of folded unique-component cotangents across
+    ``orders`` in sequence.  S0 is the h-weighted component-polynomial sum,
+    w[l] the h-weighted dq/da_l sums, hl the laplacian cotangents by packed
+    index (None where absent), Y the thirds' explicit conic-derivative
+    terms."""
+    D = len(a)
+    tri = tri_size(D)
+    C = lambda i, j: con[tri_index(D, i, j)]
+
+    h0 = None
+    hd = [None] * D
+    hl = [None] * tri
+    h3 = {}  # unique tuple (i<=j<=k) -> folded cotangent
+    k0 = 0
+    for order in orders:
+        nu = n_unique(order, D)
+        block = hs[k0:k0 + nu]
+        if order == "value":
+            h0 = block[0]
+        elif order == "derivative":
+            for i in range(D):
+                hd[i] = block[i]
+        elif order == "laplacian":
+            for t, (i, j) in enumerate(sym_indices(order, D)):
+                hl[tri_index(D, i, j)] = block[t]
+        elif order == "third":
+            for t, idx in enumerate(sym_indices(order, D)):
+                h3[idx] = block[t]
+        else:
+            raise ValueError(f"unknown order {order!r}")
+        k0 += nu
+
+    def acc(x, y):
+        return y if x is None else x + y
+
+    lp = {}
+    if lap_polys is not None:
+        lp = dict(zip(sym_indices("laplacian", D), lap_polys))
+
+    def q_pair(i, j):
+        key = (i, j) if i <= j else (j, i)
+        if key not in lp:
+            lp[key] = a[i] * a[j] - C(i, j)
+        return lp[key]
+
+    tp = {}
+    if third_polys is not None:
+        tp = dict(zip(sym_indices("third", D), third_polys))
+
+    def p_third(idx):
+        # The forward's third polynomial, -q_ijk.
+        if idx not in tp:
+            i, j, k = idx
+            tp[idx] = (C(i, j) * a[k] + C(i, k) * a[j] + C(j, k) * a[i]
+                       - a[i] * a[j] * a[k])
+        return tp[idx]
+
+    # S0 = sum_u h~_u q_u  (third: h~ q = (-h)(-p) = h p).
+    S0 = h0
+    for i in range(D):
+        if hd[i] is not None:
+            S0 = acc(S0, hd[i] * a[i])
+    if any(h is not None for h in hl):
+        for u in range(D):
+            for v in range(u, D):
+                S0 = acc(S0, hl[tri_index(D, u, v)] * q_pair(u, v))
+    for idx, h in h3.items():
+        S0 = acc(S0, h * p_third(idx))
+
+    # W_l = sum_u h~_u dq_u/da_l: derivative gives hd_l, laplacian (H a)_l
+    # with doubled diagonal, third -h3_ijk (delta_il q_jk + delta_jl q_ik +
+    # delta_kl q_ij).
+    w = [None] * D
+    for l in range(D):
+        wl = hd[l]
+        for m in range(D):
+            t = tri_index(D, l, m)
+            if hl[t] is not None:
+                scale = 2.0 if l == m else 1.0
+                wl = acc(wl, (scale * hl[t]) * a[m])
+        w[l] = wl
+    for (i, j, k), h in h3.items():
+        nh = -h
+        w[i] = acc(w[i], nh * q_pair(j, k))
+        w[j] = acc(w[j], nh * q_pair(i, k))
+        w[k] = acc(w[k], nh * q_pair(i, j))
+
+    # Y_t: the thirds' explicit conic derivatives (+a at matching pairs).
+    Y = [None] * tri
+    for (i, j, k), h in h3.items():
+        Y[tri_index(D, i, j)] = acc(Y[tri_index(D, i, j)], h * a[k])
+        Y[tri_index(D, i, k)] = acc(Y[tri_index(D, i, k)], h * a[j])
+        Y[tri_index(D, j, k)] = acc(Y[tri_index(D, j, k)], h * a[i])
+
+    return S0, w, hl, Y
+
+
+def vjp_params_fused(orders: Sequence[str], Xs: Sequence, con: Sequence,
+                     G, a, hs: Sequence,
+                     lap_polys: Optional[Sequence] = None,
+                     third_polys: Optional[Sequence] = None):
+    """Collapsed multi-order VJP across any subset of the four orders.
+
+    ``hs`` is the flat list of folded unique-component cotangents across
+    ``orders`` in sequence, h_k = sum_c values_c * dL/dout[k, c].  Every
+    component is T_u = G q_u (q_0 = 1, q_i = a_i, q_ij = a_i a_j - C_ij,
+    q_ijk = a_i a_j a_k - C_ij a_k - C_ik a_j - C_jk a_i; the "third"
+    component is -q_ijk), so the weighted cotangent sum telescopes into
+    the accumulators of fused_pair_accumulators:
+
+        dmu_d      = G ((C W)_d - a_d S0)
+        z_l        = W_l - 1/2 X_l S0
+        dcon_(u,v) = G (X_v z_u + X_u z_v - hl_uv + Y_uv)
+
+    Returns (dmu, dcon): lists of D and tri per-pair tensors.  At D=1 the
+    third-order conic gradient is the derivative of this package's own
+    forward (dgs_tpu's form; the CUDA reference's backward.cu:322-325 is
+    not, see docs/PARITY.md)."""
+    D = len(Xs)
+    tri = tri_size(D)
+    C = lambda i, j: con[tri_index(D, i, j)]
+
+    def acc(x, y):
+        return y if x is None else x + y
+
+    S0, w, hl, Y = fused_pair_accumulators(
+        orders, con, a, hs, lap_polys, third_polys)
+    half_S0 = 0.5 * S0
+
+    dmu = []
+    for d in range(D):
+        md = None
+        for l in range(D):
+            if w[l] is not None:
+                md = acc(md, C(d, l) * w[l])
+        md = acc(md, -(a[d] * S0))
+        dmu.append(G * md)
+
+    z = [
+        (-(Xs[l] * half_S0)) if w[l] is None else (w[l] - Xs[l] * half_S0)
+        for l in range(D)
+    ]
+    dcon = [None] * tri
+    for u in range(D):
+        for v in range(u, D):
+            t = tri_index(D, u, v)
+            if u == v:
+                term = Xs[u] * z[u]
+            else:
+                term = Xs[v] * z[u] + Xs[u] * z[v]
+            if hl[t] is not None:
+                term = term - hl[t]
+            if Y[t] is not None:
+                term = term + Y[t]
+            dcon[t] = G * term
+    return dmu, dcon
+
+
+def vjp_params(order: str, Xs: Sequence, con: Sequence, G, a, hs: Sequence):
+    """Per-pair VJP contributions (dmu, dcon) of one order, per full
+    row-major component (``hs`` as ``components``: h = sum_c values_c *
+    dL/dout[comp, c]).  The component-by-component form of
+    vjp_params_fused, from dw/dmu_d = G (-a_d p + dp/dmu_d) and
+    dw/dc_t = G (s_t p + dp/dc_t) with s_t = d(power)/dc_t."""
+    D = len(Xs)
+    tri = tri_size(D)
+    C = lambda i, j: con[tri_index(D, i, j)]
+    s = _power_dcon(Xs, D)
+    da = _a_dcon(Xs, D)
+
+    dmu = [0.0] * D
+    dcon = [0.0] * tri
+
+    if order == "value":
+        hG = hs[0] * G
+        for d in range(D):
+            dmu[d] = dmu[d] - hG * a[d]
+        for t in range(tri):
+            dcon[t] = dcon[t] + hG * s[t]
+        return dmu, dcon
+
+    if order == "derivative":
+        for i in range(D):
+            hG = hs[i] * G
+            for d in range(D):
+                dmu[d] = dmu[d] + hG * (C(i, d) - a[d] * a[i])
+            for t in range(tri):
+                dcon[t] = dcon[t] + hG * (s[t] * a[i] + da[i][t])
+        return dmu, dcon
+
+    if order == "laplacian":
+        for i in range(D):
+            for j in range(D):
+                hG = hs[i * D + j] * G
+                p = a[i] * a[j] - C(i, j)
+                for d in range(D):
+                    dmu[d] = dmu[d] + hG * (
+                        C(i, d) * a[j] + C(j, d) * a[i] - a[d] * p)
+                tij = tri_index(D, i, j)
+                for t in range(tri):
+                    dp = da[i][t] * a[j] + da[j][t] * a[i]
+                    if t == tij:
+                        dp = dp - 1.0
+                    dcon[t] = dcon[t] + hG * (s[t] * p + dp)
+        return dmu, dcon
+
+    if order == "third":
+        for i in range(D):
+            for j in range(D):
+                for k in range(D):
+                    hG = hs[(i * D + j) * D + k] * G
+                    p = (C(i, j) * a[k] + C(i, k) * a[j] + C(j, k) * a[i]
+                         - a[i] * a[j] * a[k])
+                    for d in range(D):
+                        dp_dmu = (
+                            C(i, j) * C(k, d)
+                            + C(i, k) * C(j, d)
+                            + C(j, k) * C(i, d)
+                            - C(i, d) * a[j] * a[k]
+                            - a[i] * C(j, d) * a[k]
+                            - a[i] * a[j] * C(k, d)
+                        )
+                        dmu[d] = dmu[d] + hG * (dp_dmu - a[d] * p)
+                    tij = tri_index(D, i, j)
+                    tik = tri_index(D, i, k)
+                    tjk = tri_index(D, j, k)
+                    for t in range(tri):
+                        dp = (
+                            C(i, j) * da[k][t]
+                            + C(i, k) * da[j][t]
+                            + C(j, k) * da[i][t]
+                            - da[i][t] * a[j] * a[k]
+                            - a[i] * da[j][t] * a[k]
+                            - a[i] * a[j] * da[k][t]
+                        )
+                        if t == tij:
+                            dp = dp + a[k]
+                        if t == tik:
+                            dp = dp + a[j]
+                        if t == tjk:
+                            dp = dp + a[i]
+                        dcon[t] = dcon[t] + hG * (s[t] * p + dp)
+        return dmu, dcon
+
     raise ValueError(f"unknown order {order!r}")

@@ -2,10 +2,11 @@
 
 The counterpart of the tiled half of ``dgs_tpu/ops/sampling.py``
 (``sample_tiled_multi`` and ``sample_binned``): a fused multi-order
-evaluation over a prebuilt BinningState, through the tiled forward kernel.
-The op is a ``torch.autograd.Function``; its backward (the tiled backward
-kernel) is not ported yet and raises, so a gradient request fails by name
-instead of being answered wrongly.
+evaluation over a prebuilt BinningState.  The op is a
+``torch.autograd.Function`` over the tiled forward kernel whose backward is
+the tiled backward kernel followed by a deterministic segment-sum of the
+per-entry gradient rows by Gaussian id.  Gradients flow to (means, values,
+conics) only, the reference's autograd contract.
 """
 
 from __future__ import annotations
@@ -14,16 +15,54 @@ import os
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from ..config import ORDERS, out_shape
+from ..config import ORDERS, out_shape, tri_size
 from . import formulas
 
 ALL_ORDERS = ORDERS
 
 
+def segment_sum_rows(rows, gid, P: int, slots: int):
+    """(P, F) sums of the columns of ``rows`` (F, E) by Gaussian id.
+
+    Deterministic on every device, with no atomics: a stable sort groups
+    the columns by gid, each column goes to its own slot of a (P, slots)
+    layout (its rank among its Gaussian's columns), and the slots are
+    summed by a plain reduction.  ``slots`` bounds the columns of one
+    Gaussian: R^D for a binning with max_tiles_per_gaussian R, which caps
+    every Gaussian's entries at R^D.  A Gaussian with more columns than
+    ``slots`` (a state binned with a larger R) fails loudly rather than
+    spilling into its neighbour's slots: a ValueError on the CPU, an
+    asynchronous device-side assert (no host sync) on CUDA.  Columns with
+    gid == P (sentinels) are dropped."""
+    E = gid.shape[0]
+    g_sorted, order = torch.sort(gid, stable=True)
+    starts = torch.searchsorted(
+        g_sorted, torch.arange(P + 1, dtype=g_sorted.dtype,
+                               device=gid.device))
+    g = g_sorted.long()
+    pos = torch.arange(E, device=gid.device) - starts[g]
+    fits = ~((g < P) & (pos >= slots)).any()
+    if gid.is_cuda:
+        torch._assert_async(fits)
+    elif not bool(fits):
+        raise ValueError(
+            f"segment_sum_rows: a Gaussian has more than {slots} entries; "
+            "the binning state was built with a larger "
+            "max_tiles_per_gaussian than the config passed to the op")
+    # Sentinel columns all land in one dump slot past the real ones.
+    dest = torch.where(g < P, g * slots + pos, P * slots)
+    out = rows.new_zeros((P * slots + 1, rows.shape[0]))
+    out[dest] = rows.T[order]
+    return out[:P * slots].view(P, slots, rows.shape[0]).sum(dim=1)
+
+
 class _TiledForward(torch.autograd.Function):
     """(means, values, conics) -> packed (K*C, Np) outputs in tile-sorted
-    sample order (kernels.tiled.tiled_forward)."""
+    sample order (kernels.tiled.tiled_forward); the backward runs
+    kernels.tiled.tiled_backward on the (K*C, Np) cotangent as it arrives
+    and segment-sums the per-entry rows by Gaussian id."""
 
     @staticmethod
     def forward(ctx, means, values, conics, orders, cfg, kernel_period,
@@ -32,17 +71,31 @@ class _TiledForward(torch.autograd.Function):
 
         D = means.shape[1]
         C = values.shape[1]
-        _, _, geom, _ = ktiled.prepare_entries(
+        gid, _, geom, _ = ktiled.prepare_entries(
             state, means, values, conics, ktiled.BLOCK_E, cfg=cfg)
+        ctx.save_for_backward(geom, smp, gid)
+        ctx.orders, ctx.kernel_period, ctx.state = orders, kernel_period, state
+        ctx.P, ctx.D, ctx.C = means.shape[0], D, C
+        ctx.slots = cfg.with_dims(D).max_tiles_per_gaussian ** D
         return ktiled.tiled_forward(orders, kernel_period, D, C, geom, smp,
                                     ent_lo, ent_n)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "gradients of the tiled sampling op need the tiled backward "
-            "kernel (dgs_tpu/kernels/tiled.py tiled_backward), which "
-            "dgs_tpu_torch does not port yet (ROADMAP.md, TPU kernel 2)")
+        from ..kernels import tiled as ktiled
+
+        geom, smp, gid = ctx.saved_tensors
+        D, C = ctx.D, ctx.C
+        tri = tri_size(D)
+        s_lo, s_n = ktiled.sample_ranges(ctx.state, geom.shape[1])
+        dent = ktiled.tiled_backward(ctx.orders, ctx.kernel_period, D, C,
+                                     geom, smp, grad.contiguous(), s_lo, s_n)
+        # The mean rows are d/dmu' of the period-shifted means, and
+        # dmu'/dmu = 1 (the image shift is piecewise constant).
+        d = segment_sum_rows(dent, gid, ctx.P, ctx.slots)
+        return (d[:, :D], d[:, D + tri:], d[:, D:D + tri],
+                None, None, None, None, None, None, None)
 
 
 def sample_tiled_multi(orders: Tuple[str, ...], cfg,
@@ -61,7 +114,10 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
     ((N, n_unique, C) canonical components); ``padded_outputs`` (requires
     sorted_outputs) returns the kernel's raw (n_unique, C, Np) layout with
     zero pad columns.  ``unwrapped`` drops the per-pair torus wrap (exact
-    under the planner's compact-support certificate)."""
+    under the planner's compact-support certificate).  ``state`` must come
+    from binning.build with this ``cfg`` (the periodic image shift and the
+    backward's slot bound R^D read it).  Gradients flow to (means, values,
+    conics)."""
     from ..kernels import tiled as ktiled
 
     if os.environ.get("DGS_ABLATE"):

@@ -3,8 +3,11 @@
 The counterpart of ``dgs_tpu/sampler.py`` for ``method="tiled"``:
 ``preprocess`` builds the binning once, the four ``sample_gaussians*``
 methods and ``sample_all`` evaluate over it through the tiled forward
-kernel.  The other methods and the neighbour aggregation are later slices of
-the port and raise ``NotImplementedError`` naming their ROADMAP item.
+kernel.  Their outputs are differentiable w.r.t. the ``means``, ``values``
+and ``conics`` handed to ``preprocess`` (the reference's autograd contract;
+covariances and samples only shape the binning), through the tiled backward
+kernel.  The other methods and the neighbour aggregation are later slices
+of the port and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations

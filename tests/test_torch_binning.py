@@ -69,6 +69,24 @@ def test_build_and_forward_geometry_bitwise(rng, D, case):
         np.asarray(jgrid.pair_mask_dense(jc, js, jnp.asarray(s), P)))
 
 
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("case", ["periodic", "open_axis_ellip"])
+def test_backward_geometry_bitwise(rng, D, case):
+    """The per-entry-block sample ranges (at the TPU kernel's block sizes
+    and at the CUDA backward's one-sample granularity) equal JAX's."""
+    jc, tc = _configs(D, max_tiles_per_gaussian=8, tile_size=0.2,
+                      **CASES[case])
+    m, v, cov, c = make_gaussians(rng, 47, D, 1)
+    s = make_samples(rng, 230, D)
+    js = jgrid.build(jc, *map(jnp.asarray, (m, cov, s)))
+    ts = tgrid.build(tc, *map(torch.from_numpy, (m, cov, s)))
+    for be, bn in ((128, 64), (32, 1)):
+        for a, b in zip(jgrid.backward_geometry(js, be, bn),
+                        tgrid.backward_geometry(ts, be, bn)):
+            assert b.dtype == torch.int32
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
 @pytest.mark.parametrize("D", [2, 3])
 def test_overflow_counters_match(rng, D):
     """Footprints beyond R and entries beyond the capacity are counted."""

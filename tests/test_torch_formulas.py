@@ -1,8 +1,9 @@
 """dgs_tpu_torch.ops.formulas against dgs_tpu.ops.formulas, and the CUDA
 kernels' copy of the same math (csrc/pair_math.cuh) built for the host with
-g++ against the torch formulas."""
+g++ against the torch formulas: the forward weights and the per-pair VJP."""
 
 import ctypes
+import itertools
 import os
 import subprocess
 
@@ -104,6 +105,30 @@ extern "C" int pair_weights(int D, int mask, const float* X, const float* con,
 }
 
 extern "C" float wrap(float x, float period) { return dgs::wrap(x, period); }
+
+template <int D, int M>
+static int run_vjp(const float* X, const float* con, const float* h,
+                   float* out) {
+  constexpr int TRI = dgs::tri_size(D), K = dgs::total_unique(D, M);
+  float x[D], c[TRI], a[D], G, hh[K], dmu[D] = {}, dcon[TRI] = {};
+  for (int d = 0; d < D; ++d) x[d] = X[d];
+  for (int t = 0; t < TRI; ++t) c[t] = con[t];
+  for (int k = 0; k < K; ++k) hh[k] = h[k];
+  if (!dgs::pair_power<D>(x, c, a, G)) return 0;
+  dgs::pair_vjp<D, M>(x, c, a, G, hh, dmu, dcon);
+  for (int d = 0; d < D; ++d) out[d] = dmu[d];
+  for (int t = 0; t < TRI; ++t) out[D + t] = dcon[t];
+  return 1;
+}
+
+#undef CASE
+#define CASE(D, M) case D * 16 + M: return run_vjp<D, M>(X, con, h, out);
+
+extern "C" int pair_vjp(int D, int mask, const float* X, const float* con,
+                        const float* h, float* out) {
+  switch (D * 16 + mask) { ALL(1) ALL(2) ALL(3) }
+  return -1;
+}
 """
 
 
@@ -123,6 +148,8 @@ def pair_math(tmp_path_factory):
     h.pair_weights.restype = ctypes.c_int
     h.wrap.argtypes = [ctypes.c_float, ctypes.c_float]
     h.wrap.restype = ctypes.c_float
+    h.pair_vjp.argtypes = [ctypes.c_int, ctypes.c_int, fp, fp, fp, fp]
+    h.pair_vjp.restype = ctypes.c_int
     return h
 
 
@@ -156,3 +183,90 @@ def test_cuda_pair_math_matches_formulas(pair_math, rng, D):
             if not kept:
                 w[:] = 0.0   # the kernel skips the pair
             assert_close(w, ref, f"D={D} mask={mask} pair={p}")
+
+
+def _subsets():
+    return [o for r in range(1, 5) for o in itertools.combinations(ORDERS, r)]
+
+
+def _vjp_pairs(D, n):
+    """Pairs with O(1) displacements and well-conditioned conics, so G and
+    every VJP term are far from underflow (test_formulas_fused's inputs)."""
+    rng = np.random.RandomState(D)
+    X = (0.7 * rng.randn(D, n)).astype(np.float32)
+    A = rng.randn(D, D).astype(np.float32)
+    M = A @ A.T + np.eye(D, dtype=np.float32)
+    con = np.stack([M[i, j] + 0.01 * rng.randn(n)
+                    for i in range(D) for j in range(i, D)]).astype(np.float32)
+    return rng, X, con
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_vjp_params_match(D):
+    """torch vjp_params_fused (every order subset, with and without shared
+    polynomials) and vjp_params (every order) against dgs_tpu's."""
+    n = 64
+    rng, X, con = _vjp_pairs(D, n)
+    jX, tX = [jnp.asarray(x) for x in X], [torch.from_numpy(x) for x in X]
+    jc, tc = [jnp.asarray(c) for c in con], [torch.from_numpy(c) for c in con]
+    jG, ja = jf.power_terms(jX, jc)
+    tG, ta = tf.power_terms(tX, tc)
+    jlp = jf.component_polys("laplacian", jX, jc, ja)
+    jtp = jf.component_polys("third", jX, jc, ja)
+    tlp = tf.component_polys("laplacian", tX, tc, ta)
+    ttp = tf.component_polys("third", tX, tc, ta)
+    for orders in _subsets():
+        K = sum(tf.n_unique(o, D) for o in orders)
+        h = rng.randn(K, n).astype(np.float32)
+        for jextra, textra in (((None, None), (None, None)),
+                               ((jlp, jtp), (tlp, ttp))):
+            ref = jf.vjp_params_fused(orders, jX, jc, jG, ja,
+                                      [jnp.asarray(r) for r in h], *jextra)
+            got = tf.vjp_params_fused(orders, tX, tc, tG, ta,
+                                      [torch.from_numpy(r) for r in h],
+                                      *textra)
+            for g_list, r_list in zip(got, ref):
+                assert len(g_list) == len(r_list)
+                for g, r in zip(g_list, r_list):
+                    assert_close(g, r, f"fused {orders} D={D}")
+    for order in ORDERS:
+        ncomp = D ** ORDERS.index(order)
+        h = rng.randn(ncomp, n).astype(np.float32)
+        ref = jf.vjp_params(order, jX, jc, jG, ja, [jnp.asarray(r) for r in h])
+        got = tf.vjp_params(order, tX, tc, tG, ta,
+                            [torch.from_numpy(r) for r in h])
+        for g_list, r_list in zip(got, ref):
+            for g, r in zip(g_list, r_list):
+                assert_close(g, r, f"vjp_params {order} D={D}")
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_cuda_pair_vjp_matches_formulas(pair_math, D):
+    """The kernel header's pair_vjp, for every order set, equals the torch
+    vjp_params_fused on the same pairs and folded cotangents; pairs with a
+    positive quadratic form are skipped (zero rows)."""
+    n = 40
+    rng, X, con = _vjp_pairs(D, n)
+    con[:, -1] = -con[:, -1]        # one indefinite pair: power may be > 0
+    tri = tri_size(D)
+    fp = ctypes.POINTER(ctypes.c_float)
+    tX = [torch.from_numpy(x) for x in X]
+    tc = [torch.from_numpy(c) for c in con]
+    G, a = tf.power_terms(tX, tc)
+    for mask in range(1, 16):
+        orders = [o for b, o in enumerate(ORDERS) if mask & (1 << b)]
+        K = sum(tf.n_unique(o, D) for o in orders)
+        h = rng.randn(K, n).astype(np.float32)
+        dmu, dcon = tf.vjp_params_fused(orders, tX, tc, G, a,
+                                        [torch.from_numpy(r) for r in h])
+        ref = torch.stack(dmu + dcon).T.numpy()          # (n, D + tri)
+        got = np.zeros((n, D + tri), np.float32)
+        for p in range(n):
+            xa = np.ascontiguousarray(X[:, p])
+            ca = np.ascontiguousarray(con[:, p])
+            ha = np.ascontiguousarray(h[:, p])
+            kept = pair_math.pair_vjp(
+                D, mask, xa.ctypes.data_as(fp), ca.ctypes.data_as(fp),
+                ha.ctypes.data_as(fp), got[p].ctypes.data_as(fp))
+            assert kept in (0, 1)
+        assert_close(got, ref, f"D={D} mask={mask}")

@@ -124,7 +124,54 @@ def test_unported_paths_raise():
         TSampler().preprocess_aggregate()
 
 
+def assert_grad_close(got, ref, err_msg=""):
+    """The JAX suite's gradient tolerance (test_binning_tiled.py:155)."""
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(
+        np.asarray(got), ref, rtol=2e-3,
+        atol=1e-5 * max(1.0, float(np.abs(ref).max(initial=0.0))),
+        err_msg=err_msg)
+
+
+def test_facade_grads_match_jax_facade(rng):
+    """Gradients through the four sample_gaussians* and sample_all w.r.t.
+    the means, values and conics handed to preprocess, against jax.grad
+    through dgs_tpu's facade."""
+    m, v, cov, c, s = _data(rng, P=40, N=150, C=2, sigma_range=(0.05, 0.2))
+    kw = dict(tile_size=0.25, max_tiles_per_gaussian=8,
+              entry_capacity_factor=40.0)
+    tm, tv, tc = (torch.from_numpy(a).requires_grad_() for a in (m, v, c))
+    calls = ("sample_gaussians", "sample_gaussians_derivative",
+             "sample_gaussians_laplacian",
+             "sample_gaussians_third_derivative", "sample_all")
+
+    def run(sampler, call):
+        out = getattr(sampler, call)()
+        return list(out.values()) if isinstance(out, dict) else [out]
+
+    js = JSampler(config=JConfig(**kw))
+    js.preprocess(*map(jnp.asarray, (m, v, cov, c, s)))
+
+    def jloss(jm, jv, jc, call):
+        # The binning stays the eager preprocess's; only the sampling call
+        # is differentiated, as the port's autograd sees it.
+        js.means, js.values, js.conics = jm, jv, jc
+        return sum(jnp.sum(o * o) for o in run(js, call))
+
+    ts = TSampler(config=TConfig(**kw))
+    ts.preprocess(tm, tv, torch.from_numpy(cov), tc, torch.from_numpy(s))
+    for call in calls:
+        ref = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)), static_argnums=3)(
+            *map(jnp.asarray, (m, v, c)), call)
+        got = torch.autograd.grad(sum((o * o).sum() for o in run(ts, call)),
+                                  (tm, tv, tc))
+        for g, r, name in zip(got, ref, ("means", "values", "conics")):
+            assert_grad_close(g, r, f"{call} dL/d{name}")
+
+
 def test_field_outputs_matches_jax(rng):
+    """PIGS field evaluation, and its gradients to every field parameter
+    (through the conic chain to log_scales and rotations)."""
     jf = jinit(jax.random.PRNGKey(3), 120, 2, 4, sigma=0.05)
     tf = GaussianField.from_numpy(*[np.asarray(a) for a in jf])
     x = make_samples(rng, 400, 2)
@@ -134,8 +181,16 @@ def test_field_outputs_matches_jax(rng):
     assert set(tdiag) >= set(jdiag)
     for order in ref:
         assert_close(got[order].detach(), ref[order], order)
-    with pytest.raises(NotImplementedError, match="tiled backward kernel"):
-        got["value"].sum().backward()
+
+    def jloss(field):
+        outs, _ = jpigs.field_outputs(JConfig(**kw), field, jnp.asarray(x))
+        return sum(jnp.sum(o * o) for o in outs.values())
+
+    jgrads = jax.jit(jax.grad(jloss))(jf)
+    sum((o * o).sum() for o in got.values()).backward()
+    for name in ("means", "log_scales", "rotations", "values"):
+        assert_grad_close(getattr(tf, name).grad, getattr(jgrads, name),
+                          f"dL/d{name}")
     with pytest.raises(NotImplementedError):
         tpigs.field_outputs(TConfig(**kw), tf, torch.from_numpy(x),
                             method="dense")
