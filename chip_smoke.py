@@ -44,13 +44,46 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    D = 2, C = 1, 262,144 collocation points, Adam lr 2e-3,
                    120 steps.  Checks overflow 0 on every logged chunk, that
                    the loss at least halves and that both kernels ran.
-  7. profile     - where a step's time goes, for the training step and the
-                   PIGS step: device busy time per step under torch.profiler
-                   (the union of the device's activity intervals), the
-                   unprofiled step time, the device's idle share and the
-                   largest device items.
+  7. parity_dense - the all-pairs (dense) forward CUDA kernel against its
+                   plain torch version on the same operands: D in {1, 2, 3}
+                   x period in {2.0, None} x C in {1, 4, 6} with all four
+                   orders fused, one single-order and one non-canonical
+                   order set, at P = 2,000 x N = 20,000, plus four sizes
+                   that are no multiple of a block.
+     parity_dense_bwd - the dense backward CUDA kernel against its plain
+                   version on the same operands and a random cotangent, the
+                   same cases, per group (means, values, conics); then the
+                   op's gradients on the card against autograd through the
+                   dense oracle (twice, bitwise equal).
+  8. dense_slice - the all-pairs path at full width: GaussianSampler
+                   (method "pallas") preprocess + sample_all of all four
+                   orders at P = 10,000 Gaussians x N = 100,000 samples,
+                   D = 3, C = 4, period 2.0 (10^9 pairs, 40 components),
+                   then a training step at the same width (the sum of
+                   squares of all outputs, backward() to means, values and
+                   conics).  Checks the launch counts, finite outputs,
+                   bitwise-reproducible gradients, each dense kernel against
+                   its plain version (the backward on the step's own
+                   cotangent) and the first 512 samples against the dense
+                   oracle; times the kernels, the plain versions, the
+                   evaluation and the step.
+  9. pigs_dense  - PIGS training through models.pigs.train(method="pallas")
+                   at P = 10,000, D = 2, C = 1, 16,384 collocation points,
+                   Adam lr 2e-3, 120 steps, and the same run with
+                   method="tiled" from the same seed as its control.  Both
+                   losses at least halve; the dense run launches the dense
+                   kernels only.
+ 10. profile     - where a step's time goes, for the headline training
+                   step, the PIGS step and the dense training step: device
+                   busy time per step under torch.profiler (the union of
+                   the device's activity intervals), the unprofiled step
+                   time, the device's idle share and the largest device
+                   items.
 
-Then the kernels line and, last, the result line
+Then the kernels line (per kernel: launches on its main path and by path,
+its time, its plain version's time, and the least time the card could take
+for the same work: the larger of the bytes over the memory rate and the
+operations over the fp32 rate) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -68,6 +101,7 @@ import torch
 from dgs_tpu_torch.binning import grid as binning
 from dgs_tpu_torch.config import ORDERS, SamplerConfig
 from dgs_tpu_torch.kernels import _build
+from dgs_tpu_torch.kernels import dense as kdense
 from dgs_tpu_torch.kernels import tiled as ktiled
 from dgs_tpu_torch.models import pigs
 from dgs_tpu_torch.models.field import init_field
@@ -88,47 +122,126 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+KERNELS = {"tiled_forward": ktiled.tiled_forward,
+           "tiled_backward": ktiled.tiled_backward,
+           "dense_forward": kdense.dense_forward,
+           "dense_backward": kdense.dense_backward}
+
+
+def reset_launches():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def expect_launches(what, **want):
+    """The four kernels' launch counts since reset_launches(), raising
+    unless they are ``want`` (kernels not named: 0)."""
+    got = read_launches()
+    if got != {name: want.get(name, 0) for name in KERNELS}:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
+    return got
+
+
+def check_close(what, got, ref, rtol):
+    """(max abs err, max abs err / max|ref|) of got against ref, raising
+    when a value is outside rtol * |ref| + ATOL_REL * max(1, max|ref|)."""
+    scale = max(1.0, float(ref.abs().max()))
+    diff = (got - ref).abs()
+    bad = diff > ATOL_REL * scale + rtol * ref.abs()
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} values outside the tolerance, max "
+            f"abs err {float(diff.max())}")
+    return (float(diff.max()),
+            float(diff.max()) / max(float(ref.abs().max()), 1e-30))
+
+
+def err_fields(errs):
+    return {k: {"max_abs": e[0], "rel": e[1]} for k, e in errs.items()}
+
+
 def compare(got, ref, orders, D, C):
-    """Per-order (max abs err, max abs err / max|ref|), raising when an
-    order is outside the tolerance."""
+    """Per-order (max abs err, max abs err / max|ref|) of the tiled
+    forward's packed rows, raising when an order is outside the
+    tolerance."""
     errs, k0 = {}, 0
     for order in orders:
         rows = slice(k0 * C, (k0 + formulas.n_unique(order, D)) * C)
-        g, r = got[rows], ref[rows]
-        scale = max(1.0, float(r.abs().max()))
-        diff = (g - r).abs()
-        bad = diff > ATOL_REL * scale + RTOL * r.abs()
-        if bool(bad.any()):
-            raise AssertionError(
-                f"kernel disagrees with the plain version on {order}: "
-                f"{int(bad.sum())} values, max abs err {float(diff.max())}")
-        errs[order] = (float(diff.max()),
-                       float(diff.max()) / max(float(r.abs().max()), 1e-30))
+        errs[order] = check_close(
+            f"kernel against the plain version on {order}", got[rows],
+            ref[rows], RTOL)
         k0 += formulas.n_unique(order, D)
     return errs
 
 
 def compare_rows(got, ref, D, C, rtol=GRAD_RTOL):
-    """Per row group (means, conics, values) of the backward's packed
+    """Per row group (means, conics, values) of the tiled backward's packed
     (D + tri + C, Ep) rows: max abs error and max abs error / max|ref|,
     raising when a group is outside the tolerance."""
     tri = D * (D + 1) // 2
     groups = {"means": slice(0, D), "conics": slice(D, D + tri),
               "values": slice(D + tri, D + tri + C)}
-    errs = {}
-    for name, rows in groups.items():
-        g, r = got[rows], ref[rows]
-        scale = max(1.0, float(r.abs().max()))
-        diff = (g - r).abs()
-        bad = diff > ATOL_REL * scale + rtol * r.abs()
-        if bool(bad.any()):
-            raise AssertionError(
-                f"backward kernel disagrees with the plain version on "
-                f"{name}: {int(bad.sum())} values, max abs err "
-                f"{float(diff.max())}")
-        errs[name] = (float(diff.max()),
-                      float(diff.max()) / max(float(r.abs().max()), 1e-30))
-    return errs
+    return {name: check_close(
+        f"backward kernel against the plain version on {name}", got[rows],
+        ref[rows], rtol) for name, rows in groups.items()}
+
+
+# The card's peaks, for the least time a kernel's work could take.  Memory
+# and fp32 rates are the H100 SXM data sheet's (3.35 TB/s; 67 TFLOP/s
+# outside the tensor cores, two operations per FMA, so 33.5e12 fp32
+# instructions/s); the special-function rate is 16 results per clock per SM
+# (NVIDIA's CUDA C++ documentation, arithmetic throughput, compute
+# capability 9.0) on 132 SMs at the 1.98 GHz boost clock.
+MEM_BYTES_S = 3.35e12
+FP32_INSTR_S = 67e12 / 2
+SFU_OPS_S = 16 * 132 * 1.98e9
+
+
+def pair_ops(D, orders, C, wrapped, backward):
+    """(fp32 instructions, special-function operations) one kept pair needs
+    at the least for the function of csrc/pair_math.cuh and the kernels'
+    accumulation loops (an FMA, a multiply or an add is one instruction;
+    the pair's geometry is counted once however many channel passes a
+    kernel makes).  This is the function's least work, not what the
+    kernels issue: the polynomials q_ij = a_i a_j - C_ij are counted once
+    and shared by the laplacian weights, the third-order weights and the
+    VJP, and the VJP's S0 is one FMA per component from the weights the
+    pair already has (sum_k h_k w_k = G S0); pair_vjp recomputes both."""
+    tri, n3 = D * (D + 1) // 2, D * (D + 1) * (D + 2) // 6
+    K = ktiled.total_unique(orders, D)
+    ops = D + (3 * D if wrapped else 0)   # X = mu - x; x/period, round, fma
+    ops += D * D + D + 1                  # a = C X; power = -1/2 a.X
+    ops += 1                              # exp(power) = ex2(power * log2 e)
+    if "laplacian" in orders or "third" in orders:
+        ops += tri                        # q_ij, one FMA each
+    # G itself; G a_i; G q_ij; G (C_ij a_l + C_il a_j - a_i q_jl)
+    weights = {"value": 0, "derivative": D, "laplacian": tri,
+               "third": 4 * n3}
+    ops += sum(weights[o] for o in orders)
+    if not backward:
+        return ops + K * C, 1             # acc[k][c] += w_k v_c
+    ops += 2 * K * C                      # h_k += g v_c; dv_c += g w_k
+    # per component: one FMA for S0, and for W one (derivative), two
+    # (laplacian) or three (third, with three more for Y)
+    vjp = {"value": 1, "derivative": 2 * D, "laplacian": 3 * tri,
+           "third": 7 * n3}
+    ops += sum(vjp[o] for o in orders)
+    return ops + D * (D + 3) + 2 * D + 1 + 5 * tri, 1   # dmu, z, dcon
+
+
+def kernel_bound(pairs, n_floats, D, orders, C, wrapped, backward):
+    """{"bound_ms", "bound_by"}: the least time the card could take for
+    ``pairs`` kept pairs and ``n_floats`` fp32 values moved (each input
+    read once, each output written once)."""
+    ops, sfu = pair_ops(D, orders, C, wrapped, backward)
+    t_ops = max(pairs * ops / FP32_INSTR_S, pairs * sfu / SFU_OPS_S)
+    t_bytes = 4 * n_floats / MEM_BYTES_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def operands(state, field_tensors, samples, cfg):
@@ -172,6 +285,7 @@ def phase_device():
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi)
+    return smi
 
 
 def phase_build():
@@ -185,9 +299,20 @@ def phase_build():
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
     stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame", log)]
-    emit("build", kernels_s=round(t_kern, 3), planner_s=round(t_plan, 3),
-         n_kernels=len(regs), max_registers=max(regs, default=0),
-         spill_store_bytes=sum(spills), max_stack_frame=max(stack, default=0))
+    by_kernel = {name: 0 for name in KERNELS}
+    for entry, used in re.findall(
+            r"Compiling entry function '(\S+)'[\s\S]*?Used (\d+) registers",
+            log):
+        for name in KERNELS:
+            if name in entry:
+                by_kernel[name] = max(by_kernel[name], int(used))
+    build = dict(
+        kernels_s=round(t_kern, 3), planner_s=round(t_plan, 3),
+        n_kernels=len(regs), max_registers=max(regs, default=0),
+        max_registers_by_kernel=by_kernel, spill_store_bytes=sum(spills),
+        max_stack_frame=max(stack, default=0))
+    emit("build", **build)
+    return build
 
 
 def phase_parity(dev, P_small=5000, N_small=50000):
@@ -223,7 +348,7 @@ def phase_parity(dev, P_small=5000, N_small=50000):
         errs = compare(got, ref, ORDERS, D, C)
         emit("parity", D=D, unwrapped=unwrapped, sigma=sigma, P=P, N=N,
              entries=int((state.ent_tile < binning.num_tiles(cfg, D)).sum()),
-             err={o: {"max_abs": e[0], "rel": e[1]} for o, e in errs.items()})
+             err=err_fields(errs))
 
     # The facade on the card against the dense masked oracle (an independent
     # reference: no binning ranges, no plain-kernel code).
@@ -291,7 +416,7 @@ def phase_parity_bwd(dev, P_small=5000, N_small=50000):
         emit("parity_bwd", D=D, unwrapped=unwrapped, sigma=sigma, C=C,
              orders=list(orders), P=P, N=N,
              entries=int((state.ent_tile < binning.num_tiles(cfg, D)).sum()),
-             err={k: {"max_abs": e[0], "rel": e[1]} for k, e in errs.items()})
+             err=err_fields(errs))
 
     # The op's gradients on the card against autograd through the dense
     # masked oracle, all four orders through the mirrored public outputs;
@@ -377,19 +502,15 @@ def phase_slice(dev, P=100_000, N=1_000_000):
 
     run()                               # warm-up (allocator, planner caches)
     torch.cuda.synchronize()
-    ktiled.tiled_forward.launches = 0
-    ktiled.tiled_backward.launches = 0
+    reset_launches()
     e2e = []
     for _ in range(5):
         t0 = time.perf_counter()
         outs = run()
         torch.cuda.synchronize()
         e2e.append((time.perf_counter() - t0) * 1e3)
-    launches = {"tiled_forward": ktiled.tiled_forward.launches,
-                "tiled_backward": ktiled.tiled_backward.launches}
     # Evaluation takes no gradient: five forward launches, no backward.
-    if launches != {"tiled_forward": 5, "tiled_backward": 0}:
-        raise AssertionError(f"5 evaluations launched {launches}")
+    launches = expect_launches("5 evaluations", tiled_forward=5)
 
     state = sampler.state
     _, diag = sampling.sample_binned(cfg, means, values, conics, covs,
@@ -425,13 +546,16 @@ def phase_slice(dev, P=100_000, N=1_000_000):
          max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
          entries=entries, pairs=pairs, swept_pairs_bound=swept,
          diagnostics=diag, launches=launches, output_shapes=shapes,
-         compared_samples=N,
-         err={o: {"max_abs": e[0], "rel": e[1]} for o, e in errs.items()},
+         compared_samples=N, err=err_fields(errs),
          kernel_ms=kernel_ms, plain_ms=plain_ms,
          e2e_ms_median=statistics.median(e2e), e2e_ms=e2e,
          planner_s=round(plan_s, 3))
-    return launches, {"max_abs_err": max(e[0] for e in errs.values()),
-                      "ms": kernel_ms, "plain_ms": plain_ms}
+    moved = sum(t.numel() for t in (geom, smp, lo, n, got))
+    return launches, {
+        "max_abs_err": max(e[0] for e in errs.values()),
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        **kernel_bound(pairs, moved, D, SLICE_ORDERS, C,
+                       period is not None, False)}
 
 
 def phase_train_step(dev, P=100_000, N=1_000_000):
@@ -460,18 +584,15 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
 
     loss, diag = step()                      # warm-up
     torch.cuda.synchronize()
-    ktiled.tiled_forward.launches = 0
-    ktiled.tiled_backward.launches = 0
+    reset_launches()
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
         loss, diag = step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = {"tiled_forward": ktiled.tiled_forward.launches,
-                "tiled_backward": ktiled.tiled_backward.launches}
-    if launches != {"tiled_forward": 5, "tiled_backward": 5}:
-        raise AssertionError(f"5 training steps launched {launches}")
+    launches = expect_launches("5 training steps", tiled_forward=5,
+                               tiled_backward=5)
     diag = {k: int(v) for k, v in diag.items() if k != "perm"}
     if any(diag.values()):
         raise AssertionError(f"overflow diagnostics not zero: {diag}")
@@ -513,13 +634,16 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
          max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
          entries=entries, pairs=pairs, swept_pairs_bound=swept,
          diagnostics=diag, launches=launches, loss=float(loss),
-         grads_bitwise_repeatable=True,
-         err={k: {"max_abs": e[0], "rel": e[1]} for k, e in errs.items()},
+         grads_bitwise_repeatable=True, err=err_fields(errs),
          bwd_kernel_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
          step_ms_median=statistics.median(times), step_ms=times,
          planner_s=round(plan_s, 3))
-    return launches, {"max_abs_err": max(e[0] for e in errs.values()),
-                      "ms": bwd_ms, "plain_ms": bwd_plain_ms}, step
+    moved = sum(t.numel() for t in (geom, smp, ct, s_lo, s_n, got))
+    return launches, {
+        "max_abs_err": max(e[0] for e in errs.values()),
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        **kernel_bound(pairs, moved, D, SLICE_ORDERS, C,
+                       period is not None, True)}, step
 
 
 PIGS_CFG = dict(tile_size=0.051, eig_floor=1e-12, axis_radii=True,
@@ -528,21 +652,18 @@ PIGS_P, PIGS_COLLOCATION, PIGS_LR = 100_000, 262_144, 2e-3
 
 
 def phase_pigs(dev, P=PIGS_P, steps=120, n_collocation=PIGS_COLLOCATION):
-    ktiled.tiled_forward.launches = 0
-    ktiled.tiled_backward.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     state, history = pigs.train(
         SamplerConfig(**PIGS_CFG), P=P, D=2, C=1, steps=steps,
         n_collocation=n_collocation, learning_rate=PIGS_LR,
         sigma=2.0 / math.sqrt(P), log_every=max(steps // 6, 1), device=dev)
     wall = time.perf_counter() - t0
-    launches = {"tiled_forward": ktiled.tiled_forward.launches,
-                "tiled_backward": ktiled.tiled_backward.launches}
     # Each step evaluates the collocation and the data points: two
     # launches of each kernel.
-    if launches != {"tiled_forward": 2 * steps,
-                     "tiled_backward": 2 * steps}:
-        raise AssertionError(f"{steps} PIGS steps launched {launches}")
+    launches = expect_launches(f"{steps} PIGS steps",
+                               tiled_forward=2 * steps,
+                               tiled_backward=2 * steps)
     for h in history:
         over = {k: h[k] for k in pigs.DIAGNOSTICS if h[k]}
         if over:
@@ -557,6 +678,257 @@ def phase_pigs(dev, P=PIGS_P, steps=120, n_collocation=PIGS_COLLOCATION):
          loss_curve=[h["loss"] for h in history],
          loss_steps=[h["step"] for h in history], launches=launches)
     return launches
+
+
+def dense_operands(dev, seed, P, N, D, C, sigma):
+    """((means, values, conics, samples), covariances, generator): a
+    seeded field's parameters and uniform samples on the card, detached."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    field = init_field(g, P, D, C, sigma=sigma)
+    samples = 2.0 * torch.rand((N, D), generator=g, device=dev) - 1.0
+    with torch.no_grad():
+        return (field.means.detach(), field.values.detach(),
+                field.conics(), samples), field.covariances(), g
+
+
+def compare_components(got, ref, orders, D):
+    """Per-order errors of the dense forward's K per-component (N, C)
+    tensors against the plain version's."""
+    errs, k0 = {}, 0
+    for order in orders:
+        k = D ** ORDERS.index(order)
+        errs[order] = check_close(
+            f"dense forward kernel against the plain version on {order}",
+            torch.stack(got[k0:k0 + k]), torch.stack(ref[k0:k0 + k]), RTOL)
+        k0 += k
+    return errs
+
+
+def compare_groups(got, ref):
+    """Per-group errors of the dense backward's (dmeans, dvalues, dconics)
+    against the plain version's."""
+    return {name: check_close(
+        f"dense backward kernel against the plain version on {name}", g, r,
+        GRAD_RTOL) for name, g, r in zip(("means", "values", "conics"),
+                                         got, ref)}
+
+
+def dense_cases():
+    """(D, period, C, orders, P, N, sigma) of the dense parity phases."""
+    cases = [(D, period, C, ORDERS, 2000, 20000, 0.1)
+             for D in (1, 2, 3) for period in (2.0, None) for C in (1, 4, 6)]
+    cases.append((3, 2.0, 3, ("laplacian",), 2000, 20000, 0.1))
+    cases.append((3, 2.0, 3, ("laplacian", "value", "third"), 2000, 20000,
+                  0.1))
+    # Sizes that are no multiple of a block or a chunk.
+    cases += [(2, 2.0, 2, ORDERS, P, N, 0.3)
+              for P, N in ((1, 1), (5, 3), (130, 129), (257, 300))]
+    return cases
+
+
+def phase_parity_dense(dev):
+    for D, period, C, orders, P, N, sigma in dense_cases():
+        args, _, _ = dense_operands(dev, 50 + D, P, N, D, C, sigma)
+        got = kdense.dense_forward(orders, period, *args)
+        ref = kdense.dense_forward_plain(orders, period, *args)
+        torch.cuda.synchronize()
+        if len(got) != kdense.total_components(orders, D):
+            raise AssertionError(f"{len(got)} components for {orders}")
+        errs = compare_components(got, ref, orders, D)
+        emit("parity_dense", D=D, period=period, C=C, orders=list(orders),
+             P=P, N=N, err=err_fields(errs))
+
+
+def phase_parity_dense_bwd(dev):
+    for D, period, C, orders, P, N, sigma in dense_cases():
+        args, _, g = dense_operands(dev, 60 + D, P, N, D, C, sigma)
+        gs = list(torch.randn((kdense.total_components(orders, D), N, C),
+                              generator=g, device=dev))
+        got = kdense.dense_backward(orders, period, *args, gs)
+        ref = kdense.dense_backward_plain(orders, period, *args, gs)
+        torch.cuda.synchronize()
+        errs = compare_groups(got, ref)
+        emit("parity_dense_bwd", D=D, period=period, C=C,
+             orders=list(orders), P=P, N=N, err=err_fields(errs))
+
+    # The op's gradients on the card against autograd through the dense
+    # oracle, all four orders; two runs must agree bitwise (no atomics,
+    # and the split of the sample axis depends on the shapes only).
+    for D in (1, 2, 3):
+        (m, v, con, samples), _, _ = dense_operands(dev, 70 + D, 300, 2000,
+                                                    D, 3, 0.05)
+
+        def grads(loss):
+            args = [a.clone().requires_grad_() for a in (m, v, con)]
+            return torch.autograd.grad(loss(*args), args)
+
+        def loss_kernels(m_, v_, c_):
+            outs = sampling.sample_all(m_, v_, c_, samples, method="pallas")
+            return sum((o ** 2).sum() for o in outs.values())
+
+        def loss_oracle(m_, v_, c_):
+            return sum((oracle.evaluate(o, m_, v_, c_, samples) ** 2).sum()
+                       for o in ORDERS)
+
+        got, again = grads(loss_kernels), grads(loss_kernels)
+        ref = grads(loss_oracle)
+        err = {}
+        for name, a, b, r in zip(("means", "values", "conics"), got, again,
+                                 ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"D={D} d{name}: two runs differ")
+            err[name] = check_close(f"dense op grads vs oracle D={D} "
+                                    f"d{name}", a, r, GRAD_RTOL)[0]
+        emit("parity_dense_bwd_oracle", D=D, P=300, N=2000, max_abs_err=err,
+             bitwise_repeatable=True)
+
+
+def phase_dense_slice(dev, P=10_000, N=100_000):
+    D, C = 3, 4
+    (means, values, conics, samples), covs, _ = dense_operands(
+        dev, 0, P, N, D, C, 2.0 / P ** (1.0 / 3.0))
+    period = SamplerConfig().period
+    sampler = GaussianSampler(method="pallas")
+
+    def run():
+        sampler.preprocess(means, values, covs, conics, samples)
+        return sampler.sample_all(ORDERS)
+
+    reset_launches()
+    e2e = host_ms(run, 5)
+    outs = run()
+    torch.cuda.synchronize()
+    eval_launches = expect_launches("7 dense evaluations", dense_forward=7)
+    want = {"value": [N, C], "derivative": [N, D, C],
+            "laplacian": [N, D, D, C], "third": [N, D, D, D, C]}
+    shapes = {o: list(outs[o].shape) for o in ORDERS}
+    if shapes != want:
+        raise AssertionError(f"output shapes {shapes}, expected {want}")
+    for o in ORDERS:
+        if not bool(torch.isfinite(outs[o]).all()):
+            raise AssertionError(f"non-finite {o} output")
+    # The first samples against the dense oracle, which shares no code with
+    # the kernels or their plain versions.
+    n_ref = 512
+    ref = oracle.evaluate_all(means, values, conics, samples[:n_ref],
+                              period=period)
+    oracle_err = {o: check_close(f"dense path vs oracle on {o}",
+                                 outs[o][:n_ref], ref[o], RTOL)[0]
+                  for o in ORDERS}
+    del ref
+
+    # A training step at the same width: the sum of squares of all
+    # outputs, backward() to means, values and conics.
+    params = [t.clone().requires_grad_() for t in (means, values, conics)]
+
+    def step():
+        for p in params:
+            p.grad = None
+        sampler.preprocess(params[0], params[1], covs, params[2], samples)
+        loss = sum((o * o).sum() for o in sampler.sample_all(ORDERS).values())
+        loss.backward()
+        return loss.detach()
+
+    reset_launches()
+    step_times = host_ms(step, 5)
+    step_launches = expect_launches("6 dense training steps",
+                                    dense_forward=6, dense_backward=6)
+    grads = [p.grad.clone() for p in params]
+    for name, gr, p in zip(("means", "values", "conics"), grads, params):
+        if gr.shape != p.shape or not bool(torch.isfinite(gr).all()):
+            raise AssertionError(f"d{name}: non-finite or misshapen")
+    loss = step()
+    torch.cuda.synchronize()
+    repeat = [bool(torch.equal(a, p.grad)) for a, p in zip(grads, params)]
+    if not all(repeat):
+        raise AssertionError(f"gradients differ between two runs: {repeat}")
+
+    # Each kernel against its plain version: the forward on all samples,
+    # the backward on the step's own cotangent (d loss / d outputs = 2 out).
+    args = (means, values, conics, samples)
+    got = kdense.dense_forward(ORDERS, period, *args)
+    t0 = time.perf_counter()
+    ref = kdense.dense_forward_plain(ORDERS, period, *args)
+    torch.cuda.synchronize()
+    fwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    fwd_errs = compare_components(got, ref, ORDERS, D)
+    del ref
+    gs = [2.0 * c for c in got]
+    got_b = kdense.dense_backward(ORDERS, period, *args, gs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_b = kdense.dense_backward_plain(ORDERS, period, *args, gs)
+    torch.cuda.synchronize()
+    bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    bwd_errs = compare_groups(got_b, ref_b)
+    fwd_ms = cuda_ms(lambda: kdense.dense_forward(ORDERS, period, *args))
+    bwd_ms = cuda_ms(lambda: kdense.dense_backward(ORDERS, period, *args,
+                                                   gs))
+    K = kdense.total_components(ORDERS, D)
+    operand_floats = sum(t.numel() for t in args)
+    emit("dense_slice", P=P, N=N, D=D, C=C, period=period, pairs=N * P,
+         components=K, output_shapes=shapes,
+         launches={"evaluations": eval_launches, "steps": step_launches},
+         oracle_samples=n_ref, oracle_max_abs_err=oracle_err,
+         compared_samples=N, err=err_fields(fwd_errs),
+         bwd_err=err_fields(bwd_errs), loss=float(loss),
+         grads_bitwise_repeatable=True,
+         fwd_splits=kdense.split_plan(-(-N // kdense.BLOCK_N), P,
+                                      kdense.FWD_CHUNK)[0],
+         bwd_splits=kdense.split_plan(-(-P // kdense.BLOCK_P), N,
+                                      kdense.BWD_CHUNK)[0],
+         kernel_ms=fwd_ms, plain_ms=fwd_plain_ms, bwd_kernel_ms=bwd_ms,
+         bwd_plain_ms=bwd_plain_ms,
+         e2e_ms_median=statistics.median(e2e), e2e_ms=e2e,
+         step_ms_median=statistics.median(step_times), step_ms=step_times)
+    k_fwd = {"max_abs_err": max(e[0] for e in fwd_errs.values()),
+             "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+             **kernel_bound(N * P, operand_floats + K * N * C, D, ORDERS, C,
+                            True, False)}
+    k_bwd = {"max_abs_err": max(e[0] for e in bwd_errs.values()),
+             "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+             **kernel_bound(N * P, operand_floats + K * N * C
+                            + sum(t.numel() for t in got_b), D, ORDERS, C,
+                            True, True)}
+    return eval_launches, step_launches, k_fwd, k_bwd, step
+
+
+def phase_pigs_dense(dev, P=10_000, steps=120, n_collocation=16_384):
+    """PIGS through the all-pairs kernels, and the tiled path from the same
+    seed as its control.  The two curves differ by the tiled path's
+    3-sigma cut and by their collocation draws (the tiled run spends one
+    draw on the capacity probe), so no closeness is asserted."""
+    runs = {}
+    for method in ("pallas", "tiled"):
+        reset_launches()
+        t0 = time.perf_counter()
+        _, history = pigs.train(
+            SamplerConfig(**{**PIGS_CFG, "tile_size": 0.125}), P=P, D=2,
+            C=1, steps=steps, n_collocation=n_collocation,
+            learning_rate=PIGS_LR, sigma=2.0 / math.sqrt(P), method=method,
+            log_every=max(steps // 6, 1), device=dev)
+        wall = time.perf_counter() - t0
+        kernels = (("dense_forward", "dense_backward") if method == "pallas"
+                   else ("tiled_forward", "tiled_backward"))
+        launches = expect_launches(f"{steps} PIGS steps ({method})",
+                                   **{k: 2 * steps for k in kernels})
+        for h in history:
+            over = {k: h[k] for k in pigs.DIAGNOSTICS if h[k]}
+            if over:
+                raise AssertionError(
+                    f"{method}: overflow at step {h['step']}: {over}")
+        first, last = history[0]["loss"], history[-1]["loss"]
+        if not (math.isfinite(last) and last < 0.5 * first):
+            raise AssertionError(
+                f"PIGS loss ({method}) did not halve: {first} -> {last}")
+        runs[method] = dict(
+            launches=launches, wall_s=round(wall, 3),
+            t_step_s_warm=min(h["t_step_s"] for h in history[1:]),
+            loss_curve=[h["loss"] for h in history])
+    emit("pigs_dense", P=P, D=2, C=1, steps=steps,
+         n_collocation=n_collocation,
+         loss_steps=[h["step"] for h in history], **runs)
+    return runs["pallas"]["launches"]
 
 
 def device_profile(fn, iters):
@@ -611,10 +983,11 @@ def host_ms(fn, reps):
     return times
 
 
-def phase_profile(dev, train_step, pigs_iters=10):
+def phase_profile(dev, train_step, dense_step, pigs_iters=10):
     """Where a step's time goes: device busy time per step under the
     profiler against the unprofiled step time (median, synchronised host
-    clock), for the headline training step and the PIGS config 4 step."""
+    clock), for the headline training step, the PIGS config 4 step and the
+    dense training step."""
     pigs_cfg = SamplerConfig(**PIGS_CFG)
     u_star, f_rhs = pigs.manufactured_solution(2)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -626,7 +999,8 @@ def phase_profile(dev, train_step, pigs_iters=10):
     pigs_step = pigs.make_train_step(pigs_cfg, opt, f_rhs, u_star, gen,
                                      n_collocation=PIGS_COLLOCATION)
     for path, fn, iters in (("train_step", train_step, 5),
-                            ("pigs", lambda: pigs_step(field), pigs_iters)):
+                            ("pigs", lambda: pigs_step(field), pigs_iters),
+                            ("dense_step", dense_step, 3)):
         times = host_ms(fn, 2 * iters)
         busy, top = device_profile(fn, iters)
         step_ms = statistics.median(times)
@@ -638,30 +1012,52 @@ def phase_profile(dev, train_step, pigs_iters=10):
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_device()
+    smi = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
+    build = phase_build()
+    # The many-line parity phases first, the measured paths after them, so
+    # that the end of the output holds every number of the kernels line.
     phase_parity(dev)
     phase_parity_bwd(dev)
+    phase_parity_dense(dev)
+    phase_parity_dense_bwd(dev)
     slice_launches, k_fwd = phase_slice(dev)
     train_launches, k_bwd, train_step = phase_train_step(dev)
     pigs_launches = phase_pigs(dev)
-    phase_profile(dev, train_step)
-    by_path = {name: {"slice": slice_launches[name],
-                      "train_step": train_launches[name],
-                      "pigs": pigs_launches[name]}
-               for name in ("tiled_forward", "tiled_backward")}
+    (dense_eval_launches, dense_step_launches, k_dfwd, k_dbwd,
+     dense_step) = phase_dense_slice(dev)
+    pigs_dense_launches = phase_pigs_dense(dev)
+    phase_profile(dev, train_step, dense_step)
+    paths = {"slice": slice_launches, "train_step": train_launches,
+             "pigs": pigs_launches, "dense_slice": dense_eval_launches,
+             "dense_step": dense_step_launches,
+             "pigs_dense": pigs_dense_launches}
+    # name: (source, the TPU kernel it replaces, its main path, numbers)
+    kernels = {
+        "tiled_forward": ("tiled_forward.cu", "dgs_tpu/kernels/tiled.py:727",
+                          "slice", k_fwd),
+        "tiled_backward": ("tiled_backward.cu",
+                           "dgs_tpu/kernels/tiled.py:1338", "train_step",
+                           k_bwd),
+        "dense_forward": ("dense_forward.cu", "dgs_tpu/kernels/dense.py:149",
+                          "dense_slice", k_dfwd),
+        "dense_backward": ("dense_backward.cu",
+                           "dgs_tpu/kernels/dense.py:220", "dense_step",
+                           k_dbwd),
+    }
+    for name, (_, _, main_path, _) in kernels.items():
+        if paths[main_path][name] < 1:
+            raise AssertionError(f"{name} never launched on {main_path}")
+    emit("card_and_build", nvidia_smi=smi, **build)
+    # No single PyTorch call computes any of these functions (a fused
+    # multi-order Gaussian-mixture evaluation or its VJP), so library_ms
+    # is null.
     print(json.dumps({"kernels": [
-        {"name": "tiled_forward", "route": "cuda",
-         "source": "dgs_tpu_torch/csrc/tiled_forward.cu",
-         "replaces": "dgs_tpu/kernels/tiled.py:727",
-         "launches": slice_launches["tiled_forward"], **k_fwd,
-         "launches_by_path": by_path["tiled_forward"]},
-        {"name": "tiled_backward", "route": "cuda",
-         "source": "dgs_tpu_torch/csrc/tiled_backward.cu",
-         "replaces": "dgs_tpu/kernels/tiled.py:1338",
-         "launches": train_launches["tiled_backward"], **k_bwd,
-         "launches_by_path": by_path["tiled_backward"]},
+        {"name": name, "route": "cuda",
+         "source": f"dgs_tpu_torch/csrc/{source}", "replaces": replaces,
+         "launches": paths[main_path][name], **numbers, "library_ms": None,
+         "launches_by_path": {p: counts[name] for p, counts in paths.items()}}
+        for name, (source, replaces, main_path, numbers) in kernels.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,7 +76,16 @@ def load() -> ctypes.CDLL:
             i, i, i, i, p, p,
         ]
         lib.dgs_tiled_backward.restype = i
-        for fn in (lib.dgs_tiled_forward_block, lib.dgs_tiled_backward_block):
+        lib.dgs_dense_forward.argtypes = [
+            p, i, i, p, i, i, i, i, i, i, ctypes.c_float, p, p,
+        ]
+        lib.dgs_dense_forward.restype = i
+        lib.dgs_dense_backward.argtypes = [
+            p, i, i, p, i, p, i, i, i, i, i, ctypes.c_float, p, p,
+        ]
+        lib.dgs_dense_backward.restype = i
+        for fn in (lib.dgs_tiled_forward_block, lib.dgs_tiled_backward_block,
+                   lib.dgs_dense_forward_block, lib.dgs_dense_backward_block):
             fn.argtypes = []
             fn.restype = i
         _lib = lib

@@ -28,7 +28,9 @@ class GaussianField(nn.Module):
     def from_numpy(cls, means, log_scales, rotations, values, *,
                    device=None) -> "GaussianField":
         """A field from the four parameter arrays of a ``dgs_tpu`` field
-        (or any numpy arrays of those shapes), as float32 on ``device``."""
+        (or any numpy arrays of those shapes), as float32 on ``device``
+        (default: the card, ``torch.device("cuda")``)."""
+        device = torch.device("cuda" if device is None else device)
         return cls(*(torch.tensor(np.asarray(a, np.float32), device=device)
                      for a in (means, log_scales, rotations, values)))
 

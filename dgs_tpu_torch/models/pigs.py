@@ -57,20 +57,27 @@ def field_outputs(cfg: SamplerConfig, field: GaussianField, samples,
                   method: str = "tiled", sorted_outputs: bool = False,
                   unique_outputs: bool = False,
                   padded_outputs: bool = False, sample_binning=None):
-    """Bin once, evaluate the requested orders; returns (outputs dict,
-    diagnostics dict) as ops.sampling.sample_binned.  With
-    ``sorted_outputs`` the rows stay tile-sorted and diag["perm"] maps them
-    back to samples (losses evaluate their targets at samples[perm])."""
-    if method != "tiled":
-        raise NotImplementedError(
-            f"field_outputs(method={method!r}) is not ported to "
-            "dgs_tpu_torch yet: ROADMAP.md item 10 (dense kernel path)")
-    return sampling.sample_binned(
-        cfg, field.means, field.values, field.conics(), field.covariances(),
-        samples, tuple(orders), sorted_outputs=sorted_outputs,
-        unique_outputs=unique_outputs, padded_outputs=padded_outputs,
-        sample_binning=sample_binning,
-    )
+    """Evaluate the requested orders; returns (outputs dict, diagnostics
+    dict) as ops.sampling.sample_binned.
+
+    ``method="tiled"`` bins once.  With ``sorted_outputs`` the rows stay
+    tile-sorted and diag["perm"] maps them back to samples (losses evaluate
+    their targets at samples[perm]); ``unique_outputs`` skips the symmetric
+    mirror.  The all-pairs methods ("pallas": the dense kernels, "dense":
+    plain torch) take no output mode: reference shapes in sample order,
+    ``perm`` None and zero diagnostics."""
+    if method == "tiled":
+        return sampling.sample_binned(
+            cfg, field.means, field.values, field.conics(),
+            field.covariances(), samples, tuple(orders),
+            sorted_outputs=sorted_outputs, unique_outputs=unique_outputs,
+            padded_outputs=padded_outputs, sample_binning=sample_binning,
+        )
+    outs = sampling.sample_all(
+        field.means, field.values, field.conics(), samples,
+        period=cfg.period, orders=tuple(orders), method=method)
+    zero = torch.zeros((), dtype=torch.int32, device=samples.device)
+    return outs, {"perm": None, **{k: zero for k in DIAGNOSTICS}}
 
 
 DIAGNOSTICS = ("bin_overflow", "entry_overflow", "work_overflow_fwd",
@@ -81,24 +88,34 @@ def pigs_loss(cfg: SamplerConfig, field: GaussianField, collocation,
               data_x, data_u, f_rhs: Callable, *, w_pde: float = 1.0,
               w_data: float = 1.0, method: str = "tiled"):
     """PDE residual + data loss; returns (loss, metrics), metrics holding
-    the loss terms and the binning diagnostics as 0-d tensors.  Outputs
-    stay tile-sorted and unmirrored (the Laplacian is the trace of the
-    unique Hessian components), so the targets are evaluated at the sorted
-    points."""
+    the loss terms and the binning diagnostics as 0-d tensors.  On the
+    tiled path outputs stay tile-sorted and unmirrored (the Laplacian is
+    the trace of the unique Hessian components), so the targets are
+    evaluated at the sorted points; the all-pairs methods give the full
+    (N, D, D, C) Hessian in sample order."""
     D = field.D
+    use_tiled = method == "tiled"
     outs, diag = field_outputs(
         cfg, field, collocation, orders=("value", "laplacian"),
-        method=method, sorted_outputs=True, unique_outputs=True)
-    col_pts = collocation[diag["perm"].long()]
-    hessu = outs["laplacian"]                       # (N, tri, C) unique
-    lap = sum(hessu[:, i, :] for i in formulas.unique_diag_indices(D))
+        method=method, sorted_outputs=use_tiled, unique_outputs=use_tiled)
+    if use_tiled:
+        col_pts = collocation[diag["perm"].long()]
+        hessu = outs["laplacian"]                   # (N, tri, C) unique
+        lap = sum(hessu[:, i, :] for i in formulas.unique_diag_indices(D))
+    else:
+        col_pts = collocation
+        hess = outs["laplacian"]                    # (N, D, D, C)
+        lap = torch.diagonal(hess, dim1=1, dim2=2).sum(dim=-1)
     pde = torch.mean((-lap - f_rhs(col_pts)) ** 2)
 
     outs_d, diag_d = field_outputs(
         cfg, field, data_x, orders=("value",), method=method,
-        sorted_outputs=True, unique_outputs=True)
-    u_d = outs_d["value"][:, 0, :]
-    tgt = data_u[diag_d["perm"].long()]
+        sorted_outputs=use_tiled, unique_outputs=use_tiled)
+    if use_tiled:
+        u_d = outs_d["value"][:, 0, :]
+        tgt = data_u[diag_d["perm"].long()]
+    else:
+        u_d, tgt = outs_d["value"], data_u
     data = torch.mean((u_d - tgt) ** 2)
 
     loss = w_pde * pde + w_data * data
@@ -182,8 +199,8 @@ def train(cfg: SamplerConfig, *, P: int = 1000, D: int = 2, C: int = 1,
           learning_rate: float = 3e-3, sigma: float = 0.1,
           method: str = "tiled", seed: int = 0, log_every: int = 50,
           logger=None, auto_capacities: bool = True, device=None):
-    """Full training run on ``device`` (default CPU); returns (state,
-    history).
+    """Full training run on ``device`` (default: the card,
+    ``torch.device("cuda")``); returns (state, history).
 
     ``history`` has one entry per chunk of min(log_every, 32) steps (the
     JAX package's scan chunk; the last chunk may be shorter): the chunk's
@@ -191,14 +208,15 @@ def train(cfg: SamplerConfig, *, P: int = 1000, D: int = 2, C: int = 1,
     its maximum over the chunk's steps, ``t_step_s`` (the chunk's
     synchronised wall time per step; the first chunk includes the kernel
     build and the allocator's warm-up) and ``step``.  ``auto_capacities``
-    sizes the binning from the initial parameters (auto_config)."""
-    device = torch.device(device or "cpu")
+    sizes the tiled method's binning from the initial parameters
+    (auto_config); the all-pairs methods have no capacities."""
+    device = torch.device("cuda" if device is None else device)
     u_star, f_rhs = manufactured_solution(D)
     gen = torch.Generator(device=device).manual_seed(seed)
     field = init_field(gen, P, D, C, sigma=sigma)
     optimizer = torch.optim.Adam(field.parameters(), lr=learning_rate,
                                  eps=1e-8)
-    if auto_capacities:
+    if method == "tiled" and auto_capacities:
         probe = 2.0 * torch.rand((n_collocation, D), generator=gen,
                                  device=device) - 1.0
         cfg = auto_config(cfg, field, probe, P)

@@ -50,6 +50,18 @@ def power_terms(Xs: Sequence, con: Sequence):
     return G, a
 
 
+def pairwise_context(means, conics, samples, period: Optional[float]):
+    """(Xs, con, G, a) for all (N, P) pairs of samples (N, D) and Gaussians
+    (means (P, D), packed conics (P, tri)): the wrapped displacements, the
+    broadcast conic entries, G and a = C X."""
+    D = samples.shape[1]
+    X = wrap(means[None, :, :] - samples[:, None, :], period)
+    Xs = [X[..., d] for d in range(D)]
+    con = [conics[None, :, t] for t in range(tri_size(D))]
+    G, a = power_terms(Xs, con)
+    return Xs, con, G, a
+
+
 def components(order: str, Xs: Sequence, con: Sequence, G, a) -> List:
     """Per-pair evaluation weights, row-major over tensor indices (the
     symmetric off-diagonals duplicated)."""
@@ -369,8 +381,25 @@ def vjp_params_fused(orders: Sequence[str], Xs: Sequence, con: Sequence,
 def vjp_params(order: str, Xs: Sequence, con: Sequence, G, a, hs: Sequence):
     """Per-pair VJP contributions (dmu, dcon) of one order, per full
     row-major component (``hs`` as ``components``: h = sum_c values_c *
-    dL/dout[comp, c]).  The component-by-component form of
-    vjp_params_fused, from dw/dmu_d = G (-a_d p + dp/dmu_d) and
+    dL/dout[comp, c]).  The cotangents of mirrored positions are added
+    into their unique component, in component order, and handed to
+    vjp_params_folded."""
+    D = len(Xs)
+    folded = [None] * n_unique(order, D)
+    for h, u in zip(hs, full_to_unique(order, D)):
+        folded[u] = h if folded[u] is None else folded[u] + h
+    return vjp_params_folded(order, Xs, con, G, a, folded)
+
+
+def vjp_params_folded(order: str, Xs: Sequence, con: Sequence, G, a,
+                      hs: Sequence):
+    """vjp_params over the unique components with FOLDED cotangents.
+
+    ``hs[u]`` holds the sum of the full tensor's cotangents over every
+    position that mirrors unique component u (the transpose of the
+    symmetric expansion).  Valid because every per-component VJP term is
+    symmetric in the component's indices.  The component-by-component form
+    of vjp_params_fused, from dw/dmu_d = G (-a_d p + dp/dmu_d) and
     dw/dc_t = G (s_t p + dp/dc_t) with s_t = d(power)/dc_t."""
     D = len(Xs)
     tri = tri_size(D)
@@ -381,75 +410,62 @@ def vjp_params(order: str, Xs: Sequence, con: Sequence, G, a, hs: Sequence):
     dmu = [0.0] * D
     dcon = [0.0] * tri
 
-    if order == "value":
-        hG = hs[0] * G
-        for d in range(D):
-            dmu[d] = dmu[d] - hG * a[d]
-        for t in range(tri):
-            dcon[t] = dcon[t] + hG * s[t]
-        return dmu, dcon
-
-    if order == "derivative":
-        for i in range(D):
-            hG = hs[i] * G
+    for idx, h in zip(sym_indices(order, D), hs):
+        hG = h * G
+        if order == "value":
+            for d in range(D):
+                dmu[d] = dmu[d] - hG * a[d]
+            for t in range(tri):
+                dcon[t] = dcon[t] + hG * s[t]
+        elif order == "derivative":
+            (i,) = idx
             for d in range(D):
                 dmu[d] = dmu[d] + hG * (C(i, d) - a[d] * a[i])
             for t in range(tri):
                 dcon[t] = dcon[t] + hG * (s[t] * a[i] + da[i][t])
-        return dmu, dcon
-
-    if order == "laplacian":
-        for i in range(D):
-            for j in range(D):
-                hG = hs[i * D + j] * G
-                p = a[i] * a[j] - C(i, j)
-                for d in range(D):
-                    dmu[d] = dmu[d] + hG * (
-                        C(i, d) * a[j] + C(j, d) * a[i] - a[d] * p)
-                tij = tri_index(D, i, j)
-                for t in range(tri):
-                    dp = da[i][t] * a[j] + da[j][t] * a[i]
-                    if t == tij:
-                        dp = dp - 1.0
-                    dcon[t] = dcon[t] + hG * (s[t] * p + dp)
-        return dmu, dcon
-
-    if order == "third":
-        for i in range(D):
-            for j in range(D):
-                for k in range(D):
-                    hG = hs[(i * D + j) * D + k] * G
-                    p = (C(i, j) * a[k] + C(i, k) * a[j] + C(j, k) * a[i]
-                         - a[i] * a[j] * a[k])
-                    for d in range(D):
-                        dp_dmu = (
-                            C(i, j) * C(k, d)
-                            + C(i, k) * C(j, d)
-                            + C(j, k) * C(i, d)
-                            - C(i, d) * a[j] * a[k]
-                            - a[i] * C(j, d) * a[k]
-                            - a[i] * a[j] * C(k, d)
-                        )
-                        dmu[d] = dmu[d] + hG * (dp_dmu - a[d] * p)
-                    tij = tri_index(D, i, j)
-                    tik = tri_index(D, i, k)
-                    tjk = tri_index(D, j, k)
-                    for t in range(tri):
-                        dp = (
-                            C(i, j) * da[k][t]
-                            + C(i, k) * da[j][t]
-                            + C(j, k) * da[i][t]
-                            - da[i][t] * a[j] * a[k]
-                            - a[i] * da[j][t] * a[k]
-                            - a[i] * a[j] * da[k][t]
-                        )
-                        if t == tij:
-                            dp = dp + a[k]
-                        if t == tik:
-                            dp = dp + a[j]
-                        if t == tjk:
-                            dp = dp + a[i]
-                        dcon[t] = dcon[t] + hG * (s[t] * p + dp)
-        return dmu, dcon
-
-    raise ValueError(f"unknown order {order!r}")
+        elif order == "laplacian":
+            i, j = idx
+            p = a[i] * a[j] - C(i, j)
+            for d in range(D):
+                dmu[d] = dmu[d] + hG * (
+                    C(i, d) * a[j] + C(j, d) * a[i] - a[d] * p)
+            tij = tri_index(D, i, j)
+            for t in range(tri):
+                dp = da[i][t] * a[j] + da[j][t] * a[i]
+                if t == tij:
+                    dp = dp - 1.0
+                dcon[t] = dcon[t] + hG * (s[t] * p + dp)
+        else:  # third
+            i, j, k = idx
+            p = (C(i, j) * a[k] + C(i, k) * a[j] + C(j, k) * a[i]
+                 - a[i] * a[j] * a[k])
+            for d in range(D):
+                dp_dmu = (
+                    C(i, j) * C(k, d)
+                    + C(i, k) * C(j, d)
+                    + C(j, k) * C(i, d)
+                    - C(i, d) * a[j] * a[k]
+                    - a[i] * C(j, d) * a[k]
+                    - a[i] * a[j] * C(k, d)
+                )
+                dmu[d] = dmu[d] + hG * (dp_dmu - a[d] * p)
+            tij = tri_index(D, i, j)
+            tik = tri_index(D, i, k)
+            tjk = tri_index(D, j, k)
+            for t in range(tri):
+                dp = (
+                    C(i, j) * da[k][t]
+                    + C(i, k) * da[j][t]
+                    + C(j, k) * da[i][t]
+                    - da[i][t] * a[j] * a[k]
+                    - a[i] * da[j][t] * a[k]
+                    - a[i] * a[j] * da[k][t]
+                )
+                if t == tij:
+                    dp = dp + a[k]
+                if t == tik:
+                    dp = dp + a[j]
+                if t == tjk:
+                    dp = dp + a[i]
+                dcon[t] = dcon[t] + hG * (s[t] * p + dp)
+    return dmu, dcon

@@ -1,26 +1,180 @@
-"""The tile-binned sampling op.
+"""Differentiable sampling ops with hand-derived backward passes.
 
-The counterpart of the tiled half of ``dgs_tpu/ops/sampling.py``
-(``sample_tiled_multi`` and ``sample_binned``): a fused multi-order
-evaluation over a prebuilt BinningState.  The op is a
-``torch.autograd.Function`` over the tiled forward kernel whose backward is
-the tiled backward kernel followed by a deterministic segment-sum of the
-per-entry gradient rows by Gaussian id.  Gradients flow to (means, values,
-conics) only, the reference's autograd contract.
+The counterpart of ``dgs_tpu/ops/sampling.py``.  Every op is a
+``torch.autograd.Function`` whose backward is a closed form, not autograd
+through the forward; gradients flow to (means, values, conics) only, the
+reference's autograd contract (the sample positions get none).  Three paths
+share the interface:
+
+  * ``sample_dense_multi`` (``method="dense"``): all pairs in plain torch,
+    the whole (N, k, P) weight tensor at once; for small sizes.
+  * ``sample_pallas_multi`` (``method="pallas"``): all pairs through the
+    dense kernels of ``kernels/dense.py``.  The name is the JAX package's,
+    kept so that callers carry over letter for letter; in this package it
+    selects the hand-written CUDA kernels (their plain torch versions for
+    CPU tensors).
+  * ``sample_tiled_multi`` / ``sample_binned``: the tile-binned path over a
+    prebuilt BinningState, the tiled forward kernel, and a backward that is
+    the tiled backward kernel followed by a deterministic segment-sum of
+    the per-entry gradient rows by Gaussian id.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..config import ORDERS, out_shape, tri_size
+from ..config import ORDERS, n_components, out_shape, tri_size
 from . import formulas
 
 ALL_ORDERS = ORDERS
+
+
+def _forward_impl(orders, period, means, values, conics, samples):
+    N, D = samples.shape
+    C = values.shape[1]
+    Xs, con, G, a = formulas.pairwise_context(means, conics, samples,
+                                               period)
+    outs = []
+    for order in orders:
+        comps = formulas.components(order, Xs, con, G, a)
+        W = torch.stack(comps, dim=1)  # (N, k, P)
+        out = torch.einsum("nkp,pc->nkc", W, values)
+        outs.append(out.reshape(out_shape(order, N, D, C)))
+    return tuple(outs)
+
+
+def _backward_impl(orders, period, means, values, conics, samples, gs):
+    """Closed-form VJP shared by all orders."""
+    N, D = samples.shape
+    C = values.shape[1]
+    Xs, con, G, a = formulas.pairwise_context(means, conics, samples,
+                                               period)
+
+    d_means = torch.zeros_like(means)
+    d_values = torch.zeros_like(values)
+    d_conics = torch.zeros_like(conics)
+
+    for order, g in zip(orders, gs):
+        k = n_components(order, D)
+        g = g.reshape(N, k, C)
+        comps = formulas.components(order, Xs, con, G, a)
+        W = torch.stack(comps, dim=1)  # (N, k, P)
+        # dL/dvalues[p,c] = sum_{n,comp} W[n,comp,p] * g[n,comp,c]
+        d_values = d_values + torch.einsum("nkp,nkc->pc", W, g)
+        # h_comp[n,p] = sum_c values[p,c] * g[n,comp,c]
+        H = torch.einsum("pc,nkc->nkp", values, g)
+        hs = [H[:, i, :] for i in range(k)]
+        dmu, dcon = formulas.vjp_params(order, Xs, con, G, a, hs)
+        d_means = d_means + torch.stack([m.sum(dim=0) for m in dmu], dim=-1)
+        d_conics = d_conics + torch.stack([c.sum(dim=0) for c in dcon],
+                                          dim=-1)
+
+    return d_means, d_values, d_conics
+
+
+class _AllPairs(torch.autograd.Function):
+    """(means, values, conics, samples) -> one output per order.  ``impl``
+    is a (forward, backward) pair of functions with the signatures of
+    _forward_impl and _backward_impl; the backward is impl's closed form,
+    never autograd through the forward."""
+
+    @staticmethod
+    def forward(ctx, means, values, conics, samples, orders, period, impl):
+        ctx.save_for_backward(means, values, conics, samples)
+        ctx.orders, ctx.period, ctx.impl = orders, period, impl
+        return impl[0](orders, period, means, values, conics, samples)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *gs):
+        d_means, d_values, d_conics = ctx.impl[1](
+            ctx.orders, ctx.period, *ctx.saved_tensors, gs)
+        return d_means, d_values, d_conics, None, None, None, None
+
+
+def sample_dense_multi(orders: Tuple[str, ...], period: Optional[float],
+                       means, values, conics, samples):
+    """Fused multi-order dense evaluation; returns one output per order."""
+    return _AllPairs.apply(means, values, conics, samples, tuple(orders),
+                           period, (_forward_impl, _backward_impl))
+
+
+def sample_dense(order: str, means, values, conics, samples,
+                 *, period: Optional[float] = 2.0):
+    """Single-order dense evaluation (value/derivative/laplacian/third)."""
+    (out,) = sample_dense_multi((order,), period, means, values, conics,
+                                samples)
+    return out
+
+
+def sample_dense_all(means, values, conics, samples, *, period=2.0,
+                     orders: Sequence[str] = ALL_ORDERS):
+    outs = sample_dense_multi(tuple(orders), period, means, values, conics,
+                              samples)
+    return dict(zip(orders, outs))
+
+
+# ---------------------------------------------------------------------------
+# Kernel path (same interface, the dense CUDA kernels underneath)
+# ---------------------------------------------------------------------------
+
+
+def _split_orders(orders, comp_list, N, D, C):
+    """Assemble the kernels' per-component (N, C) tensors into per-order
+    output tensors (value (N,C) ... third (N,D,D,D,C))."""
+    outs = []
+    k0 = 0
+    for order in orders:
+        k = n_components(order, D)
+        stacked = torch.stack(comp_list[k0:k0 + k], dim=1)  # (N, k, C)
+        outs.append(stacked.reshape(out_shape(order, N, D, C)))
+        k0 += k
+    return tuple(outs)
+
+
+def _split_cotangents(orders, gs, N, D, C):
+    """Per-order cotangent tensors -> flat list of per-component (N, C)."""
+    parts = []
+    for order, g in zip(orders, gs):
+        k = n_components(order, D)
+        g = g.reshape(N, k, C)
+        parts.extend(g[:, i, :] for i in range(k))
+    return parts
+
+
+def _kernel_forward(orders, period, means, values, conics, samples):
+    from ..kernels import dense as kdense
+
+    N, D = samples.shape
+    comps = kdense.dense_forward(orders, period, means, values, conics,
+                                 samples)
+    return _split_orders(orders, comps, N, D, values.shape[1])
+
+
+def _kernel_backward(orders, period, means, values, conics, samples, gs):
+    from ..kernels import dense as kdense
+
+    N, D = samples.shape
+    g_list = _split_cotangents(orders, gs, N, D, values.shape[1])
+    return kdense.dense_backward(orders, period, means, values, conics,
+                                 samples, g_list)
+
+
+def sample_pallas_multi(orders: Tuple[str, ...], period: Optional[float],
+                        means, values, conics, samples):
+    """Fused multi-order evaluation through the dense kernels (on CUDA
+    tensors the hand-written CUDA kernels; the name is dgs_tpu's)."""
+    return _AllPairs.apply(means, values, conics, samples, tuple(orders),
+                           period, (_kernel_forward, _kernel_backward))
+
+
+# ---------------------------------------------------------------------------
+# Tile-binned path (binning/ + kernels/tiled.py)
+# ---------------------------------------------------------------------------
 
 
 def segment_sum_rows(rows, gid, P: int, slots: int):
@@ -198,3 +352,30 @@ def sample_binned(cfg, means, values, conics, covariances, samples,
         "work_overflow_bwd": zero,
     }
     return dict(zip(orders, outs)), diag
+
+
+def _dense_op(method: str):
+    if method == "pallas":
+        return sample_pallas_multi
+    if method == "dense":
+        return sample_dense_multi
+    raise ValueError(f"unknown dense method {method!r}: 'pallas' or 'dense'")
+
+
+def sample(order: str, means, values, conics, samples, *,
+           period: Optional[float] = 2.0, method: str = "pallas"):
+    """Public single-order entry point.
+
+    method: "pallas" (the dense kernels: CUDA on the card) or "dense" (the
+    plain torch path).  Both produce the same values and gradients."""
+    (out,) = _dense_op(method)((order,), period, means, values, conics,
+                               samples)
+    return out
+
+
+def sample_all(means, values, conics, samples, *, period=2.0,
+               orders: Sequence[str] = ALL_ORDERS, method: str = "pallas"):
+    """Fused multi-order evaluation: one pairwise pass for all orders."""
+    outs = _dense_op(method)(tuple(orders), period, means, values, conics,
+                             samples)
+    return dict(zip(orders, outs))

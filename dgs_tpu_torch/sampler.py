@@ -1,13 +1,15 @@
 """Stateful GaussianSampler facade, the reference-shaped public API.
 
-The counterpart of ``dgs_tpu/sampler.py`` for ``method="tiled"``:
-``preprocess`` builds the binning once, the four ``sample_gaussians*``
-methods and ``sample_all`` evaluate over it through the tiled forward
-kernel.  Their outputs are differentiable w.r.t. the ``means``, ``values``
-and ``conics`` handed to ``preprocess`` (the reference's autograd contract;
-covariances and samples only shape the binning), through the tiled backward
-kernel.  The other methods and the neighbour aggregation are later slices
-of the port and raise ``NotImplementedError`` naming their ROADMAP item.
+The counterpart of ``dgs_tpu/sampler.py``.  With ``method="tiled"``
+``preprocess`` builds the binning once and the four ``sample_gaussians*``
+methods and ``sample_all`` evaluate over it through the tiled kernels; with
+``method="pallas"`` (the dense CUDA kernels; the name is dgs_tpu's) or
+``"dense"`` (plain torch) there is no binning and every sample meets every
+Gaussian.  Outputs are differentiable w.r.t. the ``means``, ``values`` and
+``conics`` handed to ``preprocess`` (the reference's autograd contract;
+covariances and samples only shape the binning).  The chunked method and the
+neighbour aggregation are later slices of the port and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,18 +24,15 @@ from .ops import sampling
 from .oracle.dense import radii as compute_radii
 from .utils.debug import check_finite, snapshot_call
 
-_NOT_PORTED = {
-    "pallas": "ROADMAP.md item 10 (dense kernel path)",
-    "dense": "ROADMAP.md item 10 (dense kernel path)",
-    "chunked": "ROADMAP.md item 11 (chunked path)",
-}
+METHODS = ("tiled", "pallas", "dense")
+_NOT_PORTED = {"chunked": "ROADMAP.md item 11 (chunked path)"}
 
 
 class GaussianSampler:
     def __init__(self, debug: bool = False,
                  config: SamplerConfig = SamplerConfig(),
                  method: str = "tiled"):
-        if method != "tiled":
+        if method not in METHODS:
             raise NotImplementedError(
                 f"GaussianSampler(method={method!r}) is not ported to "
                 f"dgs_tpu_torch yet: {_NOT_PORTED.get(method, 'unknown method')}")
@@ -79,6 +78,11 @@ class GaussianSampler:
         self.means, self.values, self.conics = means, values, conics
         self.covariances, self.samples = covariances, samples
 
+        if self.method != "tiled":
+            self.state = None
+            self.radii = compute_radii(covariances.detach(), D,
+                                       cfg.radius_sigma, cfg.eig_floor)
+            return
         state = snapshot_call(self.debug, "preprocess", binning.build, cfg,
                               means, covariances, samples)
         self.state = state
@@ -107,6 +111,10 @@ class GaussianSampler:
 
     def _run(self, orders) -> Dict[str, torch.Tensor]:
         cfg = self.config
+        if self.method != "tiled":
+            return sampling.sample_all(
+                self.means, self.values, self.conics, self.samples,
+                period=cfg.period, orders=orders, method=self.method)
         outs = snapshot_call(
             self.debug, "sample", sampling.sample_tiled_multi,
             tuple(orders), cfg, self.means, self.values, self.conics,

@@ -72,7 +72,9 @@ def test_tpu_only_modes_raise(flag, value):
 
 def test_import_leaves_jax_out():
     code = ("import sys, dgs_tpu_torch, dgs_tpu_torch.models.pigs, "
-            "dgs_tpu_torch.utils.native, dgs_tpu_torch.kernels._build; "
+            "dgs_tpu_torch.utils.native, dgs_tpu_torch.kernels._build, "
+            "dgs_tpu_torch.kernels.dense, dgs_tpu_torch.kernels.tiled, "
+            "dgs_tpu_torch.ops.sampling, dgs_tpu_torch.oracle.dense; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'dgs_tpu.'))"
             " or m == 'dgs_tpu']; "

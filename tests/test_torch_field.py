@@ -26,7 +26,7 @@ def assert_close(got, ref, err_msg=""):
 def test_from_numpy_matches_jax_field(D):
     jf = jinit(jax.random.PRNGKey(D), 48, D, 3, sigma=0.07)
     arrays = [np.asarray(a) for a in jf]
-    tf = GaussianField.from_numpy(*arrays)
+    tf = GaussianField.from_numpy(*arrays, device="cpu")
     for name, a in zip(("means", "log_scales", "rotations", "values"),
                        arrays):
         t = getattr(tf, name)

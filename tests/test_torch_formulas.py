@@ -241,6 +241,49 @@ def test_vjp_params_match(D):
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])
+def test_fused_matches_folded(D):
+    """Twin of tests/test_formulas_fused.py: the collapsed multi-order
+    vjp_params_fused reproduces the per-order folded VJP for every order
+    subset (rtol and atol 3e-5, that test's), and vjp_params_folded equals
+    dgs_tpu's."""
+    n = 64
+    rng, X, con = _vjp_pairs(D, n)
+    X = (X / 0.7).astype(np.float32)        # that test's unit-normal X
+    tri = tri_size(D)
+    jX, tX = [jnp.asarray(x) for x in X], [torch.from_numpy(x) for x in X]
+    jc, tc = [jnp.asarray(c) for c in con], [torch.from_numpy(c) for c in con]
+    jG, ja = jf.power_terms(jX, jc)
+    G, a = tf.power_terms(tX, tc)
+    lp = tf.component_polys("laplacian", tX, tc, a)
+    tp = tf.component_polys("third", tX, tc, a)
+    for orders in _subsets():
+        K = sum(tf.n_unique(o, D) for o in orders)
+        h = rng.randn(K, n).astype(np.float32)
+        hs = [torch.from_numpy(r) for r in h]
+        dmu_r = [torch.zeros(n)] * D
+        dcon_r = [torch.zeros(n)] * tri
+        k0 = 0
+        for o in orders:
+            nu = tf.n_unique(o, D)
+            dm, dc = tf.vjp_params_folded(o, tX, tc, G, a, hs[k0:k0 + nu])
+            ref = jf.vjp_params_folded(o, jX, jc, jG, ja,
+                                       [jnp.asarray(r) for r in h[k0:k0 + nu]])
+            for g_list, r_list in zip((dm, dc), ref):
+                for g, r in zip(g_list, r_list):
+                    assert_close(g, r, f"folded {o} D={D}")
+            dmu_r = [x + y for x, y in zip(dmu_r, dm)]
+            dcon_r = [x + y for x, y in zip(dcon_r, dc)]
+            k0 += nu
+        for extra in ((None, None), (lp, tp)):
+            dmu_f, dcon_f = tf.vjp_params_fused(orders, tX, tc, G, a, hs,
+                                                *extra)
+            for got, ref in zip(dmu_f + dcon_f, dmu_r + dcon_r):
+                np.testing.assert_allclose(
+                    got, ref, rtol=3e-5, atol=3e-5,
+                    err_msg=f"orders={orders} D={D}")
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
 def test_cuda_pair_vjp_matches_formulas(pair_math, D):
     """The kernel header's pair_vjp, for every order set, equals the torch
     vjp_params_fused on the same pairs and folded cotangents; pairs with a

@@ -1,4 +1,6 @@
-"""dgs_tpu_torch.oracle.dense against dgs_tpu.oracle.dense."""
+"""dgs_tpu_torch.oracle.dense against dgs_tpu.oracle.dense, and autograd
+through the port's oracle against the closed-form backward of the port's
+sample_dense (the twin of tests/test_oracle.py's custom-VJP test)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -6,6 +8,7 @@ import pytest
 import torch
 
 from dgs_tpu.oracle import dense as joracle
+from dgs_tpu_torch.ops import sampling as tsampling
 from dgs_tpu_torch.oracle import dense as toracle
 
 from conftest import make_gaussians, make_samples
@@ -58,3 +61,27 @@ def test_radii_match(rng, D):
         np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-6)
     if D == 2:
         assert float(tr[3]) == 0.0 and float(tr[5]) == 0.0
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("order", ORDERS)
+def test_closed_form_backward_matches_autograd(rng, D, order):
+    """The hand-derived closed-form VJP of sample_dense equals autograd
+    through the plain torch oracle, at the JAX suite's tolerance
+    (tests/test_oracle.py: rtol 5e-4, atol 5e-5)."""
+    m, v, _, c = make_gaussians(rng, 13, D, 2)
+    s = torch.from_numpy(make_samples(rng, 19, D))
+    T = tuple(map(torch.from_numpy, (m, v, c)))
+    shape = toracle.evaluate(order, *T, s).shape
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=shape).astype(np.float32))
+
+    def grads(fn):
+        args = [a.clone().requires_grad_() for a in T]
+        return torch.autograd.grad((fn(order, *args, s) * g).sum(), args)
+
+    ref = grads(toracle.evaluate)
+    got = grads(tsampling.sample_dense)
+    for r, o, name in zip(ref, got, ("means", "values", "conics")):
+        np.testing.assert_allclose(o, r, rtol=5e-4, atol=5e-5,
+                                   err_msg=f"{order} dL_d{name}")

@@ -37,7 +37,8 @@ def assert_close(got, ref, err_msg="", rtol=2e-4):
 
 def _field(seed, P=48, D=2, C=1, sigma=0.08):
     jf = jinit(jax.random.PRNGKey(seed), P, D, C, sigma=sigma)
-    return jf, GaussianField.from_numpy(*[np.asarray(a) for a in jf])
+    return jf, GaussianField.from_numpy(*[np.asarray(a) for a in jf],
+                                        device="cpu")
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])
@@ -138,7 +139,7 @@ def test_train_reduces_loss():
     cfg = TConfig(work_blocks_fwd=16, work_blocks_bwd=32)
     state, history = tpigs.train(
         cfg, P=64, D=2, C=1, steps=60, n_collocation=256,
-        learning_rate=1e-2, sigma=0.25, log_every=59)
+        learning_rate=1e-2, sigma=0.25, log_every=59, device="cpu")
     assert [h["step"] for h in history] == [31, 59]
     assert history[-1]["loss"] < 0.7 * history[0]["loss"]
     for h in history:
@@ -147,3 +148,68 @@ def test_train_reduces_loss():
         assert h["t_step_s"] > 0
     assert state.step == 60
     assert bool(torch.isfinite(state.field.means).all())
+
+
+@pytest.mark.parametrize("method", ["dense", "pallas"])
+def test_pigs_loss_dense_methods_match(rng, method):
+    """pigs_loss through the all-pairs methods (the full (N, D, D, C)
+    Hessian and its trace, unsorted targets): loss, terms and gradients to
+    all four field parameters against jax.value_and_grad."""
+    jf, tf = _field(3, P=32, sigma=0.2)
+    col = make_samples(rng, 64, 2)
+    dx = make_samples(rng, 24, 2)
+    ju, jrhs = jpigs.manufactured_solution(2)
+    tu, trhs = tpigs.manufactured_solution(2)
+    du = np.asarray(ju(jnp.asarray(dx)))
+
+    def jloss(field):
+        return jpigs.pigs_loss(JConfig(), field, jnp.asarray(col),
+                               jnp.asarray(dx), jnp.asarray(du), jrhs,
+                               method=method)
+
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jf)
+    tl, tm = tpigs.pigs_loss(TConfig(), tf, torch.from_numpy(col),
+                             torch.from_numpy(dx), torch.from_numpy(du.copy()),
+                             trhs, method=method)
+    tl.backward()
+    assert_close(tl.detach(), jl, "loss")
+    for k in ("pde", "data"):
+        assert_close(tm[k], jm[k], k)
+    for k in tpigs.DIAGNOSTICS:
+        assert int(tm[k]) == 0, k
+    for name in PARAMS:
+        g = getattr(tf, name).grad
+        assert g is not None and bool(g.abs().max() > 0), name
+        assert_close(g, getattr(jg, name), f"dL/d{name}", rtol=2e-3)
+
+
+@pytest.mark.parametrize("method", ["dense", "pallas"])
+def test_train_dense_methods_reduce_loss(method):
+    """Twin of test_pigs.py's dense training test, through both all-pairs
+    methods; no binning, so no capacity is planned and nothing overflows."""
+    state, history = tpigs.train(
+        TConfig(), P=64, D=2, C=1, steps=60, n_collocation=256,
+        learning_rate=1e-2, sigma=0.25, method=method, log_every=59,
+        device="cpu")
+    assert history[0]["loss"] > history[-1]["loss"]
+    assert history[-1]["loss"] < 0.7 * history[0]["loss"]
+    for h in history:
+        for k in tpigs.DIAGNOSTICS:
+            assert h[k] == 0, (k, h)
+    assert state.step == 60
+    assert bool(torch.isfinite(state.field.means).all())
+
+
+def test_entry_points_default_to_the_card():
+    """train() and GaussianField.from_numpy() with no device ask for the
+    card; where there is none, torch's own error says so."""
+    import inspect
+
+    assert inspect.signature(tpigs.train).parameters["device"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    arrays = [np.zeros((2, k), np.float32) for k in (2, 2, 1, 1)]
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        GaussianField.from_numpy(*arrays)
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        tpigs.train(TConfig(), P=4, steps=1, n_collocation=8)

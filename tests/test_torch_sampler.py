@@ -117,9 +117,8 @@ def test_debug_errors(rng):
 
 
 def test_unported_paths_raise():
-    for method in ("pallas", "dense", "chunked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-            TSampler(method=method)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
+        TSampler(method="chunked")
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
         TSampler().preprocess_aggregate()
 
@@ -173,7 +172,7 @@ def test_field_outputs_matches_jax(rng):
     """PIGS field evaluation, and its gradients to every field parameter
     (through the conic chain to log_scales and rotations)."""
     jf = jinit(jax.random.PRNGKey(3), 120, 2, 4, sigma=0.05)
-    tf = GaussianField.from_numpy(*[np.asarray(a) for a in jf])
+    tf = GaussianField.from_numpy(*[np.asarray(a) for a in jf], device="cpu")
     x = make_samples(rng, 400, 2)
     kw = dict(tile_size=0.25, max_tiles_per_gaussian=6)
     ref, jdiag = jpigs.field_outputs(JConfig(**kw), jf, jnp.asarray(x))
@@ -191,6 +190,72 @@ def test_field_outputs_matches_jax(rng):
     for name in ("means", "log_scales", "rotations", "values"):
         assert_grad_close(getattr(tf, name).grad, getattr(jgrads, name),
                           f"dL/d{name}")
-    with pytest.raises(NotImplementedError):
-        tpigs.field_outputs(TConfig(**kw), tf, torch.from_numpy(x),
-                            method="dense")
+    # The all-pairs methods: reference shapes in sample order, no perm,
+    # zero diagnostics.
+    for method in ("pallas", "dense"):
+        ref, jdiag = jpigs.field_outputs(JConfig(**kw), jf, jnp.asarray(x),
+                                         method=method)
+        got, tdiag = tpigs.field_outputs(TConfig(**kw), tf,
+                                         torch.from_numpy(x), method=method)
+        assert set(tdiag) >= set(jdiag) and tdiag["perm"] is None
+        assert all(int(tdiag[k]) == 0 for k in tpigs.DIAGNOSTICS)
+        for order in ref:
+            assert_close(got[order].detach(), ref[order],
+                         f"{method} {order}")
+
+
+@pytest.mark.parametrize("method", ["pallas", "dense"])
+def test_facade_dense_methods_match_jax_facade(rng, method):
+    """GaussianSampler(method="pallas" / "dense"): no binning state, scalar
+    radii, the four sample_gaussians* and sample_all against dgs_tpu's
+    facade, outputs and gradients."""
+    m, v, cov, c, s = _data(rng, P=40, N=150, C=2, sigma_range=(0.05, 0.2))
+    js = JSampler(method=method, config=JConfig())
+    js.preprocess(*map(jnp.asarray, (m, v, cov, c, s)))
+    tm, tv, tc = (torch.from_numpy(a).requires_grad_() for a in (m, v, c))
+    ts = TSampler(method=method, config=TConfig())
+    ts.preprocess(tm, tv, torch.from_numpy(cov), tc, torch.from_numpy(s))
+    assert ts.state is None and js.state is None
+    np.testing.assert_allclose(ts.radii.numpy(), np.asarray(js.radii),
+                               rtol=1e-6)
+    calls = ("sample_gaussians", "sample_gaussians_derivative",
+             "sample_gaussians_laplacian",
+             "sample_gaussians_third_derivative", "sample_all")
+
+    def run(sampler, call):
+        out = getattr(sampler, call)()
+        return list(out.values()) if isinstance(out, dict) else [out]
+
+    concrete = tuple(map(jnp.asarray, (m, v, c)))
+
+    def jloss(jm, jv, jc, call):
+        js.means, js.values, js.conics = jm, jv, jc
+        return sum(jnp.sum(o * o) for o in run(js, call))
+
+    for call in calls:
+        js.means, js.values, js.conics = concrete
+        for g, r in zip(run(ts, call), run(js, call)):
+            assert g.shape == r.shape, call
+            assert_close(g.detach(), r, call)
+        ref = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)), static_argnums=3)(
+            *concrete, call)
+        got = torch.autograd.grad(sum((o * o).sum() for o in run(ts, call)),
+                                  (tm, tv, tc))
+        for g, r, name in zip(got, ref, ("means", "values", "conics")):
+            assert_grad_close(g, r, f"{method} {call} dL/d{name}")
+
+
+def test_facade_dense_method_matches_tiled_masked(rng):
+    """Twin of test_sampler_api.py's case: wide Gaussians cover every tile,
+    so the tiled facade equals the all-pairs one."""
+    m, v, cov, c = make_gaussians(rng, 15, 2, 2, sigma_range=(0.8, 1.1))
+    s = make_samples(rng, 25, 2)
+    arrays = [torch.from_numpy(a) for a in (m, v, cov, c, s)]
+    tiled = TSampler(method="tiled")
+    tiled.preprocess(*arrays)
+    for method in ("dense", "pallas"):
+        dense = TSampler(method=method)
+        dense.preprocess(*arrays)
+        np.testing.assert_allclose(tiled.sample_gaussians(),
+                                   dense.sample_gaussians(), rtol=2e-4,
+                                   atol=1e-5)
