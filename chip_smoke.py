@@ -73,8 +73,44 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    method="tiled" from the same seed as its control.  Both
                    losses at least halve; the dense run launches the dense
                    kernels only.
- 10. profile     - where a step's time goes, for the headline training
-                   step, the PIGS step and the dense training step: device
+ 10. parity_agg  - the three aggregation CUDA kernels (totals, forward,
+                   backward) against their plain torch versions on the same
+                   operands: D in {1, 2, 3} x period 2.0 / open domain x
+                   ladder on / off x with and without totals, (L, K) in
+                   {(1, 4), (5, 3), (8, 8)}, every 7th radius culled, plus
+                   nfreq 1 and 4, L = 12 / K = 20 (above one pass) and a tile
+                   range, at P = 3,000 (tail blocks); sentinel rows must come
+                   back exactly zero.
+     parity_agg_oracle - aggregate_pallas through the kernels against the
+                   plain torch table path over an untruncated brute-force
+                   table, outputs and all six gradients (twice, bitwise
+                   equal).
+     parity_dynamics - the aggregation kernels against their plain versions
+                   on the operands the dynamics step gives them at full
+                   width (P = 100,000, sigma * 3, L = 1, K = 4, nfreq = 2,
+                   the ladder recurrence), with the structure's pair counts
+                   and the kernels' times there.
+ 11. agg_slice   - the aggregation operating point of
+                   tools/bench_aggregate.py at full width: P = 100,000,
+                   D = 2, L = K = 8, nfreq = 4, through GaussianSampler
+                   preprocess_aggregate(method="pallas") and
+                   aggregate_neighbors.  Checks overflow 0, the launch
+                   counts (totals once per structure build, forward once per
+                   call, both backward kernels once per step), finite and
+                   bitwise-reproducible gradients, each kernel (direct code
+                   and ladder) against its plain version at full width;
+                   times the structure build,
+                   the forward, forward + backward, and each kernel beside
+                   its plain version (and the ladder path's kernels).
+ 12. dynamics    - the dynamics trainer (config 4, phase B of
+                   tools/train_100k.py) through
+                   dgs_tpu_torch.models.dynamics.train: P = 100,000, D = 2,
+                   rollout 2, 65,536 evaluation points, kernel aggregation,
+                   tiled evaluation, frequency ladder, 60 steps.  Checks
+                   overflow 0, a falling loss and the launches per step.
+ 13. profile     - where a step's time goes, for the headline training
+                   step, the PIGS step, the dense training step, the
+                   aggregation step and the dynamics step: device
                    busy time per step under torch.profiler (the union of
                    the device's activity intervals), the unprofiled step
                    time, the device's idle share and the largest device
@@ -101,11 +137,12 @@ import torch
 from dgs_tpu_torch.binning import grid as binning
 from dgs_tpu_torch.config import ORDERS, SamplerConfig
 from dgs_tpu_torch.kernels import _build
+from dgs_tpu_torch.kernels import aggregate as kagg
 from dgs_tpu_torch.kernels import dense as kdense
 from dgs_tpu_torch.kernels import tiled as ktiled
-from dgs_tpu_torch.models import pigs
+from dgs_tpu_torch.models import dynamics, pigs
 from dgs_tpu_torch.models.field import init_field
-from dgs_tpu_torch.ops import formulas, sampling
+from dgs_tpu_torch.ops import aggregation, formulas, sampling
 from dgs_tpu_torch.oracle import dense as oracle
 from dgs_tpu_torch.sampler import GaussianSampler
 from dgs_tpu_torch.utils import native
@@ -125,7 +162,10 @@ def emit(phase, **fields):
 KERNELS = {"tiled_forward": ktiled.tiled_forward,
            "tiled_backward": ktiled.tiled_backward,
            "dense_forward": kdense.dense_forward,
-           "dense_backward": kdense.dense_backward}
+           "dense_backward": kdense.dense_backward,
+           "agg_totals": kagg.totals,
+           "agg_forward": kagg.forward,
+           "agg_backward": kagg.backward}
 
 
 def reset_launches():
@@ -138,7 +178,7 @@ def read_launches():
 
 
 def expect_launches(what, **want):
-    """The four kernels' launch counts since reset_launches(), raising
+    """The kernels' launch counts since reset_launches(), raising
     unless they are ``want`` (kernels not named: 0)."""
     got = read_launches()
     if got != {name: want.get(name, 0) for name in KERNELS}:
@@ -306,11 +346,15 @@ def phase_build():
         for name in KERNELS:
             if name in entry:
                 by_kernel[name] = max(by_kernel[name], int(used))
+    spilling = {re.sub(r"^_ZN\S*?\d+(?=[a-z_]+_kernelI)", "", entry)[:60]:
+                int(b) for entry, b in re.findall(
+                    r"Compiling entry function '(\S+)'[\s\S]*?"
+                    r"(\d+) bytes spill stores", log) if int(b)}
     build = dict(
         kernels_s=round(t_kern, 3), planner_s=round(t_plan, 3),
         n_kernels=len(regs), max_registers=max(regs, default=0),
         max_registers_by_kernel=by_kernel, spill_store_bytes=sum(spills),
-        max_stack_frame=max(stack, default=0))
+        spilling_kernels=spilling, max_stack_frame=max(stack, default=0))
     emit("build", **build)
     return build
 
@@ -931,6 +975,490 @@ def phase_pigs_dense(dev, P=10_000, steps=120, n_collocation=16_384):
     return runs["pallas"]["launches"]
 
 
+AGG_GROUPS = ("features", "transform", "queries", "keys", "frequencies",
+              "distance_transform")
+
+
+def agg_case(dev, seed, P, D, L, K, nfreq, sigma, *, period=2.0,
+             ladder=False, cull=0, tile_range=None):
+    """A seeded cloud, its kernel aggregation structure and random
+    parameters of the six groups: (cfg, (means, conics, radii), params,
+    agg).  ``cull`` > 0 zeroes every cull-th radius; ``tile_range`` is a
+    pair of fractions of the tile count."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    field = init_field(g, P, D, L, sigma=sigma)
+    cfg = (SamplerConfig(eig_floor=1e-12) if period
+           else SamplerConfig(eig_floor=1e-12, period=None,
+                              upper_bounds=(1.0, 1.0))).with_dims(D)
+    with torch.no_grad():
+        means, conics = field.means.detach(), field.conics()
+        rad = oracle.radii(field.covariances(), D, cfg.radius_sigma,
+                           cfg.eig_floor)
+    if cull:
+        rad[::cull] = 0.0
+    E = 2 * D * nfreq + 1
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    params = dict(
+        features=normal(P, L), transform=0.3 * normal(L, L),
+        queries=normal(P, K), keys=normal(P, K),
+        frequencies=(0.83 * torch.arange(1, nfreq + 1, dtype=torch.float32,
+                                         device=dev)
+                     if ladder else normal(nfreq).abs() + 0.5),
+        distance_transform=0.5 * normal(2 * E))
+    cfg_a, plan = aggregation.plan_pallas(cfg, means, rad)
+    if tile_range is not None:
+        T = binning.num_tiles(cfg_a, D)
+        tile_range = (int(tile_range[0] * T), int(tile_range[1] * T))
+    agg = aggregation.preprocess_pallas(
+        cfg_a, means, conics, rad, plan, tile_range=tile_range)
+    if int(agg.overflow):
+        raise AssertionError(f"aggregation overflow {int(agg.overflow)}")
+    return cfg_a, (means, conics, rad), params, agg
+
+
+def agg_operands(params, agg):
+    return aggregation.kernel_operands(
+        params["features"], params["queries"], params["keys"],
+        params["frequencies"], params["distance_transform"], agg)
+
+
+def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g):
+    """The three aggregation kernels against their plain versions on one
+    structure's operands and a random cotangent; sentinel centres and
+    entries must come back exactly zero.  Returns the errors by kernel."""
+    ent_fk, ctr_geo, dtf = agg_operands(params, agg)
+    ce, ranges = agg.ctr_ent, (agg.ctr_ent, agg.ent_ctr)
+    P = agg.pos.shape[0]                  # the sentinel id
+    dead_c, dead_e = agg.cid == P, agg.ent_gid == P
+    errs = {"totals": check_close(
+        "totals kernel against the plain version",
+        kagg.totals(D, period, ce, agg.ent_geo, agg.ctr_static),
+        kagg.totals_plain(D, period, ce, agg.ent_geo, agg.ctr_static), RTOL)}
+    for with_totals in (False, True):
+        got = kagg.forward(D, L, K, nfreq, period, ce, agg.ent_geo, ent_fk,
+                           ctr_geo, dtf, ladder=ladder,
+                           with_totals=with_totals)
+        ref = kagg.forward_plain(D, L, K, nfreq, period, ce, agg.ent_geo,
+                                 ent_fk, ctr_geo, dtf, ladder=ladder,
+                                 with_totals=with_totals)
+        if with_totals:
+            errs["forward_totals"] = check_close(
+                "forward kernel's totals against the plain version", got[1],
+                ref[1], RTOL)
+            got, ref = got[0], ref[0]
+        if bool((got[dead_c] != 0).any()):
+            raise AssertionError("forward: a sentinel centre's row is not 0")
+        errs["forward_with_totals" if with_totals else "forward"] = \
+            check_close("forward kernel against the plain version", got, ref,
+                        RTOL)
+    gpre = torch.randn(ctr_geo.shape[0], L, generator=g, device=ctr_geo.device)
+    gsum = gpre.sum(dim=1, keepdim=True)
+    got = kagg.backward(D, L, K, nfreq, period, ranges, agg.ent_geo, ent_fk,
+                        ctr_geo, dtf, gpre, gsum, ladder=ladder)
+    ref = kagg.backward_plain(D, L, K, nfreq, period, ranges, agg.ent_geo,
+                              ent_fk, ctr_geo, dtf, gpre, gsum, ladder=ladder)
+    torch.cuda.synchronize()
+    if bool((got[0][:, dead_e] != 0).any() or (got[1][dead_c] != 0).any()):
+        raise AssertionError("backward: a sentinel row is not 0")
+    E = 2 * D * nfreq + 1
+    for name, a, b in (
+            ("backward_dfeatures", got[0][:L], ref[0][:L]),
+            ("backward_dkeys", got[0][L:], ref[0][L:]),
+            ("backward_dqueries", got[1][:, :K], ref[1][:, :K]),
+            ("backward_ddt", got[1][:, K:K + 2 * E], ref[1][:, K:K + 2 * E]),
+            ("backward_dfreq", got[1][:, K + 2 * E:], ref[1][:, K + 2 * E:])):
+        errs[name] = check_close(
+            f"{name} kernel against the plain version", a, b, GRAD_RTOL)
+    return errs
+
+
+AGG_SIGMA = {1: 0.02, 2: 0.05, 3: 0.1}    # a few neighbours per centre
+
+
+def phase_parity_agg(dev, P=3000):
+    cases = [(D, period, ladder, L, K, nf, 7, None)
+             for D, nf in ((1, 3), (2, 4), (3, 2))
+             for period in (2.0, None) for ladder in (False, True)
+             for L, K in ((1, 4), (5, 3), (8, 8))]
+    cases += [(2, 2.0, False, 5, 3, 1, 0, None),       # nfreq 1
+              (3, 2.0, True, 8, 8, 4, 0, None),        # the widest code
+              (2, 2.0, True, 12, 20, 2, 5, None),      # L, K above one pass
+              (2, 2.0, False, 5, 3, 2, 7, (0.25, 0.6))]   # a tile range
+    for D, period, ladder, L, K, nfreq, cull, tile_range in cases:
+        g = torch.Generator(device=dev).manual_seed(90 + D)
+        _, _, params, agg = agg_case(
+            dev, 80 + D, P, D, L, K, nfreq, AGG_SIGMA[D], period=period,
+            ladder=ladder, cull=cull, tile_range=tile_range)
+        # The entries are pre-shifted, so the kernels run unwrapped; the
+        # wrap itself is held on the same operands (a no-op on them).
+        for kernel_period in (None,) if period is None else (None, period):
+            errs = compare_agg_kernels(agg, params, D, L, K, nfreq,
+                                       kernel_period, ladder, g)
+            cand, coll = kagg.pair_counts(D, kernel_period, agg.ctr_ent,
+                                          agg.ent_geo, agg.ctr_static)
+            emit("parity_agg", D=D, period=period,
+                 kernel_period=kernel_period, ladder=ladder, L=L, K=K,
+                 nfreq=nfreq, P=P, culled_every=cull, tile_range=tile_range,
+                 rect=agg.rect, candidate_pairs=cand, colliding_pairs=coll,
+                 err=err_fields(errs))
+
+
+def agg_grads(fn, params):
+    """(outputs, the six gradients) of sum(out cos(out)), the JAX suite's
+    aggregation loss, through fn(*the six groups)."""
+    leaves = [params[k].clone().requires_grad_() for k in AGG_GROUPS]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad((out * torch.cos(out)).sum(),
+                                             leaves)
+
+
+def phase_parity_agg_oracle(dev, P=3000):
+    """aggregate_pallas through the kernels against the plain torch table
+    path over an untruncated brute-force table; gradients taken twice."""
+    for D in (1, 2, 3):
+        L, K, nfreq = 5, 3, 2
+        cfg, (means, conics, rad), params, agg = agg_case(
+            dev, 100 + D, P, D, L, K, nfreq, AGG_SIGMA[D], cull=7)
+        nbr = aggregation.preprocess(
+            cfg, means, conics, rad,
+            aggregation.suggest_capacity(cfg, means, rad))
+        if int(nbr.overflow):
+            raise AssertionError("the oracle's table is truncated")
+        reset_launches()
+        out, grads = agg_grads(
+            lambda *a: aggregation.aggregate_pallas(*a, agg), params)
+        _, again = agg_grads(
+            lambda *a: aggregation.aggregate_pallas(*a, agg), params)
+        expect_launches("two aggregation steps", agg_forward=2,
+                        agg_backward=4)
+        ref_out, ref = agg_grads(
+            lambda *a: aggregation.aggregate(*a, nbr), params)
+        err = {"out": check_close(f"aggregate_pallas vs table D={D}", out,
+                                  ref_out, RTOL)[0]}
+        for name, a, b, r in zip(AGG_GROUPS, grads, again, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"D={D} d{name}: two runs differ")
+            scale = max(1.0, float(r.abs().max()))
+            diff = (a - r).abs()
+            if bool((diff > 1e-4 * scale + GRAD_RTOL * r.abs()).any()):
+                raise AssertionError(f"aggregate_pallas grads vs table D={D} "
+                                     f"d{name}: max abs err "
+                                     f"{float(diff.max())}")
+            err[name] = float(diff.max())
+        emit("parity_agg_oracle", D=D, P=P, L=L, K=K, nfreq=nfreq,
+             neighbor_capacity=nbr.indices.shape[1], max_abs_err=err,
+             bitwise_repeatable=True)
+
+
+def agg_pair_ops(D, L, K, nfreq, ladder, kind):
+    """(fp32 operations per colliding pair, special-function operations
+    per colliding pair, fp32 operations per candidate pair) the function
+    needs at the least (an FMA, a multiply or an add counts one).
+    Every candidate pays the offset and the distance test; a colliding pair
+    adds the density, and for ``forward`` and ``backward`` the K-term
+    weight, the code (sin and cos shared between emb and fac: two
+    special-function results per (dim, rung), or per dim with the ladder,
+    whose higher rungs take 4 operations each; 4 FMAs per (dim, rung) for
+    emb and fac) and the accumulation.  ``backward`` is the whole function
+    of both entry points with the pair's geometry, weight and code taken
+    once: the kernels take them twice."""
+    cand = 3 * D + 3                       # X; dist2; r_i + r_j, squared, <=
+    ops = D * D + D + 1 + 1                # a = C X; power; ex2's scale
+    sfu = 1                                # ex2
+    if kind == "totals":
+        return ops + 1, sfu, cand
+    ops += K + D                           # w; Xn = X inv_norm
+    rungs = D * nfreq
+    if ladder:
+        ops += D + 4 * (rungs - D)         # base phases; the recurrence
+        sfu += 2 * D
+    else:
+        ops += rungs
+        sfu += 2 * rungs
+    ops += 4 * rungs                       # emb, fac
+    if kind == "forward":
+        return ops + 4 + L, sfu, cand      # coeff (2), cf, emb acc; L FMAs
+    ops += L                               # <g_i, feat_j>
+    ops += 2 + 3 + L + K                   # cf; dw; dfeat, dkey rows
+    ops += K + 3                           # dq; cw, cemb, cfac
+    ops += 2 + 10 * rungs                  # ddt biases; ddt (4), dfreq (6)
+    return ops, sfu, cand
+
+
+def agg_bound(kind, cand, coll, n_floats, D, L, K, nfreq, ladder):
+    ops, sfu, cand_ops = agg_pair_ops(D, L, K, nfreq, ladder, kind)
+    t_ops = max((coll * ops + cand * cand_ops) / FP32_INSTR_S,
+                coll * sfu / SFU_OPS_S)
+    t_bytes = 4 * n_floats / MEM_BYTES_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_agg_slice(dev, P=100_000):
+    """The aggregation operating point of tools/bench_aggregate.py at full
+    width, through the facade: structure build, the forward (serving) and
+    forward + backward over all six groups."""
+    D, L, K, nfreq = 2, 8, 8, 4
+    ladder = False      # the facade passes no certificate: the direct code
+    g = torch.Generator(device=dev).manual_seed(0)
+    field = init_field(g, P, D, L, sigma=2.0 / math.sqrt(P))
+    with torch.no_grad():
+        means, conics = field.means.detach(), field.conics()
+        covs = field.covariances()
+    E = 2 * D * nfreq + 1
+
+    def normal(*shape):
+        return 0.1 * torch.randn(shape, generator=g, device=dev)
+
+    params = dict(
+        features=normal(P, L), transform=normal(L, L), queries=normal(P, K),
+        keys=normal(P, K),
+        frequencies=torch.arange(1, nfreq + 1, dtype=torch.float32,
+                                 device=dev),
+        distance_transform=normal(2 * E))
+    sampler = GaussianSampler(
+        config=SamplerConfig(tile_size=0.051, eig_floor=1e-12),
+        method="pallas")
+    sampler.preprocess(means, params["features"], covs, conics, means[:128])
+
+    reset_launches()
+    pre_ms = host_ms(lambda: sampler.preprocess_aggregate(method="pallas"), 5)
+    pre_launches = expect_launches("6 structure builds", agg_totals=6)
+    agg = sampler.neighbors
+    if int(agg.overflow):
+        raise AssertionError(f"aggregation overflow {int(agg.overflow)}")
+
+    leaves = [params[k].clone().requires_grad_() for k in AGG_GROUPS]
+
+    def serve():
+        with torch.no_grad():
+            return sampler.aggregate_neighbors(*leaves)
+
+    def step():
+        for p in leaves:
+            p.grad = None
+        out = sampler.aggregate_neighbors(*leaves)
+        (out * out).sum().backward()
+        return out.detach()
+
+    reset_launches()
+    fwd_ms = host_ms(serve, 5)
+    serve_launches = expect_launches("6 aggregations", agg_forward=6)
+    reset_launches()
+    step_times = host_ms(step, 5)
+    step_launches = expect_launches("6 aggregation steps", agg_forward=6,
+                                    agg_backward=12)
+    out = step()
+    grads = [p.grad.clone() for p in leaves]
+    if out.shape != (P, L) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("aggregate_neighbors: non-finite or misshapen")
+    for name, gr, p in zip(AGG_GROUPS, grads, leaves):
+        if gr.shape != p.shape or not bool(torch.isfinite(gr).all()):
+            raise AssertionError(f"d{name}: non-finite or misshapen")
+    step()
+    torch.cuda.synchronize()
+    repeat = [bool(torch.equal(a, p.grad)) for a, p in zip(grads, leaves)]
+    if not all(repeat):
+        raise AssertionError(f"gradients differ between two runs: {repeat}")
+
+    # Each kernel against its plain version at full width, the backward on
+    # the step's own cotangent, and their times.
+    ent_fk, ctr_geo, dtf = agg_operands(params, agg)
+    ce, ranges = agg.ctr_ent, (agg.ctr_ent, agg.ent_ctr)
+    with torch.no_grad():
+        pre = kagg.forward(D, L, K, nfreq, None, ce, agg.ent_geo, ent_fk,
+                           ctr_geo, dtf, ladder=ladder)
+        gpre = ((2.0 * (pre @ params["transform"])) @ params["transform"].T
+                * agg.ctr_static[:, D + 2:D + 3]).contiguous()
+        gsum = gpre.sum(dim=1, keepdim=True)
+    calls = {
+        "totals": (lambda f, lad=False: f(D, None, ce, agg.ent_geo,
+                                          agg.ctr_static),
+                   kagg.totals, kagg.totals_plain),
+        "forward": (lambda f, lad=False: f(
+            D, L, K, nfreq, None, ce, agg.ent_geo, ent_fk, ctr_geo, dtf,
+            ladder=lad), kagg.forward, kagg.forward_plain),
+        "backward": (lambda f, lad=False: f(
+            D, L, K, nfreq, None, ranges, agg.ent_geo, ent_fk, ctr_geo, dtf,
+            gpre, gsum, ladder=lad), kagg.backward, kagg.backward_plain),
+    }
+    cand, coll = kagg.pair_counts(D, None, ce, agg.ent_geo, agg.ctr_static)
+    numbers, errs, ladder_ms = {}, {}, {}
+
+    def flat(res):                 # the backward's (dent, dctr) as one vector
+        return (torch.cat([r.reshape(-1) for r in res])
+                if isinstance(res, tuple) else res)
+
+    for name, (call, kernel, plain) in calls.items():
+        got, ref = flat(call(kernel)), flat(call(plain))
+        errs[name] = check_close(
+            f"{name} kernel against the plain version at full width", got,
+            ref, GRAD_RTOL if name == "backward" else RTOL)
+        ms = cuda_ms(lambda: call(kernel))
+        plain_ms = cuda_ms(lambda: call(plain), reps=3)
+        # totals reads the centres' mean and radius columns only.
+        operands = {"totals": (agg.ent_geo, agg.ctr_static[:, :D + 1], ce),
+                    "forward": (agg.ent_geo, ent_fk, ctr_geo, dtf, ce),
+                    "backward": (agg.ent_geo, ent_fk, ctr_geo, dtf, gpre,
+                                 gsum, ce, agg.ent_ctr)}[name]
+        moved = sum(t.numel() for t in operands) + got.numel()
+        numbers[name] = {
+            "max_abs_err": errs[name][0], "ms": ms, "plain_ms": plain_ms,
+            **agg_bound(name, cand, coll, moved, D, L, K, nfreq, ladder)}
+        if name != "totals":
+            # The frequencies are the integer ladder: the certified
+            # (recurrence) path on the same operands, beside its own bound.
+            got, ref = flat(call(kernel, True)), flat(call(plain, True))
+            errs[name + "_ladder"] = check_close(
+                f"{name} ladder kernel against the plain version at full "
+                "width", got, ref, GRAD_RTOL if name == "backward" else RTOL)
+            ladder_ms[name] = {
+                "max_abs_err": errs[name + "_ladder"][0],
+                "ms": cuda_ms(lambda: call(kernel, True)),
+                **agg_bound(name, cand, coll, moved, D, L, K, nfreq, True)}
+    emit("agg_slice", P=P, D=D, L=L, K=K, nfreq=nfreq, ladder=ladder,
+         tile=aggregation.plan_pallas(sampler.config, means,
+                                      sampler.radii)[0].tile_size,
+         rect=agg.rect,
+         entries=int((agg.ent_gid < P).sum()), candidate_pairs=cand,
+         colliding_pairs=coll, overflow=int(agg.overflow),
+         launches={"preprocess": pre_launches, "serve": serve_launches,
+                   "steps": step_launches},
+         grads_bitwise_repeatable=True, err=err_fields(errs),
+         kernel_ms={k: v["ms"] for k, v in numbers.items()},
+         plain_ms={k: v["plain_ms"] for k, v in numbers.items()},
+         bound_ms={k: v["bound_ms"] for k, v in numbers.items()},
+         ladder_kernels=ladder_ms,
+         preprocess_ms_median=statistics.median(pre_ms), preprocess_ms=pre_ms,
+         forward_ms_median=statistics.median(fwd_ms), forward_ms=fwd_ms,
+         step_ms_median=statistics.median(step_times), step_ms=step_times)
+    return pre_launches, serve_launches, step_launches, numbers, step
+
+
+DYN_P, DYN_EVAL, DYN_ROLLOUT = 100_000, 65_536, 2
+DYN_CFG = dict(eig_floor=1e-12, tile_size=0.51, axis_radii=True,
+               ellip_cull=True)
+
+
+def phase_dynamics(dev, P=DYN_P, steps=60, n_eval=DYN_EVAL):
+    """The dynamics trainer at config 4 (phase B of tools/train_100k.py)."""
+    import inspect
+
+    fit_steps = inspect.signature(dynamics.fit_values).parameters[
+        "steps"].default
+    reset_launches()
+    t0 = time.perf_counter()
+    params, history = dynamics.train(
+        SamplerConfig(**DYN_CFG), P=P, D=2, steps=steps, rollout=DYN_ROLLOUT,
+        sigma=3.0 * 2.0 / math.sqrt(P), n_eval=n_eval, method="pallas",
+        eval_method="tiled", log_every=max(steps // 6, 1),
+        ladder_frequencies=True, scan_chunk=10, device=dev)
+    wall = time.perf_counter() - t0
+    # The value fit takes fit_steps steps of the tiled kernels and each of
+    # the two evaluators probes a fresh batch once; then per step: one
+    # aggregation forward and one backward (two entry points) per rollout
+    # depth, and one tiled evaluation of the stacked depths.
+    launches = expect_launches(
+        f"{steps} dynamics steps", agg_totals=1,
+        agg_forward=DYN_ROLLOUT * steps, agg_backward=2 * DYN_ROLLOUT * steps,
+        tiled_forward=fit_steps + 2 + steps, tiled_backward=fit_steps + steps)
+    for h in history:
+        if h["nbr_overflow"] or h["eval_overflow"]:
+            raise AssertionError(f"overflow at step {h['step']}: {h}")
+    first, last = history[0]["loss"], history[-1]["loss"]
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"dynamics loss did not fall: {first} -> {last}")
+    if params.frequencies.shape != (1,):
+        raise AssertionError("the ladder's base is not a (1,) parameter")
+    emit("dynamics", P=P, D=2, steps=steps, rollout=DYN_ROLLOUT,
+         n_eval=n_eval, fit_steps=fit_steps,
+         t_step_s_warm=min(h["t_step_s"] for h in history[1:]),
+         t_step_s=[h["t_step_s"] for h in history], wall_s=round(wall, 3),
+         loss_first=first, loss_last=last,
+         loss_curve=[h["loss"] for h in history],
+         loss_steps=[h["step"] for h in history], launches=launches,
+         launches_per_step={"agg_forward": DYN_ROLLOUT,
+                            "agg_backward": 2 * DYN_ROLLOUT,
+                            "tiled_forward": 1, "tiled_backward": 1})
+    return launches
+
+
+def dynamics_structure(dev, P=DYN_P):
+    """Config 4's cloud, aggregation structure and untrained parameters,
+    built as dynamics.train builds them from seed 0 (without the value
+    fit, which moves no geometry): (cfg, gen, field, nbr, params)."""
+    cfg = SamplerConfig(**DYN_CFG)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    field = init_field(gen, P, 2, 1, sigma=3.0 * 2.0 / math.sqrt(P))
+    with torch.no_grad():
+        means, conics = field.means.detach(), field.conics()
+        rad = oracle.radii(field.covariances(), 2, cfg.radius_sigma,
+                           cfg.eig_floor)
+    cfg_a, plan = aggregation.plan_pallas(cfg, means, rad)
+    nbr = aggregation.preprocess_pallas(cfg_a, means, conics, rad, plan)
+    params = dynamics.init_dynamics_params(gen, P, 1, 2, ladder=True)
+    return cfg, gen, field, nbr, params
+
+
+def phase_parity_dynamics(dev, P=DYN_P):
+    """The aggregation kernels against their plain versions on the
+    operands the dynamics step gives them at full width: L = 1, K = 4,
+    nfreq = 2 with the ladder recurrence, the sigma * 3 structure."""
+    D, L, nfreq = 2, 1, 2
+    _, gen, field, nbr, params = dynamics_structure(dev, P)
+    if int(nbr.overflow):
+        raise AssertionError(f"aggregation overflow {int(nbr.overflow)}")
+    K = params.queries.shape[1]
+    with torch.no_grad():
+        groups = dict(
+            features=field.values.detach(), queries=params.queries.detach(),
+            keys=params.keys.detach(),
+            # the ladder rollout_step builds from the (1,) base
+            frequencies=params.frequencies.detach()[0] * torch.arange(
+                1, nfreq + 1, dtype=torch.float32, device=dev),
+            distance_transform=params.distance_transform.detach())
+    errs = compare_agg_kernels(nbr, groups, D, L, K, nfreq, None, True, gen)
+    # The untrained parameters are small, so the absolute floor of
+    # check_close is loose here: also hold each result's largest error
+    # against its reference's largest magnitude.
+    for name, (_, rel) in errs.items():
+        if rel > (GRAD_RTOL if name.startswith("backward") else RTOL):
+            raise AssertionError(f"parity_dynamics {name}: max abs err is "
+                                 f"{rel} of max|ref|")
+    cand, coll = kagg.pair_counts(D, None, nbr.ctr_ent, nbr.ent_geo,
+                                  nbr.ctr_static)
+    ent_fk, ctr_geo, dtf = agg_operands(groups, nbr)
+    gpre = torch.randn(ctr_geo.shape[0], L, generator=gen, device=dev)
+    gsum = gpre.sum(dim=1, keepdim=True)
+    ranges = (nbr.ctr_ent, nbr.ent_ctr)
+    emit("parity_dynamics", P=P, D=D, L=L, K=K, nfreq=nfreq, ladder=True,
+         rect=nbr.rect, entries=int((nbr.ent_gid < P).sum()),
+         candidate_pairs=cand, colliding_pairs=coll, err=err_fields(errs),
+         kernel_ms={
+             "forward": cuda_ms(lambda: kagg.forward(
+                 D, L, K, nfreq, None, nbr.ctr_ent, nbr.ent_geo, ent_fk,
+                 ctr_geo, dtf, ladder=True)),
+             "backward": cuda_ms(lambda: kagg.backward(
+                 D, L, K, nfreq, None, ranges, nbr.ent_geo, ent_fk, ctr_geo,
+                 dtf, gpre, gsum, ladder=True))})
+
+
+def dynamics_step(dev, P=DYN_P, n_eval=DYN_EVAL):
+    """One dynamics training step at config 4, built as dynamics.train
+    builds it (without the value fit), for the profile."""
+    cfg, gen, field, nbr, params = dynamics_structure(dev, P)
+    opt = torch.optim.Adam(list(params), lr=3e-3, eps=1e-8)
+    eval_u = dynamics.make_value_eval(cfg, field, "tiled", n_eval=n_eval,
+                                      with_overflow=True, padded=True)
+    return dynamics.make_train_step(
+        params, opt, field.values.detach(), nbr, eval_u,
+        dynamics.advection_diffusion_solution(2), gen, n_eval=n_eval,
+        rollout=DYN_ROLLOUT, dt=0.05, ladder=True, padded=True)
+
+
 def device_profile(fn, iters):
     """Device time per call of fn() under torch.profiler, after one
     warm-up call: ``busy_ms`` is the union of the intervals of every device
@@ -983,11 +1511,12 @@ def host_ms(fn, reps):
     return times
 
 
-def phase_profile(dev, train_step, dense_step, pigs_iters=10):
+def phase_profile(dev, train_step, dense_step, agg_step, pigs_iters=10):
     """Where a step's time goes: device busy time per step under the
     profiler against the unprofiled step time (median, synchronised host
-    clock), for the headline training step, the PIGS config 4 step and the
-    dense training step."""
+    clock), for the headline training step, the PIGS config 4 step, the
+    dense training step, the aggregation step and the dynamics config 4
+    step."""
     pigs_cfg = SamplerConfig(**PIGS_CFG)
     u_star, f_rhs = pigs.manufactured_solution(2)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1000,7 +1529,9 @@ def phase_profile(dev, train_step, dense_step, pigs_iters=10):
                                      n_collocation=PIGS_COLLOCATION)
     for path, fn, iters in (("train_step", train_step, 5),
                             ("pigs", lambda: pigs_step(field), pigs_iters),
-                            ("dense_step", dense_step, 3)):
+                            ("dense_step", dense_step, 3),
+                            ("agg_step", agg_step, 5),
+                            ("dynamics", dynamics_step(dev), pigs_iters)):
         times = host_ms(fn, 2 * iters)
         busy, top = device_profile(fn, iters)
         step_ms = statistics.median(times)
@@ -1021,17 +1552,25 @@ def main():
     phase_parity_bwd(dev)
     phase_parity_dense(dev)
     phase_parity_dense_bwd(dev)
+    phase_parity_agg(dev)
+    phase_parity_agg_oracle(dev)
+    phase_parity_dynamics(dev)
     slice_launches, k_fwd = phase_slice(dev)
     train_launches, k_bwd, train_step = phase_train_step(dev)
     pigs_launches = phase_pigs(dev)
     (dense_eval_launches, dense_step_launches, k_dfwd, k_dbwd,
      dense_step) = phase_dense_slice(dev)
     pigs_dense_launches = phase_pigs_dense(dev)
-    phase_profile(dev, train_step, dense_step)
+    (agg_build_launches, agg_launches, agg_step_launches, k_agg,
+     agg_step) = phase_agg_slice(dev)
+    dynamics_launches = phase_dynamics(dev)
+    phase_profile(dev, train_step, dense_step, agg_step)
     paths = {"slice": slice_launches, "train_step": train_launches,
              "pigs": pigs_launches, "dense_slice": dense_eval_launches,
              "dense_step": dense_step_launches,
-             "pigs_dense": pigs_dense_launches}
+             "pigs_dense": pigs_dense_launches,
+             "agg_structure": agg_build_launches, "agg_slice": agg_launches,
+             "agg_step": agg_step_launches, "dynamics": dynamics_launches}
     # name: (source, the TPU kernel it replaces, its main path, numbers)
     kernels = {
         "tiled_forward": ("tiled_forward.cu", "dgs_tpu/kernels/tiled.py:727",
@@ -1044,14 +1583,22 @@ def main():
         "dense_backward": ("dense_backward.cu",
                            "dgs_tpu/kernels/dense.py:220", "dense_step",
                            k_dbwd),
+        "agg_totals": ("agg_totals.cu", "dgs_tpu/kernels/aggregate.py:223",
+                       "agg_structure", k_agg["totals"]),
+        "agg_forward": ("agg_forward.cu", "dgs_tpu/kernels/aggregate.py:329",
+                        "agg_slice", k_agg["forward"]),
+        "agg_backward": ("agg_backward.cu",
+                         "dgs_tpu/kernels/aggregate.py:485", "agg_step",
+                         k_agg["backward"]),
     }
     for name, (_, _, main_path, _) in kernels.items():
         if paths[main_path][name] < 1:
             raise AssertionError(f"{name} never launched on {main_path}")
     emit("card_and_build", nvidia_smi=smi, **build)
     # No single PyTorch call computes any of these functions (a fused
-    # multi-order Gaussian-mixture evaluation or its VJP), so library_ms
-    # is null.
+    # multi-order Gaussian-mixture evaluation or its VJP; a masked,
+    # density-normalised attention with a sinusoidal offset code, or its six
+    # gradients), so library_ms is null.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dgs_tpu_torch/csrc/{source}", "replaces": replaces,

@@ -1,16 +1,19 @@
 """PyTorch + CUDA port of the dgs_tpu Gaussian sampling engine.
 
-The tile-binned path and the all-pairs (dense) path, evaluation and
-training: ``GaussianSampler`` (methods "tiled", "pallas" and "dense"), the
-functional ``sample_binned``, ``sample`` / ``sample_all`` and the
-module-level forms below, and the PIGS trainer (``models.pigs``), with the
-tiled and the dense forward and backward passes as hand-written Hopper CUDA
-kernels.  Imports torch and numpy only; the JAX package ``dgs_tpu`` is the
+The tile-binned path, the all-pairs (dense) path and the neighbour
+aggregation, evaluation and training: ``GaussianSampler`` (methods "tiled",
+"pallas" and "dense", ``preprocess_aggregate`` / ``aggregate_neighbors``),
+the functional ``sample_binned``, ``sample`` / ``sample_all`` and the
+module-level forms below, the PIGS trainer (``models.pigs``) and the
+dynamics trainer (``models.dynamics``), with the tiled and the dense forward
+and backward passes and the aggregation's totals, forward and backward as
+hand-written Hopper CUDA kernels.  Imports torch and numpy only; the JAX package ``dgs_tpu`` is the
 reference this port is tested against.
 """
 
 from .config import SamplerConfig, ORDERS, tri_size, tri_index  # noqa: F401
 from .sampler import GaussianSampler  # noqa: F401
+from .ops import aggregation
 from .ops.sampling import (  # noqa: F401
     sample,
     sample_all,
@@ -39,3 +42,40 @@ def sample_gaussians_laplacian(means, values, conics, samples, **kw):
 def sample_gaussians_third_derivative(means, values, conics, samples, **kw):
     """Third-derivative tensor (N, D, D, D, C)."""
     return sample("third", means, values, conics, samples, **kw)
+
+
+def preprocess_aggregate(cfg, means, conics, radii, method: str = "grid",
+                         **kw):
+    """Neighbour structure build, the facade's ``method`` dispatch at the
+    functional surface:
+
+      * ``"pallas"``: the tile-sorted structure (``aggregation.AggBinning``)
+        of the aggregation kernels; capacities planned from the collision
+        radii.
+      * ``"grid"``: world-grid cell-list neighbour table (``Neighbors``).
+      * ``"dense"``: the reference-shaped O(P^2) scan (``Neighbors``).
+
+    Either return value feeds ``aggregate_neighbors`` below."""
+    if method == "pallas":
+        cfg, plan = aggregation.plan_pallas(cfg, means, radii)
+        return aggregation.preprocess_pallas(
+            cfg, means, conics, radii, plan, **kw)
+    if method == "grid":
+        return aggregation.preprocess_grid(cfg, means, conics, radii, **kw)
+    if method == "dense":
+        return aggregation.preprocess(cfg, means, conics, radii, **kw)
+    raise ValueError(f"unknown preprocess_aggregate method: {method!r}")
+
+
+def aggregate_neighbors(features, transform, queries, keys, frequencies,
+                        distance_transform, neighbors):
+    """Attention aggregation over the Gaussian cloud; differentiable in all
+    six parameter groups.  Dispatches on the neighbour structure: an
+    ``aggregation.AggBinning`` (from ``preprocess_pallas``) routes to the
+    aggregation kernels, a ``Neighbors`` table to the plain torch path."""
+    if isinstance(neighbors, aggregation.AggBinning):
+        return aggregation.aggregate_pallas(
+            features, transform, queries, keys, frequencies,
+            distance_transform, neighbors)
+    return aggregation.aggregate(features, transform, queries, keys,
+                                 frequencies, distance_transform, neighbors)

@@ -84,8 +84,22 @@ def load() -> ctypes.CDLL:
             p, i, i, p, i, p, i, i, i, i, i, ctypes.c_float, p, p,
         ]
         lib.dgs_dense_backward.restype = i
+        f = ctypes.c_float
+        lib.dgs_agg_totals.argtypes = [p, i, p, i, i, p, i, i, f, p, p]
+        lib.dgs_agg_totals.restype = i
+        lib.dgs_agg_forward.argtypes = [
+            p, p, i, p, i, i, p, p, i, i, i, i, i, i, f, i, i, p, p, p,
+        ]
+        lib.dgs_agg_forward.restype = i
+        for fn in (lib.dgs_agg_backward_entries,
+                   lib.dgs_agg_backward_centres):
+            fn.argtypes = [
+                p, p, i, p, i, i, p, p, p, p, i, i, i, i, i, i, f, i, p, p,
+            ]
+            fn.restype = i
         for fn in (lib.dgs_tiled_forward_block, lib.dgs_tiled_backward_block,
-                   lib.dgs_dense_forward_block, lib.dgs_dense_backward_block):
+                   lib.dgs_dense_forward_block, lib.dgs_dense_backward_block,
+                   lib.dgs_agg_block, lib.dgs_agg_backward_max_nfreq):
             fn.argtypes = []
             fn.restype = i
         _lib = lib

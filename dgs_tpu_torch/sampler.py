@@ -7,20 +7,21 @@ methods and ``sample_all`` evaluate over it through the tiled kernels; with
 ``"dense"`` (plain torch) there is no binning and every sample meets every
 Gaussian.  Outputs are differentiable w.r.t. the ``means``, ``values`` and
 ``conics`` handed to ``preprocess`` (the reference's autograd contract;
-covariances and samples only shape the binning).  The chunked method and the
-neighbour aggregation are later slices of the port and raise
-``NotImplementedError`` naming their ROADMAP item.
+covariances and samples only shape the binning).  ``preprocess_aggregate``
+and ``aggregate_neighbors`` are the neighbour-aggregation subsystem over the
+same Gaussians.  The chunked method is a later slice of the port and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from .binning import grid as binning
 from .config import SamplerConfig, tri_size
-from .ops import sampling
+from .ops import aggregation, sampling
 from .oracle.dense import radii as compute_radii
 from .utils.debug import check_finite, snapshot_call
 
@@ -140,12 +141,60 @@ class GaussianSampler:
 
     # -- neighbor aggregation ---------------------------------------------
 
-    def preprocess_aggregate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "neighbour aggregation is not ported to dgs_tpu_torch yet: "
-            "ROADMAP.md item 12 (aggregation)")
+    def preprocess_aggregate(self, neighbor_capacity: Optional[int] = None,
+                             method: str = "grid",
+                             rect_capacity: Optional[int] = None):
+        """Build the neighbour structure over the Gaussians handed to
+        ``preprocess``.  method="pallas" (the production path) builds the
+        tile-sorted structure of the aggregation kernels
+        (kernels/aggregate.py), with no neighbour capacity to truncate;
+        "grid" uses the world-grid cell-list search (O(P * candidates));
+        "dense" the reference-shaped O(P^2) scan.  Unset capacities are
+        planned from the collision radii (grid tile matched to them, exact
+        per-tile table width)."""
+        means, conics = self.means.detach(), self.conics.detach()
+        if method == "pallas":
+            cfg, plan = aggregation.plan_pallas(self.config, means,
+                                                self.radii)
+            agg = snapshot_call(
+                self.debug, "preprocess_agg", aggregation.preprocess_pallas,
+                cfg, means, conics, self.radii, plan)
+        elif method == "grid":
+            cfg = self.config
+            if neighbor_capacity is None or rect_capacity is None:
+                cfg, nc_auto, rect_auto = aggregation.suggest_grid_capacities(
+                    cfg, means, self.radii)
+                neighbor_capacity = neighbor_capacity or nc_auto
+                rect_capacity = rect_capacity or rect_auto
+            agg = snapshot_call(
+                self.debug, "preprocess_agg", aggregation.preprocess_grid,
+                cfg, means, conics, self.radii, neighbor_capacity,
+                rect_capacity)
+        elif method == "dense":
+            agg = snapshot_call(
+                self.debug, "preprocess_agg", aggregation.preprocess,
+                self.config, means, conics, self.radii, neighbor_capacity)
+        else:
+            raise ValueError(
+                f"unknown preprocess_aggregate method: {method!r}")
+        if self.debug:
+            of = int(agg.overflow)
+            if of:
+                raise ValueError(
+                    f"neighbor table overflow: {of} candidates dropped; "
+                    "raise neighbor_capacity / rect_capacity")
+        self.neighbors = agg
+        return agg
 
-    def aggregate_neighbors(self, *args, **kwargs):
-        raise NotImplementedError(
-            "neighbour aggregation is not ported to dgs_tpu_torch yet: "
-            "ROADMAP.md item 12 (aggregation)")
+    def aggregate_neighbors(self, features, transform, queries, keys,
+                            frequencies, distance_transform):
+        """Attention aggregation over the stored neighbour structure,
+        differentiable in all six arguments.  Dispatches on what
+        preprocess_aggregate built: the kernel structure routes to the
+        aggregation kernels, the table forms to the plain torch path."""
+        fn = (aggregation.aggregate_pallas
+              if isinstance(self.neighbors, aggregation.AggBinning)
+              else aggregation.aggregate)
+        return snapshot_call(
+            self.debug, "aggregate", fn, features, transform, queries, keys,
+            frequencies, distance_transform, self.neighbors)

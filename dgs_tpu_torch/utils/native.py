@@ -62,6 +62,9 @@ def _load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int64),
         ]
         lib.dgs_plan_capacities.restype = ctypes.c_int
+        lib.dgs_max_collisions.argtypes = [
+            fptr, fptr, ctypes.c_int64, i32, d, i32]
+        lib.dgs_max_collisions.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -134,3 +137,17 @@ def config_from_plan(cfg, plan: dict, P: int):
         entry_capacity_factor=plan["entries"] / max(P, 1) + 0.05,
         unwrapped_kernels=bool(plan.get("safe_unwrapped", False)),
     )
+
+
+def max_collisions(cfg, means, radii) -> int:
+    """Worst-case neighbour count of any Gaussian under the 0.2-shrunk
+    collision radii (the table path's capacity planner; equals
+    ops.aggregation.suggest_capacity).  Inputs may be tensors on any device
+    or numpy arrays."""
+    means, rad = _host(means), _host(radii)
+    P, D = means.shape
+    fptr = ctypes.POINTER(ctypes.c_float)
+    return int(_load().dgs_max_collisions(
+        means.ctypes.data_as(fptr), rad.ctypes.data_as(fptr), P, D,
+        cfg.period if cfg.period else 0.0,
+        1 if cfg.period is not None else 0))

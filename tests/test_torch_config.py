@@ -74,7 +74,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, dgs_tpu_torch, dgs_tpu_torch.models.pigs, "
             "dgs_tpu_torch.utils.native, dgs_tpu_torch.kernels._build, "
             "dgs_tpu_torch.kernels.dense, dgs_tpu_torch.kernels.tiled, "
-            "dgs_tpu_torch.ops.sampling, dgs_tpu_torch.oracle.dense; "
+            "dgs_tpu_torch.ops.sampling, dgs_tpu_torch.oracle.dense, "
+            "dgs_tpu_torch.ops.aggregation, dgs_tpu_torch.kernels.aggregate, "
+            "dgs_tpu_torch.models.dynamics; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'dgs_tpu.'))"
             " or m == 'dgs_tpu']; "

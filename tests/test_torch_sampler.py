@@ -119,8 +119,6 @@ def test_debug_errors(rng):
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
         TSampler(method="chunked")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
-        TSampler().preprocess_aggregate()
 
 
 def assert_grad_close(got, ref, err_msg=""):
