@@ -2,7 +2,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below
+    python3 chip_smoke.py --tiled    # the two tiled kernels' and the tiled
+                                     # steps' times only (see tiled_times)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
@@ -13,15 +15,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    report.
   3. parity      - the tiled forward CUDA kernel against its plain torch
                    version on the same operands: D in {1, 2, 3}, all four
-                   orders, wrapped and unwrapped, plus full-cover (wide)
-                   Gaussians, at P = 5,000 x N = 50,000; and the facade
-                   against the dense masked oracle on a small input.
+                   orders, wrapped and unwrapped, C in {1, 2, 3, 4, 6} (the
+                   channel passes of 1, 2 and 4, and two passes), full-cover
+                   (wide) Gaussians, and a case whose tiles partly hold no
+                   samples or no entries, at P = 5,000 x N = 50,000 (16 tiles
+                   an axis: warps that straddle 2 to tens of tiles, ranges
+                   that start at any offset); pad columns exactly zero; and
+                   the facade against the dense masked oracle on a small
+                   input.
      parity_bwd  - the tiled backward CUDA kernel against its plain version
                    on the same operands and a random cotangent: D in
                    {1, 2, 3} x wrapped/unwrapped x C in {1, 4, 6}, all four
-                   orders, plus the wide case and a non-canonical order set;
-                   then the op's gradients on the card against autograd
-                   through the dense masked oracle (twice, bitwise equal).
+                   orders, plus C = 2, the wide case, a non-canonical order
+                   set, the order sets the trainers launch and the case with
+                   empty tiles; sentinel columns exactly zero; then the op's
+                   gradients on the card against autograd through the dense
+                   masked oracle (twice, bitwise equal).
+     parity_paths - both tiled kernels against their plain versions on the
+                   operands that PIGS config 4's two evaluations (value +
+                   laplacian and value, C = 1, wrapped) and the dynamics
+                   step's evaluation (value, C = 2) give them at full width,
+                   taken from the autograd graph of one loss of each path:
+                   the instantiations those paths launch (pass width 1 and 2,
+                   the scaled wrap); pad and sentinel columns exactly zero;
+                   the kernels' times and bounds at those shapes.
   4. slice       - the evaluation path at full width: GaussianSampler
                    (method "tiled") preprocess + sample_all(value,
                    derivative, laplacian) at P = 100,000 Gaussians x
@@ -119,7 +136,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 Then the kernels line (per kernel: launches on its main path and by path,
 its time, its plain version's time, and the least time the card could take
 for the same work: the larger of the bytes over the memory rate and the
-operations over the fp32 rate) and, last, the result line
+operations over the fp32 rate; for the two tiled kernels also the share of
+the bound, kept and swept pairs, the instantiation's registers and shared
+memory, and the same at the trainers' shapes) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -130,6 +149,7 @@ import math
 import re
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
@@ -293,13 +313,42 @@ def operands(state, field_tensors, samples, cfg):
     return geom, smp, lo, n
 
 
+SPIN_MS = 1.0        # the device spins about this long before a timed call
+_spin = {}           # "cycles": torch.cuda._sleep's argument for SPIN_MS
+
+
+def spin_cycles():
+    """The cycle count that makes torch.cuda._sleep (PyTorch's own test
+    helper: a kernel that spins for that many device clock cycles) hold the
+    device for about SPIN_MS, from one spin of 10^6 cycles timed with CUDA
+    events after a warm-up; measured once a process."""
+    if "cycles" not in _spin:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        a.record()
+        torch.cuda._sleep(1_000_000)
+        b.record()
+        b.synchronize()
+        _spin["ms_per_million_cycles"] = a.elapsed_time(b)
+        _spin["cycles"] = int(1e6 * SPIN_MS / a.elapsed_time(b))
+    return _spin["cycles"]
+
+
 def cuda_ms(fn, reps=10):
-    """Median of ``reps`` CUDA-event timings of fn(), after one warm-up."""
+    """Median of ``reps`` CUDA-event timings of fn(), after one warm-up.
+    Each timed call is queued behind a spin of about SPIN_MS on the device,
+    so the two events bracket the device's work and not the host's time to
+    enqueue it (a wrapper's checks, allocation and launch take about 0.1 ms,
+    more than some of the kernels)."""
+    cycles = spin_cycles()
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         a.record()
         fn()
         b.record()
@@ -359,40 +408,96 @@ def phase_build():
     return build
 
 
-def phase_parity(dev, P_small=5000, N_small=50000):
-    cases = []
-    for D in (1, 2, 3):
-        for unwrapped in (False, True):
-            cases.append((D, unwrapped, 0.03))
-    cases.append((2, False, 0.6))   # full-cover footprints, wrapped
-    for D, unwrapped, sigma in cases:
-        P, N, C = (P_small if sigma < 0.5 else 200), N_small, 4
-        g = torch.Generator(device=dev).manual_seed(10 + D)
-        field = init_field(g, P, D, C, sigma=sigma)
-        samples = 2.0 * torch.rand((N, D), generator=g, device=dev) - 1.0
-        with torch.no_grad():
-            means, values = field.means.detach(), field.values.detach()
-            covs, conics = field.covariances(), field.conics()
-        cfg, plan = planned_config(
-            SamplerConfig(tile_size=0.1275, eig_floor=1e-12).with_dims(D),
-            means, covs, samples)
-        if unwrapped and not plan["safe_unwrapped"]:
-            raise AssertionError(f"D={D}: planner does not certify the "
-                                 "unwrapped kernels for this case")
-        cfg = dataclasses.replace(cfg, unwrapped_kernels=unwrapped)
-        state = binning.build(cfg, means, covs, samples)
-        assert int(state.overflow) == 0 and int(state.entry_overflow) == 0
-        geom, smp, lo, n = operands(state, (means, values, conics), samples,
-                                    cfg)
-        period = None if unwrapped else cfg.period
+def small_case(dev, seed, D, unwrapped, sigma, C, holes=False, P_small=5000,
+               N_small=50000):
+    """A seeded small field binned at tile 0.1275 (16 tiles per axis, so
+    blocks straddle two tiles at D = 1 and tens at D = 3; every block's
+    range starts at an arbitrary offset): (cfg, state, geom, smp, period, P,
+    N, generator).  ``holes`` keeps the samples in the half x < 0 and the
+    means in the half y < 0 (D = 2): tiles with entries and no samples,
+    tiles with samples and no entries, tiles with neither."""
+    P, N = (P_small if sigma < 0.5 else 200), N_small
+    g = torch.Generator(device=dev).manual_seed(seed)
+    field = init_field(g, P, D, C, sigma=sigma)
+    samples = 2.0 * torch.rand((N, D), generator=g, device=dev) - 1.0
+    with torch.no_grad():
+        if holes:
+            samples[:, 0] = -samples[:, 0].abs()
+            field.means[:, -1] = -field.means[:, -1].abs()
+        means, values = field.means.detach(), field.values.detach()
+        covs, conics = field.covariances(), field.conics()
+    cfg, plan = planned_config(
+        SamplerConfig(tile_size=0.1275, eig_floor=1e-12).with_dims(D),
+        means, covs, samples)
+    if unwrapped and not plan["safe_unwrapped"]:
+        raise AssertionError(f"D={D}: planner does not certify the "
+                             "unwrapped kernels for this case")
+    cfg = dataclasses.replace(cfg, unwrapped_kernels=unwrapped)
+    state = binning.build(cfg, means, covs, samples)
+    assert int(state.overflow) == 0 and int(state.entry_overflow) == 0
+    geom, smp, _, _ = operands(state, (means, values, conics), samples, cfg)
+    return (cfg, state, geom, smp, None if unwrapped else cfg.period, P, N,
+            g)
+
+
+def tile_facts(state):
+    """Facts of a binning that say which corners of the sweep a case
+    reaches: tiles with entries and no samples, with samples and no entries,
+    and the most tiles one forward / backward block's rows lie on."""
+    T = state.ent_start.shape[0] - 2
+    ent = torch.diff(state.ent_start)[:T] > 0
+    smp = torch.diff(state.s_start)[:T] > 0
+
+    def most(tiles, block):
+        t = tiles[tiles < T]
+        t = t[:t.shape[0] // block * block].reshape(-1, block)
+        return int((t[:, -1] - t[:, 0]).max()) + 1 if t.numel() else 0
+
+    return {"tiles": T, "tiles_entries_only": int((ent & ~smp).sum()),
+            "tiles_samples_only": int((smp & ~ent).sum()),
+            "tiles_empty": int((~ent & ~smp).sum()),
+            "most_tiles_per_fwd_block": most(state.s_tile[0], ktiled.BLOCK_N),
+            "most_tiles_per_bwd_block": most(state.ent_tile[0],
+                                             ktiled.BLOCK_E)}
+
+
+def check_dead_rows(what, got, dead):
+    """Rows that pair with nothing must come back exactly zero."""
+    if bool((got[:, dead] != 0).any()):
+        raise AssertionError(f"{what}: a sentinel or pad column is not 0")
+    return int(dead.sum())
+
+
+def dead_entries(geom, state):
+    """Pad entries (tile -1.0) and culled entries (the tile count T)."""
+    return (geom[0] < 0) | (geom[0] >= state.ent_start.shape[0] - 2)
+
+
+def phase_parity(dev):
+    cases = [(D, unwrapped, 0.03, 4, False)
+             for D in (1, 2, 3) for unwrapped in (False, True)]
+    cases.append((2, False, 0.6, 4, False))   # full-cover footprints, wrapped
+    # The narrow channel passes, two passes (C = 6), and tiles without
+    # samples or without entries.
+    cases += [(D, unwrapped, 0.03, C, False) for D in (1, 2)
+              for unwrapped in (False, True) for C in (1, 2, 6)]
+    cases += [(3, True, 0.03, 6, False), (2, True, 0.03, 3, True),
+              (2, False, 0.03, 1, True)]
+    for D, unwrapped, sigma, C, holes in cases:
+        _, state, geom, smp, period, P, N, _ = small_case(
+            dev, 10 + D, D, unwrapped, sigma, C, holes)
+        lo, n = ktiled.entry_ranges(state, smp.shape[1])
         got = ktiled.tiled_forward(ORDERS, period, D, C, geom, smp, lo, n)
         ref = ktiled.tiled_forward_plain(ORDERS, period, D, C, geom, smp,
                                          lo, n)
         torch.cuda.synchronize()
         errs = compare(got, ref, ORDERS, D, C)
-        emit("parity", D=D, unwrapped=unwrapped, sigma=sigma, P=P, N=N,
-             entries=int((state.ent_tile < binning.num_tiles(cfg, D)).sum()),
-             err=err_fields(errs))
+        pads = check_dead_rows("forward", got, smp[D] < 0)
+        emit("parity", D=D, unwrapped=unwrapped, sigma=sigma, C=C, P=P, N=N,
+             holes=holes, entries=int((~dead_entries(geom, state)).sum()),
+             pad_columns_zero=pads,
+             ranges_off_16_bytes=int((lo[n > 0] % 4 != 0).sum()),
+             **tile_facts(state), err=err_fields(errs))
 
     # The facade on the card against the dense masked oracle (an independent
     # reference: no binning ranges, no plain-kernel code).
@@ -422,45 +527,40 @@ def phase_parity(dev, P_small=5000, N_small=50000):
         emit("parity_oracle", D=D, P=300, N=2000, max_abs_err=err)
 
 
-def phase_parity_bwd(dev, P_small=5000, N_small=50000):
-    cases = [(D, unwrapped, 0.03, C, ORDERS)
+def phase_parity_bwd(dev):
+    cases = [(D, unwrapped, 0.03, C, ORDERS, False)
              for D in (1, 2, 3) for unwrapped in (False, True)
              for C in (1, 4, 6)]
-    cases.append((2, False, 0.6, 4, ORDERS))            # full-cover, wrapped
-    cases.append((3, False, 0.03, 3, ("laplacian", "value", "third")))
-    for D, unwrapped, sigma, C, orders in cases:
-        P, N = (P_small if sigma < 0.5 else 200), N_small
-        g = torch.Generator(device=dev).manual_seed(30 + D)
-        field = init_field(g, P, D, C, sigma=sigma)
-        samples = 2.0 * torch.rand((N, D), generator=g, device=dev) - 1.0
-        with torch.no_grad():
-            means, values = field.means.detach(), field.values.detach()
-            covs, conics = field.covariances(), field.conics()
-        cfg, plan = planned_config(
-            SamplerConfig(tile_size=0.1275, eig_floor=1e-12).with_dims(D),
-            means, covs, samples)
-        if unwrapped and not plan["safe_unwrapped"]:
-            raise AssertionError(f"D={D}: planner does not certify the "
-                                 "unwrapped kernels for this case")
-        cfg = dataclasses.replace(cfg, unwrapped_kernels=unwrapped)
-        state = binning.build(cfg, means, covs, samples)
-        assert int(state.overflow) == 0 and int(state.entry_overflow) == 0
-        geom, smp, _, _ = operands(state, (means, values, conics), samples,
-                                   cfg)
+    cases.append((2, False, 0.6, 4, ORDERS, False))     # full-cover, wrapped
+    cases.append((3, False, 0.03, 3, ("laplacian", "value", "third"), False))
+    # The two-channel pass, the instantiations the trainers launch, and tiles
+    # without samples or without entries.
+    cases += [(D, unwrapped, 0.03, 2, ORDERS, False) for D in (1, 2)
+              for unwrapped in (False, True)]
+    cases += [(2, True, 0.03, 4, SLICE_ORDERS, False),
+              (2, False, 0.03, 1, ("value", "laplacian"), False),
+              (2, False, 0.03, 1, ("value",), True),
+              (2, True, 0.03, 2, ("value",), True),
+              (2, True, 0.03, 6, ORDERS, True)]
+    for D, unwrapped, sigma, C, orders, holes in cases:
+        _, state, geom, smp, period, P, N, g = small_case(
+            dev, 30 + D, D, unwrapped, sigma, C, holes)
         s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
         K = ktiled.total_unique(orders, D)
         ct = torch.randn((K * C, smp.shape[1]), generator=g, device=dev)
-        period = None if unwrapped else cfg.period
         got = ktiled.tiled_backward(orders, period, D, C, geom, smp, ct,
                                     s_lo, s_n)
         ref = ktiled.tiled_backward_plain(orders, period, D, C, geom, smp,
                                           ct, s_lo, s_n)
         torch.cuda.synchronize()
         errs = compare_rows(got, ref, D, C)
+        dead = check_dead_rows("backward", got, dead_entries(geom, state))
         emit("parity_bwd", D=D, unwrapped=unwrapped, sigma=sigma, C=C,
-             orders=list(orders), P=P, N=N,
-             entries=int((state.ent_tile < binning.num_tiles(cfg, D)).sum()),
-             err=err_fields(errs))
+             orders=list(orders), P=P, N=N, holes=holes,
+             entries=int((~dead_entries(geom, state)).sum()),
+             sentinel_columns_zero=dead,
+             ranges_off_16_bytes=int((s_lo[s_n > 0] % 4 != 0).sum()),
+             **tile_facts(state), err=err_fields(errs))
 
     # The op's gradients on the card against autograd through the dense
     # masked oracle, all four orders through the mirrored public outputs;
@@ -527,11 +627,46 @@ def headline(dev, P, N, C=4, seed=0):
         time.perf_counter() - t0
 
 
-def pair_counts(state, cfg, D):
-    T = binning.num_tiles(cfg, D)
+def pair_counts(state):
+    """(kept pairs, real entries) of a binning: per tile, entries times
+    samples."""
+    T = state.ent_start.shape[0] - 2
     ent_count = torch.diff(state.ent_start)[:T].long()
     smp_count = torch.diff(state.s_start)[:T].long()
     return int((ent_count * smp_count).sum()), int(ent_count.sum())
+
+
+def swept_pairs(state, side):
+    """Lane slots the kernel's sweep spends on these operands: each warp
+    (32 consecutive sorted rows) walks its whole range with all its lanes,
+    so a warp that straddles tiles pays for every tile under it."""
+    if side == "forward":
+        _, n = binning.forward_geometry(state, ktiled.BLOCK_N, 1)
+        return int(n.long().sum()) * ktiled.BLOCK_N
+    _, n = binning.backward_geometry(state, ktiled.BLOCK_E, 1)
+    return int(n.long().sum()) * ktiled.BLOCK_E
+
+
+def instantiation(kernel, orders, D, C, period):
+    """{"registers", "shared_bytes", "pass", "wrap"} of the instantiation of
+    ``kernel`` ("tiled_forward" / "tiled_backward") that (orders, D, C,
+    period) launches, from the ptxas report of the build."""
+    lib = _build.load()
+    mask = ktiled._order_rows(orders, D)[0]
+    cb = getattr(lib, f"dgs_{kernel}_pass")(D, C)
+    wrapped = int(period is not None)
+    name = f"{kernel}_kernelILi{D}ELi{mask}ELi{cb}ELb{wrapped}EE"
+    reports = [
+        r for r in _build.build_log().split("Compiling entry function")[1:]
+        if name in r.split("'")[1]]
+    if len(reports) != 1:
+        raise AssertionError(f"{len(reports)} ptxas reports for {name}")
+    regs = re.search(r"Used (\d+) registers", reports[0])
+    smem = re.search(r"(\d+) bytes smem", reports[0])
+    return {"registers": int(regs.group(1)),
+            "shared_bytes": int(smem.group(1)) if smem else 0, "pass": cb,
+            "wrap": ("scaled" if lib.dgs_tiled_wrap_scaled(period)
+                     else "divide") if wrapped else "none"}
 
 
 def phase_slice(dev, P=100_000, N=1_000_000):
@@ -571,11 +706,11 @@ def phase_slice(dev, P=100_000, N=1_000_000):
         if not bool(torch.isfinite(outs[o]).all()):
             raise AssertionError(f"non-finite {o} output")
 
-    pairs, entries = pair_counts(state, cfg, D)
+    pairs, entries = pair_counts(state)
 
     period = None if cfg.unwrapped_kernels else cfg.period
     geom, smp, lo, n = operands(state, (means, values, conics), samples, cfg)
-    swept = int(n.long().sum()) * ktiled.BLOCK_N
+    swept = swept_pairs(state, "forward")
     got = ktiled.tiled_forward(SLICE_ORDERS, period, D, C, geom, smp, lo, n)
     ref = ktiled.tiled_forward_plain(SLICE_ORDERS, period, D, C, geom, smp,
                                      lo, n)
@@ -599,11 +734,16 @@ def phase_slice(dev, P=100_000, N=1_000_000):
         "max_abs_err": max(e[0] for e in errs.values()),
         "ms": kernel_ms, "plain_ms": plain_ms,
         **kernel_bound(pairs, moved, D, SLICE_ORDERS, C,
-                       period is not None, False)}
+                       period is not None, False),
+        "kept_pairs": pairs, "swept_pairs": swept,
+        **instantiation("tiled_forward", SLICE_ORDERS, D, C, period)}
 
 
-def phase_train_step(dev, P=100_000, N=1_000_000):
-    D, C = 2, 4
+def headline_step(dev, P, N, C=4):
+    """The headline training step as a closure, with what it was built
+    from: (step, params, (means, values, covs, conics), samples, cfg, sample
+    binning, multiplicities, planner seconds)."""
+    D = 2
     (means, values, covs, conics), samples, cfg, plan_s = headline(
         dev, P, N, C)
     sb = binning.bin_samples(cfg, samples)   # the samples are fixed
@@ -625,6 +765,15 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
                    for k, o in outs.items()) / N
         loss.backward()
         return loss.detach(), diag
+
+    return (step, params, (means, values, covs, conics), samples, cfg, sb,
+            mult, plan_s)
+
+
+def phase_train_step(dev, P=100_000, N=1_000_000):
+    D, C = 2, 4
+    (step, params, (means, values, covs, conics), samples, cfg, sb, mult,
+     plan_s) = headline_step(dev, P, N, C)
 
     loss, diag = step()                      # warm-up
     torch.cuda.synchronize()
@@ -653,7 +802,7 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
     # The backward kernel against its plain version on this step's own
     # operands and cotangent (d loss / d packed outputs).
     state = binning.build(cfg, means, covs, samples, sample_binning=sb)
-    pairs, entries = pair_counts(state, cfg, D)
+    pairs, entries = pair_counts(state)
     geom, smp, lo, n = operands(state, (means, values, conics), samples, cfg)
     period = None if cfg.unwrapped_kernels else cfg.period
     with torch.no_grad():
@@ -662,7 +811,7 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
         w = torch.cat([mult[o].repeat_interleave(C) for o in SLICE_ORDERS])
         ct = (2.0 / N) * w[:, None] * packed
     s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
-    swept = int(s_n.long().sum()) * ktiled.BLOCK_E
+    swept = swept_pairs(state, "backward")
     got = ktiled.tiled_backward(SLICE_ORDERS, period, D, C, geom, smp, ct,
                                 s_lo, s_n)
     ref = ktiled.tiled_backward_plain(SLICE_ORDERS, period, D, C, geom, smp,
@@ -687,7 +836,9 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
         "max_abs_err": max(e[0] for e in errs.values()),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms,
         **kernel_bound(pairs, moved, D, SLICE_ORDERS, C,
-                       period is not None, True)}, step
+                       period is not None, True),
+        "kept_pairs": pairs, "swept_pairs": swept,
+        **instantiation("tiled_backward", SLICE_ORDERS, D, C, period)}, step
 
 
 PIGS_CFG = dict(tile_size=0.051, eig_floor=1e-12, axis_radii=True,
@@ -1459,6 +1610,138 @@ def dynamics_step(dev, P=DYN_P, n_eval=DYN_EVAL):
         rollout=DYN_ROLLOUT, dt=0.05, ladder=True, padded=True)
 
 
+def pigs_setup(dev):
+    """Config 4's field and capacities as pigs.train sets them up from seed
+    0: (cfg, field, generator, u_star, f_rhs)."""
+    u_star, f_rhs = pigs.manufactured_solution(2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    field = init_field(gen, PIGS_P, 2, 1, sigma=2.0 / math.sqrt(PIGS_P))
+    probe = 2.0 * torch.rand((PIGS_COLLOCATION, 2), generator=gen,
+                             device=dev) - 1.0
+    cfg = pigs.auto_config(SamplerConfig(**PIGS_CFG), field, probe, PIGS_P)
+    return cfg, field, gen, u_star, f_rhs
+
+
+def pigs_step(dev):
+    """One PIGS training step at config 4, built as pigs.train builds it."""
+    cfg, field, gen, u_star, f_rhs = pigs_setup(dev)
+    opt = torch.optim.Adam(field.parameters(), lr=PIGS_LR, eps=1e-8)
+    step = pigs.make_train_step(cfg, opt, f_rhs, u_star, gen,
+                                n_collocation=PIGS_COLLOCATION)
+    return lambda: step(field)
+
+
+def tiled_evaluations(t):
+    """The tiled evaluations in the autograd graph under ``t``, each as the
+    operands its two kernels were (and will be) launched with: a list of
+    dicts (orders, period, D, C, geom, smp, state)."""
+    seen, stack, found = set(), [t.grad_fn], []
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if type(fn).__name__ == "_TiledForwardBackward":
+            geom, smp, _ = fn.saved_tensors
+            found.append(dict(orders=fn.orders, period=fn.kernel_period,
+                              D=fn.D, C=fn.C, geom=geom.detach(), smp=smp,
+                              state=fn.state))
+        stack.extend(f for f, _ in fn.next_functions)
+    return found
+
+
+def path_cases(dev):
+    """The operands the trainers' tiled evaluations hand the two kernels at
+    full width, taken from the autograd graph of one loss of each path:
+    PIGS config 4's collocation (value + laplacian, C = 1, wrapped) and data
+    (value, C = 1) evaluations, and the dynamics step's value evaluation
+    (C = rollout = 2 over the reused Gaussian-side binning)."""
+    cases = {}
+    cfg, field, gen, u_star, f_rhs = pigs_setup(dev)
+    kw = dict(generator=gen, device=dev)
+    collocation = 2.0 * torch.rand((PIGS_COLLOCATION, 2), **kw) - 1.0
+    data_x = 2.0 * torch.rand((PIGS_COLLOCATION // 4, 2), **kw) - 1.0
+    loss, _ = pigs.pigs_loss(cfg, field, collocation, data_x, u_star(data_x),
+                             f_rhs)
+    for ev in tiled_evaluations(loss):
+        cases["pigs_collocation" if "laplacian" in ev["orders"]
+              else "pigs_data"] = ev
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    field = init_field(gen, DYN_P, 2, 1, sigma=3.0 * 2.0 / math.sqrt(DYN_P))
+    eval_u = dynamics.make_value_eval(
+        SamplerConfig(**DYN_CFG), field, "tiled", n_eval=DYN_EVAL,
+        with_overflow=True, padded=True)
+    values = torch.randn((DYN_P, DYN_ROLLOUT), **kw).requires_grad_()
+    u = eval_u(values, 2.0 * torch.rand((DYN_EVAL, 2), **kw) - 1.0)[0]
+    (cases["dynamics_eval"],) = tiled_evaluations(u)
+    if sorted(cases) != ["dynamics_eval", "pigs_collocation", "pigs_data"]:
+        raise AssertionError(f"tiled evaluations found: {sorted(cases)}")
+    return cases
+
+
+def phase_parity_paths(dev):
+    """Both tiled kernels against their plain versions on the operands the
+    PIGS step and the dynamics step give them, at full width (the headline
+    instantiation is held at full width by slice and train_step), with the
+    kernels' times and bounds at those shapes."""
+    numbers = {}
+    for name, ev in path_cases(dev).items():
+        orders, period, D, C = ev["orders"], ev["period"], ev["D"], ev["C"]
+        geom, smp, state = ev["geom"], ev["smp"], ev["state"]
+        lo, n = ktiled.entry_ranges(state, smp.shape[1])
+        s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+        K = ktiled.total_unique(orders, D)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        ct = torch.randn((K * C, smp.shape[1]), generator=gen, device=dev)
+        fwd = lambda f: f(orders, period, D, C, geom, smp, lo, n)
+        bwd = lambda f: f(orders, period, D, C, geom, smp, ct, s_lo, s_n)
+        got, got_b = fwd(ktiled.tiled_forward), bwd(ktiled.tiled_backward)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = fwd(ktiled.tiled_forward_plain)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref_b = bwd(ktiled.tiled_backward_plain)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        errs = compare(got, ref, orders, D, C)
+        errs_b = compare_rows(got_b, ref_b, D, C)
+        # check_close's absolute floor is loose where max|ref| is small:
+        # also hold each group's largest error against max|ref|.
+        for what, e, tol in [(o, errs[o], RTOL) for o in errs] + [
+                (g, errs_b[g], GRAD_RTOL) for g in errs_b]:
+            if e[1] > tol:
+                raise AssertionError(f"parity_paths {name} {what}: max abs "
+                                     f"err is {e[1]} of max|ref|")
+        pads = check_dead_rows("forward", got, smp[D] < 0)
+        dead = check_dead_rows("backward", got_b, dead_entries(geom, state))
+        pairs, entries = pair_counts(state)
+        numbers[name] = {}
+        for side, kernel, call, moved in (
+                ("forward", "tiled_forward", fwd, (geom, smp, lo, n, got)),
+                ("backward", "tiled_backward", bwd,
+                 (geom, smp, ct, s_lo, s_n, got_b))):
+            ms = cuda_ms(lambda: call(getattr(ktiled, kernel)))
+            bound = kernel_bound(pairs, sum(t.numel() for t in moved), D,
+                                 orders, C, period is not None,
+                                 side == "backward")
+            numbers[name][kernel] = {
+                "ms": ms, **bound, "share": bound["bound_ms"] / ms,
+                "plain_ms": 1e3 * ((t1 - t0) if side == "forward"
+                                   else (t2 - t1)),
+                "kept_pairs": pairs,
+                "swept_pairs": swept_pairs(state, side),
+                **instantiation(kernel, orders, D, C, period)}
+        emit("parity_paths", path=name, orders=list(orders), D=D, C=C,
+             wrapped=period is not None, samples=int(state.s_perm.shape[0]),
+             entries=entries, pairs=pairs, pad_columns_zero=pads,
+             sentinel_columns_zero=dead, **tile_facts(state),
+             err=err_fields(errs), bwd_err=err_fields(errs_b),
+             **numbers[name])
+    return numbers
+
+
 def device_profile(fn, iters):
     """Device time per call of fn() under torch.profiler, after one
     warm-up call: ``busy_ms`` is the union of the intervals of every device
@@ -1517,18 +1800,8 @@ def phase_profile(dev, train_step, dense_step, agg_step, pigs_iters=10):
     clock), for the headline training step, the PIGS config 4 step, the
     dense training step, the aggregation step and the dynamics config 4
     step."""
-    pigs_cfg = SamplerConfig(**PIGS_CFG)
-    u_star, f_rhs = pigs.manufactured_solution(2)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    field = init_field(gen, PIGS_P, 2, 1, sigma=2.0 / math.sqrt(PIGS_P))
-    opt = torch.optim.Adam(field.parameters(), lr=PIGS_LR, eps=1e-8)
-    probe = 2.0 * torch.rand((PIGS_COLLOCATION, 2), generator=gen,
-                             device=dev) - 1.0
-    pigs_cfg = pigs.auto_config(pigs_cfg, field, probe, PIGS_P)
-    pigs_step = pigs.make_train_step(pigs_cfg, opt, f_rhs, u_star, gen,
-                                     n_collocation=PIGS_COLLOCATION)
     for path, fn, iters in (("train_step", train_step, 5),
-                            ("pigs", lambda: pigs_step(field), pigs_iters),
+                            ("pigs", pigs_step(dev), pigs_iters),
                             ("dense_step", dense_step, 3),
                             ("agg_step", agg_step, 5),
                             ("dynamics", dynamics_step(dev), pigs_iters)):
@@ -1540,12 +1813,71 @@ def phase_profile(dev, train_step, dense_step, agg_step, pigs_iters=10):
              idle_share=max(0.0, 1.0 - busy / step_ms), top=top)
 
 
+def tiled_times(dev, reps=10, steps=30):
+    """The two tiled kernels, through their wrappers, at every shape the
+    tiled paths launch them with, and the three tiled steps (python3
+    chip_smoke.py --tiled).  Kernel shapes: the headline training step's
+    operands, PIGS config 4's two evaluations, the dynamics evaluation
+    (path_cases), and D = 3 with all four orders and C = 4: the parity case
+    (5,000 x 50,000, wrapped) and the same field at 100,000 x 1,000,000
+    (unwrapped).  Steps: the headline training step, the PIGS config 4 step
+    and the dynamics config 4 step, ``steps`` synchronised host-clock times
+    each.  Device times differ between cards and host times between
+    machines by more than a redesign gains, so two trees are compared by
+    running this script's --tiled in each of them on one card, one after
+    the other, in turns (first, second, second, first)."""
+    step, _, (means, values, covs, conics), samples, cfg, sb, _, _ = \
+        headline_step(dev, 100_000, 1_000_000)
+    state = binning.build(cfg, means, covs, samples, sample_binning=sb)
+    geom, smp, _, _ = operands(state, (means, values, conics), samples, cfg)
+    cases = {"headline": dict(
+        orders=SLICE_ORDERS, D=2, C=4, geom=geom, smp=smp, state=state,
+        period=None if cfg.unwrapped_kernels else cfg.period)}
+    cases.update(path_cases(dev))
+    for name, unwrapped, P, N in (("d3_parity", False, 5000, 50_000),
+                                  ("d3_wide", True, 100_000, 1_000_000)):
+        _, state, geom, smp, period, _, _, _ = small_case(
+            dev, 13, 3, unwrapped, 0.03, 4, P_small=P, N_small=N)
+        cases[name] = dict(orders=ORDERS, D=3, C=4, geom=geom, smp=smp,
+                           state=state, period=period)
+    for name, ev in cases.items():
+        orders, period, D, C = ev["orders"], ev["period"], ev["D"], ev["C"]
+        geom, smp, state = ev["geom"], ev["smp"], ev["state"]
+        lo, n = ktiled.entry_ranges(state, smp.shape[1])
+        s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+        gen = torch.Generator(device=dev).manual_seed(7)
+        ct = torch.randn((ktiled.total_unique(orders, D) * C, smp.shape[1]),
+                         generator=gen, device=dev)
+        pairs, entries = pair_counts(state)
+        emit("tiled_times", shape=name, orders=list(orders), D=D, C=C,
+             wrapped=period is not None, entries=entries,
+             samples=int(state.s_perm.shape[0]), pairs=pairs,
+             forward_ms=cuda_ms(lambda: ktiled.tiled_forward(
+                 orders, period, D, C, geom, smp, lo, n), reps),
+             backward_ms=cuda_ms(lambda: ktiled.tiled_backward(
+                 orders, period, D, C, geom, smp, ct, s_lo, s_n), reps),
+             forward_bound_ms=kernel_bound(
+                 pairs, 0, D, orders, C, period is not None,
+                 False)["bound_ms"],
+             backward_bound_ms=kernel_bound(
+                 pairs, 0, D, orders, C, period is not None,
+                 True)["bound_ms"])
+    for path, fn in (("train_step", step), ("pigs", pigs_step(dev)),
+                     ("dynamics", dynamics_step(dev))):
+        times = host_ms(fn, steps)
+        emit("tiled_steps", path=path, step_ms_median=statistics.median(times),
+             step_ms_min=min(times), step_ms_max=max(times))
+    emit("spin", **_spin)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     dev = torch.device("cuda", 0)
     build = phase_build()
+    if sys.argv[1:] == ["--tiled"]:
+        return tiled_times(dev)
     # The many-line parity phases first, the measured paths after them, so
     # that the end of the output holds every number of the kernels line.
     phase_parity(dev)
@@ -1555,6 +1887,7 @@ def main():
     phase_parity_agg(dev)
     phase_parity_agg_oracle(dev)
     phase_parity_dynamics(dev)
+    by_shape = phase_parity_paths(dev)
     slice_launches, k_fwd = phase_slice(dev)
     train_launches, k_bwd, train_step = phase_train_step(dev)
     pigs_launches = phase_pigs(dev)
@@ -1594,7 +1927,13 @@ def main():
     for name, (_, _, main_path, _) in kernels.items():
         if paths[main_path][name] < 1:
             raise AssertionError(f"{name} never launched on {main_path}")
-    emit("card_and_build", nvidia_smi=smi, **build)
+    # The two tiled kernels' rows also carry the share of the bound and
+    # their times at the trainers' shapes.
+    for name in ("tiled_forward", "tiled_backward"):
+        k = kernels[name][3]
+        k.update(share=k["bound_ms"] / k["ms"],
+                 by_shape={p: v[name] for p, v in by_shape.items()})
+    emit("card_and_build", nvidia_smi=smi, spin=_spin, **build)
     # No single PyTorch call computes any of these functions (a fused
     # multi-order Gaussian-mixture evaluation or its VJP; a masked,
     # density-normalised attention with a sinusoidal offset code, or its six

@@ -126,8 +126,9 @@ __global__ void __launch_bounds__(kBlock) dense_backward_kernel(
         }
         float a[D], G;
         if (!dgs::pair_power<D>(X, con, a, G)) continue;
-        float w[K], h[K];
-        dgs::component_weights<D, MASK>(con, a, G, w);
+        float q[TRI], w[K], h[K];
+        dgs::pair_polys<D, MASK>(con, a, q);
+        dgs::component_weights<D, MASK>(con, a, q, G, w);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           h[k] = 0.0f;
@@ -138,7 +139,7 @@ __global__ void __launch_bounds__(kBlock) dense_backward_kernel(
             dv[c] = fmaf(g, w[k], dv[c]);
           }
         }
-        dgs::pair_vjp<D, MASK>(X, con, a, G, h, dmu, dcon);
+        dgs::pair_vjp<D, MASK>(X, con, a, q, G, w, h, dmu, dcon);
       }
     }
 

@@ -97,6 +97,11 @@ def load() -> ctypes.CDLL:
                 p, p, i, p, i, i, p, p, p, p, i, i, i, i, i, i, f, i, p, p,
             ]
             fn.restype = i
+        for fn in (lib.dgs_tiled_forward_pass, lib.dgs_tiled_backward_pass):
+            fn.argtypes = [i, i]
+            fn.restype = i
+        lib.dgs_tiled_wrap_scaled.argtypes = [ctypes.c_float]
+        lib.dgs_tiled_wrap_scaled.restype = i
         for fn in (lib.dgs_tiled_forward_block, lib.dgs_tiled_backward_block,
                    lib.dgs_dense_forward_block, lib.dgs_dense_backward_block,
                    lib.dgs_agg_block, lib.dgs_agg_backward_max_nfreq):

@@ -12,9 +12,19 @@ launches the hand-written Hopper kernel (``dgs_tpu_torch/csrc/
 tiled_forward.cu`` / ``tiled_backward.cu``), a CPU tensor runs
 ``tiled_forward_plain`` / ``tiled_backward_plain``, the same function in
 plain torch.  The TPU kernels walked static work lists of (sample block x
-entry block) items; each CUDA block finds its own contiguous range of the
-other side (``entry_ranges`` / ``sample_ranges``), so no work list is built
-and no work capacity can overflow.
+entry block) items.  The CUDA kernels give every warp 32 consecutive
+tile-sorted rows, a lane each, and the contiguous range of the other side
+that those rows' tiles cover (``entry_ranges`` / ``sample_ranges``, one
+range per ``BLOCK_N`` = 32 sorted samples or ``BLOCK_E`` = 32 entries): the
+warp stages its range through its own slice of shared memory as 16-byte
+records (``csrc/tiled_layout.cuh``) and sweeps it, a lane keeping the rows
+of its own tile; where the warp's rows share a tile, which is the rule, the
+range is exactly that tile's rows and nothing swept is dropped.  Any range
+that covers the rows' tiles gives the same result, as in the plain versions.
+No work list is built and no work capacity can overflow.
+The kernels run over the value channels in passes of 1, 2 or 4 (chosen from
+C), and wrap the torus by a multiplication where the period is a power of
+two (bitwise equal to the division), else by the division.
 """
 
 from __future__ import annotations
@@ -28,13 +38,13 @@ from ..config import tri_size
 from ..ops import formulas
 from ._util import _pad_axis, _round_up
 
-# Sorted samples per forward CUDA block (kBlock of csrc/tiled_forward.cu,
-# which the wrapper checks against the built library).  Np is padded to a
-# multiple.
-BLOCK_N = 128
-# Entries per backward CUDA block (kBlock of csrc/tiled_backward.cu); the
-# geom array's entry axis is padded to a multiple.
-BLOCK_E = 128
+# Sorted samples per forward range: one warp of csrc/tiled_forward.cu owns
+# them, a lane each, and is handed its own entry range (the wrapper checks
+# the value against the built library).  Np is padded to a multiple.
+BLOCK_N = 32
+# Entries per backward range (one warp of csrc/tiled_backward.cu); the geom
+# array's entry axis is padded to a multiple.
+BLOCK_E = 32
 
 ORDER_BITS = {"value": 1, "derivative": 2, "laplacian": 4, "third": 8}
 
@@ -107,9 +117,10 @@ def prepare_samples(state: binning.BinningState, samples, block_n: int):
 
 def entry_ranges(state: binning.BinningState, Np: int):
     """(ent_lo, ent_n) int32 of length Np // BLOCK_N: the entry range
-    [ent_lo, ent_lo + ent_n) of each block of BLOCK_N sorted samples (the
-    forward geometry at one-entry granularity; pad blocks get empty
-    ranges)."""
+    [ent_lo, ent_lo + ent_n) of each run of BLOCK_N sorted samples (the
+    forward geometry at one-entry granularity; runs of pads get empty
+    ranges).  Where a run's samples share a tile, the range is exactly that
+    tile's entries."""
     lo, n = binning.forward_geometry(state, BLOCK_N, 1)
     NB = Np // BLOCK_N
     return _pad_axis(lo, 0, NB).contiguous(), _pad_axis(n, 0, NB).contiguous()
@@ -117,9 +128,10 @@ def entry_ranges(state: binning.BinningState, Np: int):
 
 def sample_ranges(state: binning.BinningState, Ep: int):
     """(s_lo, s_n) int32 of length Ep // BLOCK_E: the sorted-sample range
-    [s_lo, s_lo + s_n) of each block of BLOCK_E entries (the backward
-    geometry at one-sample granularity; sentinel-only and pad blocks get
-    empty ranges)."""
+    [s_lo, s_lo + s_n) of each run of BLOCK_E entries (the backward
+    geometry at one-sample granularity; runs of sentinels and pads get
+    empty ranges).  Where a run's entries share a tile, the range is exactly
+    that tile's samples."""
     lo, n = binning.backward_geometry(state, BLOCK_E, 1)
     EB = Ep // BLOCK_E
     return _pad_axis(lo, 0, EB).contiguous(), _pad_axis(n, 0, EB).contiguous()
@@ -143,7 +155,7 @@ def _order_rows(orders, D: int):
 
 def tiled_forward_plain(orders, period: Optional[float], D: int, C: int,
                         geom, smp, ent_lo, ent_n,
-                        chunk_blocks: int = 32) -> torch.Tensor:
+                        chunk_blocks: int = 128) -> torch.Tensor:
     """The plain torch version of the kernel: same inputs, same (K*C, Np)
     output.  Works on ``chunk_blocks`` sample blocks at a time over their
     joint entry range, so it never holds more than one chunk's pairs."""
@@ -223,7 +235,7 @@ def _tiled_forward_cuda(orders, period, D, C, geom, smp, ent_lo, ent_n):
     K = total_unique(orders, D)
     lib = _build.load()
     if lib.dgs_tiled_forward_block() != BLOCK_N:
-        raise RuntimeError("tiled_forward: kernel library block size differs "
+        raise RuntimeError("tiled_forward: kernel library range size differs "
                            "from kernels.tiled.BLOCK_N")
     out = torch.empty((K * C, Np), dtype=torch.float32, device=geom.device)
     with torch.cuda.device(geom.device):
@@ -244,7 +256,7 @@ def _tiled_forward_cuda(orders, period, D, C, geom, smp, ent_lo, ent_n):
 
 def tiled_backward_plain(orders, period: Optional[float], D: int, C: int,
                          geom, smp, ct, s_lo, s_n,
-                         chunk_blocks: int = 8) -> torch.Tensor:
+                         chunk_blocks: int = 32) -> torch.Tensor:
     """The plain torch version of the backward kernel: same inputs, same
     packed per-entry rows (D + tri + C, Ep): mean rows, conic rows, value
     rows, each summed over the entry's same-tile samples.  Works on
@@ -336,7 +348,7 @@ def _tiled_backward_cuda(orders, period, D, C, geom, smp, ct, s_lo, s_n):
     mask, rows = _order_rows(orders, D)
     lib = _build.load()
     if lib.dgs_tiled_backward_block() != BLOCK_E:
-        raise RuntimeError("tiled_backward: kernel library block size "
+        raise RuntimeError("tiled_backward: kernel library range size "
                            "differs from kernels.tiled.BLOCK_E")
     out = torch.empty((D + tri + C, Ep), dtype=torch.float32,
                       device=geom.device)

@@ -110,12 +110,19 @@ template <int D, int M>
 static int run_vjp(const float* X, const float* con, const float* h,
                    float* out) {
   constexpr int TRI = dgs::tri_size(D), K = dgs::total_unique(D, M);
-  float x[D], c[TRI], a[D], G, hh[K], dmu[D] = {}, dcon[TRI] = {};
+  float x[D], c[TRI], a[D], G, q[TRI], w[K], hh[K], dmu[D] = {},
+        dcon[TRI] = {};
   for (int d = 0; d < D; ++d) x[d] = X[d];
   for (int t = 0; t < TRI; ++t) c[t] = con[t];
   for (int k = 0; k < K; ++k) hh[k] = h[k];
-  if (!dgs::pair_power<D>(x, c, a, G)) return 0;
-  dgs::pair_vjp<D, M>(x, c, a, G, hh, dmu, dcon);
+  if (!dgs::pair_power<D>(x, c, a, G)) {
+    // the branch-free form must agree: G = 0 for the skipped pair
+    return dgs::pair_gauss<D>(x, c, a) == 0.0f ? 0 : -2;
+  }
+  if (dgs::pair_gauss<D>(x, c, a) != G) return -2;
+  dgs::pair_polys<D, M>(c, a, q);
+  dgs::component_weights<D, M>(c, a, q, G, w);
+  dgs::pair_vjp<D, M>(x, c, a, q, G, w, hh, dmu, dcon);
   for (int d = 0; d < D; ++d) out[d] = dmu[d];
   for (int t = 0; t < TRI; ++t) out[D + t] = dcon[t];
   return 1;
