@@ -5,6 +5,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py            # everything below
     python3 chip_smoke.py --tiled    # the two tiled kernels' and the tiled
                                      # steps' times only (see tiled_times)
+    python3 chip_smoke.py --dense    # the two dense kernels' and the dense
+                                     # steps' times and the segment-sum's
+                                     # memory only (see dense_times)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
@@ -53,9 +56,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    squares of the padded, sorted, unique outputs over N) and
                    backward() to means, values and conics.  Checks the
                    diagnostics, one launch of each kernel per step, finite
-                   and bitwise-reproducible gradients, and the backward
-                   kernel's per-entry rows against its plain version; times
-                   the backward kernel, its plain version and the step.
+                   and bitwise-reproducible gradients, the backward kernel's
+                   per-entry rows against its plain version and the
+                   segment-sum kernel on those rows against its plain
+                   version (bitwise) and index_add_; times the backward
+                   kernel, its plain version and the step.
+     segment     - the segment-sum at D = 3, R = 8, P = 100,000 (about 3.2 M
+                   entries): its peak device memory must stay within its
+                   operands and output (no P * R^D slot buffer); the kernel
+                   bitwise equal to its plain version there.
   6. pigs        - PIGS training (config 4, phase A of tools/train_100k.py)
                    through dgs_tpu_torch.models.pigs.train: P = 100,000,
                    D = 2, C = 1, 262,144 collocation points, Adam lr 2e-3,
@@ -65,8 +74,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    plain torch version on the same operands: D in {1, 2, 3}
                    x period in {2.0, None} x C in {1, 4, 6} with all four
                    orders fused, one single-order and one non-canonical
-                   order set, at P = 2,000 x N = 20,000, plus four sizes
-                   that are no multiple of a block.
+                   order set, period 1.5 (the dividing wrap) at C in {2, 4},
+                   C = 2 and the PIGS order sets at C = 1 (the narrow
+                   passes), at P = 2,000 x N = 20,000, plus four sizes that
+                   are no multiple of a block.
      parity_dense_bwd - the dense backward CUDA kernel against its plain
                    version on the same operands and a random cotangent, the
                    same cases, per group (means, values, conics); then the
@@ -106,7 +117,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    on the operands the dynamics step gives them at full
                    width (P = 100,000, sigma * 3, L = 1, K = 4, nfreq = 2,
                    the ladder recurrence), with the structure's pair counts
-                   and the kernels' times there.
+                   and the forward and backward kernels' times, bounds and
+                   shares there.
  11. agg_slice   - the aggregation operating point of
                    tools/bench_aggregate.py at full width: P = 100,000,
                    D = 2, L = K = 8, nfreq = 4, through GaussianSampler
@@ -134,11 +146,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    items.
 
 Then the kernels line (per kernel: launches on its main path and by path,
-its time, its plain version's time, and the least time the card could take
-for the same work: the larger of the bytes over the memory rate and the
-operations over the fp32 rate; for the two tiled kernels also the share of
-the bound, kept and swept pairs, the instantiation's registers and shared
-memory, and the same at the trainers' shapes) and, last, the result line
+its time, its plain version's time, the least time the card could take
+for the same work, the larger of the bytes over the memory rate and the
+operations over the fp32 rate, and the share of it; for the tiled and
+dense kernels also the instantiation's registers and shared memory, for
+the tiled ones kept and swept pairs and the same at the trainers' shapes;
+the segment-sum's row also index_add_'s time as library_ms and the D = 3
+case) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -159,6 +173,7 @@ from dgs_tpu_torch.config import ORDERS, SamplerConfig
 from dgs_tpu_torch.kernels import _build
 from dgs_tpu_torch.kernels import aggregate as kagg
 from dgs_tpu_torch.kernels import dense as kdense
+from dgs_tpu_torch.kernels import segment
 from dgs_tpu_torch.kernels import tiled as ktiled
 from dgs_tpu_torch.models import dynamics, pigs
 from dgs_tpu_torch.models.field import init_field
@@ -185,7 +200,8 @@ KERNELS = {"tiled_forward": ktiled.tiled_forward,
            "dense_backward": kdense.dense_backward,
            "agg_totals": kagg.totals,
            "agg_forward": kagg.forward,
-           "agg_backward": kagg.backward}
+           "agg_backward": kagg.backward,
+           "segment_sum": segment.segment_sum}
 
 
 def reset_launches():
@@ -669,6 +685,130 @@ def instantiation(kernel, orders, D, C, period):
                      else "divide") if wrapped else "none"}
 
 
+def resident_blocks(registers, threads, shared_bytes):
+    """Blocks of a kernel an H100 SM holds at once, from its registers a
+    thread and static shared bytes a block (the ptxas report): registers
+    are allocated 256 a warp from 65,536, shared memory from 228 KB with 1
+    KB reserved a block; at most 32 blocks and 64 warps an SM."""
+    warps = threads // 32
+    by_regs = 65536 // (-(-registers * 32 // 256) * 256 * warps)
+    by_smem = 228 * 1024 // (shared_bytes + 1024)
+    return min(by_regs, by_smem, 32, 64 // warps)
+
+
+def dense_instantiation(kernel, orders, D, C, period):
+    """{"registers", "shared_bytes", "resident_blocks"} of the instantiation
+    of ``kernel`` ("dense_forward" / "dense_backward") that (orders, D, C,
+    period) launches, from the ptxas report of the build.  A tree whose
+    dense kernels take no pass or wrap template value (the first design) has
+    one instantiation per (D, orders)."""
+    mask = kdense._canonical(orders, D)[0]
+    reports = [
+        r for r in _build.build_log().split("Compiling entry function")[1:]
+        if f"{kernel}_kernelILi{D}ELi{mask}E" in r.split("'")[1]]
+    if len(reports) > 1:
+        tag = (f"ELi{_build.load().dgs_dense_pass(D, C)}"
+               f"ELb{int(period is not None)}EE")
+        reports = [r for r in reports if tag in r.split("'")[1]]
+    if len(reports) != 1:
+        raise AssertionError(f"{len(reports)} ptxas reports for {kernel} "
+                             f"D={D} mask={mask}")
+    regs = int(re.search(r"Used (\d+) registers", reports[0]).group(1))
+    smem = re.search(r"(\d+) bytes smem", reports[0])
+    smem = int(smem.group(1)) if smem else 0
+    return {"registers": regs, "shared_bytes": smem,
+            "resident_blocks": resident_blocks(regs, 128, smem)}
+
+
+def dense_blocks(kernel, P, N):
+    """The blocks of a dense kernel's launch at P Gaussians x N samples
+    (its split plan's)."""
+    if kernel == "dense_forward":
+        n_blocks = -(-N // kdense.BLOCK_N)
+        splits = kdense.split_plan(n_blocks, P, kdense.FWD_CHUNK)[0]
+    else:
+        n_blocks = -(-P // kdense.BLOCK_P)
+        splits = kdense.split_plan(n_blocks, N, kdense.BWD_CHUNK)[0]
+    return n_blocks * splits
+
+
+def segment_numbers(rows, gid, P):
+    """The segment-sum kernel against its plain version on the per-entry
+    rows ``rows`` (F, E) and their Gaussian ids (bitwise: both add each run
+    in run order), with the times of the kernel, the plain version and one
+    index_add_ (the PyTorch call that computes the same sums, in no fixed
+    order), and the byte bound (rows and ids read once, the (P, F) sums
+    written once)."""
+    F, E = rows.shape
+    g_sorted, order = torch.sort(gid, stable=True)
+    starts = torch.searchsorted(
+        g_sorted, torch.arange(P + 1, dtype=g_sorted.dtype, device=gid.device),
+        out_int32=True)
+    got = segment.segment_sum(rows, order, starts)
+    ref = segment.segment_sum_plain(rows, order, starts)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("segment_sum kernel and plain version differ")
+    idx, cols = gid.long(), rows.T
+    lib = rows.new_zeros((P + 1, F)).index_add_(0, idx, cols)[:P]
+    err = check_close("index_add_ against the segment-sum kernel", lib, got,
+                      RTOL)
+    ms = cuda_ms(lambda: segment.segment_sum(rows, order, starts))
+    plain_ms = cuda_ms(lambda: segment.segment_sum_plain(rows, order, starts),
+                       reps=3)
+    acc = rows.new_zeros((P + 1, F))
+    library_ms = cuda_ms(lambda: acc.index_add_(0, idx, cols))
+    bound = 1e3 * 4 * (F * E + E + P * F) / MEM_BYTES_S
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
+            "library_max_abs_err": err[0], "bitwise_equal_to_plain": True,
+            "entries": E, "rows": F}
+
+
+def segment_memory(dev, P=100_000, D=3, R=8, C=4):
+    """Peak device memory of ops.sampling.segment_sum_rows at D = 3, R = 8
+    and P = 100,000 (slots R^D = 512 a Gaussian) beyond its operands: each
+    Gaussian a seeded count of 1 to 64 entries, 4,096 sentinel entries,
+    the entries shuffled, F = D + tri + C = 13 rows.  ``slot_layout_bytes``
+    is the size of the (P * R^D + 1, F) slot buffer that the earlier
+    segment-sum allocated (computed, not measured)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    counts = torch.randint(1, 65, (P,), generator=g, device=dev)
+    gid = torch.cat([torch.repeat_interleave(
+        torch.arange(P, device=dev), counts),
+        torch.full((4096,), P, device=dev)])
+    gid = gid[torch.randperm(gid.shape[0], generator=g, device=dev)].to(
+        torch.int32)
+    F, E = D + D * (D + 1) // 2 + C, gid.shape[0]
+    rows = torch.randn((F, E), generator=g, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = sampling.segment_sum_rows(rows, gid, P, R ** D)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    fields = dict(P=P, D=D, R=R, slots=R ** D, rows=F, entries=E,
+                  peak_bytes=peak, operand_bytes=4 * (F * E + E),
+                  output_bytes=4 * P * F,
+                  slot_layout_bytes=4 * (P * R ** D + 1) * F,
+                  finite=bool(torch.isfinite(out).all()))
+    emit("segment_memory", **fields)
+    return fields, rows, gid
+
+
+def phase_segment(dev):
+    """The segment-sum at D = 3, R = 8, P = 100,000 (segment_memory): its
+    peak memory must stay within the operands and output, O(E F), with no
+    P * R^D slot buffer; and the kernel against its plain version there."""
+    fields, rows, gid = segment_memory(dev)
+    if fields["peak_bytes"] > fields["operand_bytes"] + fields["output_bytes"]:
+        raise AssertionError(f"segment_sum_rows peak {fields['peak_bytes']} "
+                             "bytes exceeds its operands and output")
+    numbers = segment_numbers(rows, gid, fields["P"])
+    emit("segment", **numbers)
+    return {**numbers, "peak_bytes": fields["peak_bytes"]}
+
+
 def phase_slice(dev, P=100_000, N=1_000_000):
     D, C = 2, 4
     (means, values, covs, conics), samples, cfg, plan_s = headline(
@@ -785,7 +925,7 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = expect_launches("5 training steps", tiled_forward=5,
-                               tiled_backward=5)
+                               tiled_backward=5, segment_sum=5)
     diag = {k: int(v) for k, v in diag.items() if k != "perm"}
     if any(diag.values()):
         raise AssertionError(f"overflow diagnostics not zero: {diag}")
@@ -822,6 +962,9 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
         SLICE_ORDERS, period, D, C, geom, smp, ct, s_lo, s_n))
     bwd_plain_ms = cuda_ms(lambda: ktiled.tiled_backward_plain(
         SLICE_ORDERS, period, D, C, geom, smp, ct, s_lo, s_n), reps=3)
+    gid = ktiled.prepare_entries(state, means, values, conics, ktiled.BLOCK_E,
+                                 cfg=cfg)[0]
+    seg = segment_numbers(got, gid, P)
     emit("train_step", P=P, N=N, D=D, C=C, tile=cfg.tile_size,
          unwrapped_kernels=cfg.unwrapped_kernels,
          max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
@@ -829,6 +972,7 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
          diagnostics=diag, launches=launches, loss=float(loss),
          grads_bitwise_repeatable=True, err=err_fields(errs),
          bwd_kernel_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+         segment_sum=seg,
          step_ms_median=statistics.median(times), step_ms=times,
          planner_s=round(plan_s, 3))
     moved = sum(t.numel() for t in (geom, smp, ct, s_lo, s_n, got))
@@ -838,7 +982,8 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
         **kernel_bound(pairs, moved, D, SLICE_ORDERS, C,
                        period is not None, True),
         "kept_pairs": pairs, "swept_pairs": swept,
-        **instantiation("tiled_backward", SLICE_ORDERS, D, C, period)}, step
+        **instantiation("tiled_backward", SLICE_ORDERS, D, C, period)}, \
+        seg, step
 
 
 PIGS_CFG = dict(tile_size=0.051, eig_floor=1e-12, axis_radii=True,
@@ -858,7 +1003,8 @@ def phase_pigs(dev, P=PIGS_P, steps=120, n_collocation=PIGS_COLLOCATION):
     # launches of each kernel.
     launches = expect_launches(f"{steps} PIGS steps",
                                tiled_forward=2 * steps,
-                               tiled_backward=2 * steps)
+                               tiled_backward=2 * steps,
+                               segment_sum=2 * steps)
     for h in history:
         over = {k: h[k] for k in pigs.DIAGNOSTICS if h[k]}
         if over:
@@ -915,6 +1061,13 @@ def dense_cases():
     cases.append((3, 2.0, 3, ("laplacian",), 2000, 20000, 0.1))
     cases.append((3, 2.0, 3, ("laplacian", "value", "third"), 2000, 20000,
                   0.1))
+    # A period that is no power of two (the dividing wrap), the two-channel
+    # pass, and the PIGS trainer's order sets at C = 1.
+    cases += [(D, 1.5, C, ORDERS, 2000, 20000, 0.1)
+              for D in (1, 2, 3) for C in (2, 4)]
+    cases += [(2, 2.0, 2, ORDERS, 2000, 20000, 0.1),
+              (2, 2.0, 1, ("value", "laplacian"), 2000, 20000, 0.1),
+              (2, 2.0, 1, ("value",), 2000, 20000, 0.1)]
     # Sizes that are no multiple of a block or a chunk.
     cases += [(2, 2.0, 2, ORDERS, P, N, 0.3)
               for P, N in ((1, 1), (5, 3), (130, 129), (257, 300))]
@@ -978,12 +1131,38 @@ def phase_parity_dense_bwd(dev):
              bitwise_repeatable=True)
 
 
-def phase_dense_slice(dev, P=10_000, N=100_000):
+DENSE_P, DENSE_N = 10_000, 100_000
+
+
+def dense_config2(dev, P=DENSE_P, N=DENSE_N):
+    """Dense config 2 (D = 3, C = 4, period 2.0, all four orders) and its
+    training step through GaussianSampler(method="pallas"): the sum of
+    squares of all outputs, backward() to means, values and conics.
+    Returns ((means, values, conics, samples), covs, period, sampler,
+    params, step)."""
     D, C = 3, 4
     (means, values, conics, samples), covs, _ = dense_operands(
         dev, 0, P, N, D, C, 2.0 / P ** (1.0 / 3.0))
     period = SamplerConfig().period
     sampler = GaussianSampler(method="pallas")
+    params = [t.clone().requires_grad_() for t in (means, values, conics)]
+
+    def step():
+        for p in params:
+            p.grad = None
+        sampler.preprocess(params[0], params[1], covs, params[2], samples)
+        loss = sum((o * o).sum() for o in sampler.sample_all(ORDERS).values())
+        loss.backward()
+        return loss.detach()
+
+    return (means, values, conics, samples), covs, period, sampler, params, \
+        step
+
+
+def phase_dense_slice(dev, P=DENSE_P, N=DENSE_N):
+    D, C = 3, 4
+    ((means, values, conics, samples), covs, period, sampler, params,
+     step) = dense_config2(dev, P, N)
 
     def run():
         sampler.preprocess(means, values, covs, conics, samples)
@@ -1012,18 +1191,7 @@ def phase_dense_slice(dev, P=10_000, N=100_000):
                   for o in ORDERS}
     del ref
 
-    # A training step at the same width: the sum of squares of all
-    # outputs, backward() to means, values and conics.
-    params = [t.clone().requires_grad_() for t in (means, values, conics)]
-
-    def step():
-        for p in params:
-            p.grad = None
-        sampler.preprocess(params[0], params[1], covs, params[2], samples)
-        loss = sum((o * o).sum() for o in sampler.sample_all(ORDERS).values())
-        loss.backward()
-        return loss.detach()
-
+    # A training step at the same width.
     reset_launches()
     step_times = host_ms(step, 5)
     step_launches = expect_launches("6 dense training steps",
@@ -1079,12 +1247,16 @@ def phase_dense_slice(dev, P=10_000, N=100_000):
     k_fwd = {"max_abs_err": max(e[0] for e in fwd_errs.values()),
              "ms": fwd_ms, "plain_ms": fwd_plain_ms,
              **kernel_bound(N * P, operand_floats + K * N * C, D, ORDERS, C,
-                            True, False)}
+                            True, False),
+             "blocks": dense_blocks("dense_forward", P, N),
+             **dense_instantiation("dense_forward", ORDERS, D, C, period)}
     k_bwd = {"max_abs_err": max(e[0] for e in bwd_errs.values()),
              "ms": bwd_ms, "plain_ms": bwd_plain_ms,
              **kernel_bound(N * P, operand_floats + K * N * C
                             + sum(t.numel() for t in got_b), D, ORDERS, C,
-                            True, True)}
+                            True, True),
+             "blocks": dense_blocks("dense_backward", P, N),
+             **dense_instantiation("dense_backward", ORDERS, D, C, period)}
     return eval_launches, step_launches, k_fwd, k_bwd, step
 
 
@@ -1104,7 +1276,7 @@ def phase_pigs_dense(dev, P=10_000, steps=120, n_collocation=16_384):
             log_every=max(steps // 6, 1), device=dev)
         wall = time.perf_counter() - t0
         kernels = (("dense_forward", "dense_backward") if method == "pallas"
-                   else ("tiled_forward", "tiled_backward"))
+                   else ("tiled_forward", "tiled_backward", "segment_sum"))
         launches = expect_launches(f"{steps} PIGS steps ({method})",
                                    **{k: 2 * steps for k in kernels})
         for h in history:
@@ -1284,7 +1456,7 @@ def phase_parity_agg_oracle(dev, P=3000):
         _, again = agg_grads(
             lambda *a: aggregation.aggregate_pallas(*a, agg), params)
         expect_launches("two aggregation steps", agg_forward=2,
-                        agg_backward=4)
+                        agg_backward=4, segment_sum=2)
         ref_out, ref = agg_grads(
             lambda *a: aggregation.aggregate(*a, nbr), params)
         err = {"out": check_close(f"aggregate_pallas vs table D={D}", out,
@@ -1401,7 +1573,7 @@ def phase_agg_slice(dev, P=100_000):
     reset_launches()
     step_times = host_ms(step, 5)
     step_launches = expect_launches("6 aggregation steps", agg_forward=6,
-                                    agg_backward=12)
+                                    agg_backward=12, segment_sum=6)
     out = step()
     grads = [p.grad.clone() for p in leaves]
     if out.shape != (P, L) or not bool(torch.isfinite(out).all()):
@@ -1515,7 +1687,8 @@ def phase_dynamics(dev, P=DYN_P, steps=60, n_eval=DYN_EVAL):
     launches = expect_launches(
         f"{steps} dynamics steps", agg_totals=1,
         agg_forward=DYN_ROLLOUT * steps, agg_backward=2 * DYN_ROLLOUT * steps,
-        tiled_forward=fit_steps + 2 + steps, tiled_backward=fit_steps + steps)
+        tiled_forward=fit_steps + 2 + steps, tiled_backward=fit_steps + steps,
+        segment_sum=DYN_ROLLOUT * steps + fit_steps + steps)
     for h in history:
         if h["nbr_overflow"] or h["eval_overflow"]:
             raise AssertionError(f"overflow at step {h['step']}: {h}")
@@ -1585,16 +1758,28 @@ def phase_parity_dynamics(dev, P=DYN_P):
     gpre = torch.randn(ctr_geo.shape[0], L, generator=gen, device=dev)
     gsum = gpre.sum(dim=1, keepdim=True)
     ranges = (nbr.ctr_ent, nbr.ent_ctr)
+    calls = {"forward": lambda: kagg.forward(
+                 D, L, K, nfreq, None, nbr.ctr_ent, nbr.ent_geo, ent_fk,
+                 ctr_geo, dtf, ladder=True),
+             "backward": lambda: kagg.backward(
+                 D, L, K, nfreq, None, ranges, nbr.ent_geo, ent_fk, ctr_geo,
+                 dtf, gpre, gsum, ladder=True)}
+    operands = {"forward": (nbr.ent_geo, ent_fk, ctr_geo, dtf, nbr.ctr_ent),
+                "backward": (nbr.ent_geo, ent_fk, ctr_geo, dtf, gpre, gsum,
+                             nbr.ctr_ent, nbr.ent_ctr)}
+    numbers = {}
+    for kind, call in calls.items():
+        res = call()
+        res = res if isinstance(res, tuple) else (res,)
+        moved = sum(t.numel() for t in operands[kind] + res)
+        ms = cuda_ms(call)
+        bound = agg_bound(kind, cand, coll, moved, D, L, K, nfreq, True)
+        numbers[kind] = {"ms": ms, **bound, "share": bound["bound_ms"] / ms}
     emit("parity_dynamics", P=P, D=D, L=L, K=K, nfreq=nfreq, ladder=True,
          rect=nbr.rect, entries=int((nbr.ent_gid < P).sum()),
          candidate_pairs=cand, colliding_pairs=coll, err=err_fields(errs),
-         kernel_ms={
-             "forward": cuda_ms(lambda: kagg.forward(
-                 D, L, K, nfreq, None, nbr.ctr_ent, nbr.ent_geo, ent_fk,
-                 ctr_geo, dtf, ladder=True)),
-             "backward": cuda_ms(lambda: kagg.backward(
-                 D, L, K, nfreq, None, ranges, nbr.ent_geo, ent_fk, ctr_geo,
-                 dtf, gpre, gsum, ladder=True))})
+         kernel_ms={k: v["ms"] for k, v in numbers.items()},
+         kernels=numbers)
 
 
 def dynamics_step(dev, P=DYN_P, n_eval=DYN_EVAL):
@@ -1870,6 +2055,85 @@ def tiled_times(dev, reps=10, steps=30):
     emit("spin", **_spin)
 
 
+PIGS_DENSE_P, PIGS_DENSE_COLLOCATION = 10_000, 16_384
+
+
+def pigs_dense_step(dev, P=PIGS_DENSE_P, n_collocation=PIGS_DENSE_COLLOCATION):
+    """One PIGS training step through the dense kernels, built as
+    pigs.train(method="pallas") builds it for phase pigs_dense."""
+    u_star, f_rhs = pigs.manufactured_solution(2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    field = init_field(gen, P, 2, 1, sigma=2.0 / math.sqrt(P))
+    opt = torch.optim.Adam(field.parameters(), lr=PIGS_LR, eps=1e-8)
+    step = pigs.make_train_step(
+        SamplerConfig(**{**PIGS_CFG, "tile_size": 0.125}), opt, f_rhs, u_star,
+        gen, n_collocation=n_collocation, method="pallas")
+    return lambda: step(field)
+
+
+def dense_times(dev, reps=10, steps=30):
+    """The two dense kernels, through their wrappers, at every shape the
+    dense paths launch them with, and the two dense steps (python3
+    chip_smoke.py --dense).  Kernel shapes: dense config 2 (10,000 x
+    100,000, D = 3, C = 4, all four orders) wrapped (period 2.0, as the
+    facade runs it) and unwrapped, and the PIGS dense step's collocation
+    (value + laplacian, 16,384 points) and data (value, 4,096 points)
+    evaluations at P = 10,000, D = 2, C = 1, period 2.0; each with its
+    bound, share, registers and waves (blocks over the blocks the card
+    holds at once).  Steps: the dense config 2 training step and the PIGS
+    dense step, ``steps`` synchronised host-clock times each.  Then the
+    segment-sum's peak memory at D = 3, R = 8, P = 100,000.  Two trees are
+    compared by running this script's --dense in each of them on one card,
+    in turns (first, second, second, first)."""
+    (m, v, c, s), _, period, _, _, config2_step = dense_config2(dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    field = init_field(g, PIGS_DENSE_P, 2, 1,
+                       sigma=2.0 / math.sqrt(PIGS_DENSE_P))
+    with torch.no_grad():
+        pm, pv, pc = field.means.detach(), field.values.detach(), \
+            field.conics()
+    points = {n: 2.0 * torch.rand((n, 2), generator=g, device=dev) - 1.0
+              for n in (PIGS_DENSE_COLLOCATION, PIGS_DENSE_COLLOCATION // 4)}
+    cases = {
+        "config2_wrapped": (ORDERS, period, (m, v, c, s)),
+        "config2_unwrapped": (ORDERS, None, (m, v, c, s)),
+        "pigs_collocation": (("value", "laplacian"), period,
+                             (pm, pv, pc, points[PIGS_DENSE_COLLOCATION])),
+        "pigs_data": (("value",), period,
+                      (pm, pv, pc, points[PIGS_DENSE_COLLOCATION // 4])),
+    }
+    for name, (orders, per, args) in cases.items():
+        (P, C), (N, D) = args[1].shape, args[3].shape
+        K = kdense.total_components(orders, D)
+        gs = list(torch.randn((K, N, C), generator=g, device=dev))
+        operand_floats = sum(t.numel() for t in args) + K * N * C
+        row = {}
+        for kernel, call, floats in (
+                ("dense_forward", lambda: kdense.dense_forward(
+                    orders, per, *args), operand_floats),
+                ("dense_backward", lambda: kdense.dense_backward(
+                    orders, per, *args, gs),
+                 operand_floats + P * (D + D * (D + 1) // 2 + C))):
+            ms = cuda_ms(call, reps)
+            bound = kernel_bound(N * P, floats, D, orders, C,
+                                 per is not None, kernel == "dense_backward")
+            inst = dense_instantiation(kernel, orders, D, C, per)
+            blocks = dense_blocks(kernel, P, N)
+            row[kernel] = {"ms": ms, **bound,
+                           "share": bound["bound_ms"] / ms, "blocks": blocks,
+                           "waves": blocks / (132 * inst["resident_blocks"]),
+                           **inst}
+        emit("dense_times", shape=name, orders=list(orders), D=D, C=C, P=P,
+             N=N, wrapped=per is not None, pairs=N * P, **row)
+    for path, fn in (("dense_step", config2_step),
+                     ("pigs_dense", pigs_dense_step(dev))):
+        times = host_ms(fn, steps)
+        emit("dense_steps", path=path, step_ms_median=statistics.median(times),
+             step_ms_min=min(times), step_ms_max=max(times))
+    segment_memory(dev)
+    emit("spin", **_spin)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1878,6 +2142,8 @@ def main():
     build = phase_build()
     if sys.argv[1:] == ["--tiled"]:
         return tiled_times(dev)
+    if sys.argv[1:] == ["--dense"]:
+        return dense_times(dev)
     # The many-line parity phases first, the measured paths after them, so
     # that the end of the output holds every number of the kernels line.
     phase_parity(dev)
@@ -1889,7 +2155,8 @@ def main():
     phase_parity_dynamics(dev)
     by_shape = phase_parity_paths(dev)
     slice_launches, k_fwd = phase_slice(dev)
-    train_launches, k_bwd, train_step = phase_train_step(dev)
+    train_launches, k_bwd, k_seg, train_step = phase_train_step(dev)
+    k_seg["d3_r8"] = phase_segment(dev)
     pigs_launches = phase_pigs(dev)
     (dense_eval_launches, dense_step_launches, k_dfwd, k_dbwd,
      dense_step) = phase_dense_slice(dev)
@@ -1923,25 +2190,30 @@ def main():
         "agg_backward": ("agg_backward.cu",
                          "dgs_tpu/kernels/aggregate.py:485", "agg_step",
                          k_agg["backward"]),
+        # Not a TPU kernel: the reference's segment-sum is an XLA op.
+        "segment_sum": ("segment_sum.cu", "dgs_tpu/ops/sampling.py:409",
+                        "train_step", k_seg),
     }
     for name, (_, _, main_path, _) in kernels.items():
         if paths[main_path][name] < 1:
             raise AssertionError(f"{name} never launched on {main_path}")
-    # The two tiled kernels' rows also carry the share of the bound and
-    # their times at the trainers' shapes.
+    for _, _, _, k in kernels.values():
+        k["share"] = k["bound_ms"] / k["ms"]
+    # The two tiled kernels' rows also carry their times at the trainers'
+    # shapes.
     for name in ("tiled_forward", "tiled_backward"):
-        k = kernels[name][3]
-        k.update(share=k["bound_ms"] / k["ms"],
-                 by_shape={p: v[name] for p, v in by_shape.items()})
+        kernels[name][3]["by_shape"] = {p: v[name]
+                                        for p, v in by_shape.items()}
     emit("card_and_build", nvidia_smi=smi, spin=_spin, **build)
-    # No single PyTorch call computes any of these functions (a fused
-    # multi-order Gaussian-mixture evaluation or its VJP; a masked,
+    # No single PyTorch call computes any of the seven TPU kernels' functions
+    # (a fused multi-order Gaussian-mixture evaluation or its VJP; a masked,
     # density-normalised attention with a sinusoidal offset code, or its six
-    # gradients), so library_ms is null.
+    # gradients), so their library_ms is null; the segment-sum's is
+    # index_add_'s.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dgs_tpu_torch/csrc/{source}", "replaces": replaces,
-         "launches": paths[main_path][name], **numbers, "library_ms": None,
+         "launches": paths[main_path][name], "library_ms": None, **numbers,
          "launches_by_path": {p: counts[name] for p, counts in paths.items()}}
         for name, (source, replaces, main_path, numbers) in kernels.items()
     ]}), flush=True)

@@ -40,12 +40,17 @@ from .tiled import ORDER_BITS
 # chunks).
 BLOCK_N, FWD_CHUNK = 128, 256
 BLOCK_P, BWD_CHUNK = 128, 128
-# Blocks to aim for before the reduction axis stops being split: four per
-# streaming multiprocessor of the H100's 132.  A constant and not a query of
-# the card, so that the split, and with it the order of every sum, depends
-# on the shapes alone; on a part with another SM count it is a tuning that
-# no longer fits, not an error.
-TARGET_BLOCKS = 4 * 132
+# Blocks to aim for before the reduction axis stops being split: 32 per
+# streaming multiprocessor of the H100's 132.  The blocks of a launch run in
+# waves of the blocks the card holds at once (2 to 4 an SM at the dense
+# kernels' registers); a launch of w waves loses up to 1 / ceil(w) of its
+# time to the last, partly filled wave, so the target is at least 8 waves
+# (dense config 2: 782 x 1 forward and 79 x 7 backward blocks were 1.5 and
+# 1.05 waves at 4 blocks an SM).  The partials it adds are small against
+# the pair work.  A constant and not a query of the card, so that the split,
+# and with it the order of every sum, depends on the shapes alone; on a part
+# with another SM count it is a tuning that no longer fits, not an error.
+TARGET_BLOCKS = 32 * 132
 # Pairs one chunk of the plain versions holds at a time.
 PLAIN_PAIRS = 1 << 24
 

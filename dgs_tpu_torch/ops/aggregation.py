@@ -356,18 +356,13 @@ def aggregate(
 
 
 class AggPlan(NamedTuple):
-    """Static capacities of the kernel aggregation path, with dgs_tpu's
-    fields and values (hashable).  The port's structure reads ``rect`` and
-    ``entries``; the chunk and work counts are those the TPU layout would
-    need at the given block sizes, kept so that the two plans compare
-    equal."""
+    """Static capacities of the kernel aggregation path (hashable): the
+    first two fields of dgs_tpu's AggPlan, with its values.  dgs_tpu's
+    other four (e_chunks, c_chunks, work_fwd, work_bwd) size the TPU
+    layout's chunks and work lists, which the port's kernels do not have."""
 
     rect: int      # per-axis candidate-tile cap R for duplicate_entries
     entries: int   # sorted-entry capacity (valid duplicates)
-    e_chunks: int  # entry chunks of block_e
-    c_chunks: int  # centre chunks of block_n
-    work_fwd: int  # centre-chunk-major work items
-    work_bwd: int  # entry-chunk-major work items
 
 
 class AggBinning(NamedTuple):
@@ -403,45 +398,26 @@ class AggBinning(NamedTuple):
                    _tensor(overflow, i32, device), int(rect))
 
 
-def chunk_counts(starts: torch.Tensor, block: int) -> torch.Tensor:
-    """(T,) chunks of ``block`` rows per tile for tile-sorted rows with the
-    range table ``starts`` ((T+2,); rows beyond tile T-1 excluded)."""
-    T = starts.shape[0] - 2
-    n = starts[1:T + 1] - starts[:T]
-    return -torch.div(-n, block, rounding_mode="floor")
-
-
 def plan_pallas(cfg: SamplerConfig, means, radii, *, block_n: int = 32,
                 block_e: int = 128, auto_tile: bool = True):
     """Capacity plan for preprocess_pallas: (cfg', AggPlan), a config whose
     tile size matches the 0.2-shrunk collision radii and exact capacities
-    measured from one geometry build.  ``block_n`` / ``block_e`` size the
-    chunk and work counts only (see AggPlan)."""
+    measured from one geometry build.  Two values reach the host: the
+    largest inflated radius (the tile and R) and the valid-entry count.
+    ``block_n`` / ``block_e`` are the TPU layout's chunk sizes and are not
+    read (see AggPlan)."""
     means, radii = means.detach(), radii.detach()
     P, D = means.shape
     cfg = cfg.with_dims(D)
-    rho, rho_max = _host_rho(radii)
+    _, rho = _collision_geometry(radii)
+    rho_max = float(rho.max())
     extent = (cfg.period if cfg.period is not None
               else min(u - l for l, u in zip(cfg.lower, cfg.upper)))
     cfg = _matched_tile(cfg, rho_max, extent, auto_tile)
     R = _rect(cfg, rho_max)
-    ent = binning.duplicate_entries(
-        cfg, means, _tensor(rho, means.dtype, means.device), R, P * R ** D)
-    T = binning.num_tiles(cfg, D)
-    n_entries = int((ent[1] < T).sum())
-    sb = binning.bin_samples(cfg, means)
-    em = chunk_counts(ent[2], block_e).cpu().numpy().astype(np.int64)
-    cm = chunk_counts(sb.s_start, block_n).cpu().numpy().astype(np.int64)
-    work_fwd = int((cm * np.maximum(em, 1)).sum())
-    work_bwd = int((em * np.maximum(cm, 1)).sum())
-    return cfg, AggPlan(
-        rect=R,
-        entries=max(-(-n_entries // 128) * 128, 128),
-        e_chunks=max(int(em.sum()), 1),
-        c_chunks=max(int(cm.sum()), 1),
-        work_fwd=max(work_fwd, 1),
-        work_bwd=max(work_bwd, 1),
-    )
+    ent_tile = binning.duplicate_entries(cfg, means, rho, R, P * R ** D)[1]
+    n_entries = int((ent_tile < binning.num_tiles(cfg, D)).sum())
+    return cfg, AggPlan(rect=R, entries=max(-(-n_entries // 128) * 128, 128))
 
 
 def _pad_rows(x: torch.Tensor, n: int, value) -> torch.Tensor:

@@ -181,23 +181,22 @@ def segment_sum_rows(rows, gid, P: int, slots: int):
     """(P, F) sums of the columns of ``rows`` (F, E) by Gaussian id.
 
     Deterministic on every device, with no atomics: a stable sort groups
-    the columns by gid, each column goes to its own slot of a (P, slots)
-    layout (its rank among its Gaussian's columns), and the slots are
-    summed by a plain reduction.  ``slots`` bounds the columns of one
-    Gaussian: R^D for a binning with max_tiles_per_gaussian R, which caps
-    every Gaussian's entries at R^D.  A Gaussian with more columns than
-    ``slots`` (a state binned with a larger R) fails loudly rather than
-    spilling into its neighbour's slots: a ValueError on the CPU, an
-    asynchronous device-side assert (no host sync) on CUDA.  Columns with
-    gid == P (sentinels) are dropped."""
-    E = gid.shape[0]
+    the columns by gid and kernels.segment.segment_sum adds each Gaussian's
+    run of sorted columns in run order (a kernel on CUDA).  Memory is
+    O(E + P F): no slot per possible entry.  ``slots`` bounds the columns
+    of one Gaussian: R^D for a binning with max_tiles_per_gaussian R, which
+    caps every Gaussian's entries at R^D.  A Gaussian with more columns
+    than ``slots`` (a state binned with a larger R than the op's config)
+    fails loudly: a ValueError on the CPU, an asynchronous device-side
+    assert (no host sync) on CUDA.  Columns with gid == P (sentinels) are
+    dropped."""
+    from ..kernels import segment
+
     g_sorted, order = torch.sort(gid, stable=True)
     starts = torch.searchsorted(
         g_sorted, torch.arange(P + 1, dtype=g_sorted.dtype,
-                               device=gid.device))
-    g = g_sorted.long()
-    pos = torch.arange(E, device=gid.device) - starts[g]
-    fits = ~((g < P) & (pos >= slots)).any()
+                               device=gid.device), out_int32=True)
+    fits = ~(torch.diff(starts) > slots).any()
     if gid.is_cuda:
         torch._assert_async(fits)
     elif not bool(fits):
@@ -205,11 +204,7 @@ def segment_sum_rows(rows, gid, P: int, slots: int):
             f"segment_sum_rows: a Gaussian has more than {slots} entries; "
             "the binning state was built with a larger "
             "max_tiles_per_gaussian than the config passed to the op")
-    # Sentinel columns all land in one dump slot past the real ones.
-    dest = torch.where(g < P, g * slots + pos, P * slots)
-    out = rows.new_zeros((P * slots + 1, rows.shape[0]))
-    out[dest] = rows.T[order]
-    return out[:P * slots].view(P, slots, rows.shape[0]).sum(dim=1)
+    return segment.segment_sum(rows, order, starts)
 
 
 class _TiledForward(torch.autograd.Function):

@@ -194,3 +194,52 @@ def test_plan_capacities_and_config_match(rng, kw):
     assert int(ts.overflow) == 0 and int(ts.entry_overflow) == 0
     T = tgrid.num_tiles(tcf, 2)
     assert int((ts.ent_tile < T).sum()) == tp["entries"]
+
+
+@pytest.mark.parametrize("kw", [
+    {"period": None, "lower": (-1.0, -1.0), "upper_bounds": (1.0, 1.0)},
+    {"period": 2.0},
+    {"axis_radii": True, "ellip_cull": True},
+], ids=["open", "torus", "axis_ellip"])
+def test_planner_cpp_matches_numpy_both_domains(rng, kw):
+    """Twin of tests/test_native.py's: the port's fallback planner (its own
+    binning on the CPU) gives the C++ planner's plan, every key, on the
+    open domain and on the torus."""
+    m, _, cov, _ = make_gaussians(rng, 500, 2, 2, sigma_range=(0.03, 0.08))
+    s = make_samples(rng, 2000, 2)
+    cfg = TConfig(tile_size=0.2, eig_floor=1e-12, max_tiles_per_gaussian=8,
+                  **kw).with_dims(2)
+    plan_c = tnative.plan_capacities(cfg, m, cov, s)
+    plan_np = tnative._plan_capacities_numpy(
+        cfg, m, cov, s, cfg.block_n, cfg.block_p, *cfg.bwd_blocks)
+    assert {k: plan_c[k] for k in tnative.PLAN_KEYS} == plan_np
+
+
+def test_planner_falls_back_where_gpp_is_missing(rng, monkeypatch, capsys,
+                                                 tmp_path):
+    """With g++ missing the planner library is not built: _load says so on
+    one stderr line and returns None, plan_capacities returns the C++
+    planner's plan through the numpy fallback and max_collisions its count
+    through ops.aggregation.suggest_capacity."""
+    from dgs_tpu_torch.oracle.dense import radii
+
+    m, _, cov, _ = make_gaussians(rng, 300, 2, 2, sigma_range=(0.05, 0.3))
+    s = make_samples(rng, 1000, 2)
+    rad = radii(torch.from_numpy(cov), 2).numpy()
+    cfg = TConfig(max_tiles_per_gaussian=8).with_dims(2)
+    plan_c = tnative.plan_capacities(cfg, m, cov, s)
+    coll_c = tnative.max_collisions(cfg, m, rad)
+
+    def no_gpp(cmd, *args, **kwargs):
+        raise FileNotFoundError(2, "No such file or directory", cmd[0])
+
+    monkeypatch.setattr(tnative.subprocess, "run", no_gpp)
+    monkeypatch.setattr(tnative, "_OUT", str(tmp_path / "host_binning.so"))
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_lib_failed", False)
+    assert tnative._load() is None
+    err = capsys.readouterr().err
+    assert "build failed" in err and "g++" in err and err.count("\n") == 1
+    assert tnative.plan_capacities(cfg, m, cov, s) == plan_c
+    assert tnative.max_collisions(cfg, m, rad) == coll_c
+    assert capsys.readouterr().err == ""     # said once

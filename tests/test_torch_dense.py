@@ -117,6 +117,39 @@ def test_fused_backward_matches_jax_grad(rng, D, method):
             err_msg=f"dL_d{name}")
 
 
+@pytest.mark.parametrize("D,C,period,orders", [
+    (2, 1, 2.0, ["value", "laplacian"]), (2, 2, 1.5, ORDERS),
+    (1, 5, 1.5, ORDERS), (3, 5, 1.5, ["value", "laplacian"])])
+def test_channel_counts_and_periods_match_jax(rng, D, C, period, orders):
+    """The channel counts the kernels' passes are chosen from (C = 1 and 2
+    narrow at D = 2, the PIGS trainer's orders at C = 1; C = 5 over two
+    passes of 4) and a period that is not a power of two (the kernels wrap
+    it by a division, powers of two by a multiplication): the orders and
+    their gradients against dgs_tpu's method="pallas"."""
+    (m, v, c, s), (tm, tv, tc, ts) = _setup(rng, 15, 19, D, C=C)
+    kw = dict(method="pallas", period=period, orders=tuple(orders))
+    ref = jsampling.sample_all(m, v, c, s, **kw)
+    got = tsampling.sample_all(tm, tv, tc, ts, **kw)
+    for order in orders:
+        np.testing.assert_allclose(got[order], ref[order], rtol=2e-4,
+                                   atol=1e-5, err_msg=order)
+
+    def jloss(m_, v_, c_):
+        outs = jsampling.sample_all(m_, v_, c_, s, **kw)
+        return sum(jnp.sum(o ** 2) for o in outs.values())
+
+    def tloss(m_, v_, c_):
+        outs = tsampling.sample_all(m_, v_, c_, ts, **kw)
+        return sum((o ** 2).sum() for o in outs.values())
+
+    jg = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(m, v, c)
+    for r, o, name in zip(jg, _torch_grads(tloss, tm, tv, tc), NAMES):
+        r = np.asarray(r)
+        np.testing.assert_allclose(
+            o, r, rtol=2e-3, atol=1e-5 * max(1.0, float(np.abs(r).max())),
+            err_msg=f"dL_d{name}")
+
+
 @pytest.mark.parametrize("P,N", [(1, 1), (5, 3), (130, 129), (257, 300)])
 def test_block_boundary_sizes(rng, P, N):
     """Shapes that are no multiple of a block, forward and backward."""
@@ -236,7 +269,10 @@ def test_bad_arguments_raise(rng):
 
 def test_split_plan_covers_the_axis():
     """The reduction-axis split is a function of the shapes alone, covers
-    the axis in whole chunks, and keeps small grids busy."""
+    the axis in whole chunks, and keeps small grids busy: dense config 2's
+    forward (782 sample blocks over 10,000 Gaussians) and backward (79
+    Gaussian blocks over 100,000 samples) launch about TARGET_BLOCKS, 8
+    waves at 4 blocks an SM of the H100 (whole chunks round it down)."""
     for n_blocks, length, chunk in [(782, 10_000, 256), (79, 100_000, 128),
                                     (8, 10_000, 128), (1, 1, 128),
                                     (157, 2_000, 256), (3, 129, 128)]:
@@ -244,7 +280,9 @@ def test_split_plan_covers_the_axis():
         assert per % chunk == 0 and splits >= 1
         assert splits * per >= length > (splits - 1) * per
         assert (splits, per) == tdense.split_plan(n_blocks, length, chunk)
-    assert tdense.split_plan(782, 10_000, 256)[0] == 1
+    for n_blocks, length, chunk in [(782, 10_000, 256), (79, 100_000, 128)]:
+        assert (tdense.split_plan(n_blocks, length, chunk)[0] * n_blocks
+                >= 0.9 * tdense.TARGET_BLOCKS)
     assert tdense.split_plan(8, 10_000, 128)[0] * 8 >= 132
 
 

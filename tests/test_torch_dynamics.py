@@ -56,7 +56,7 @@ def neighbour_structures(structure, jfield, tfield, D, cfg_kw):
     if structure == "pallas":
         jc, jplan = jagg.plan_pallas(jcfg, jfield.means, jrad)
         tc2, tplan = tagg.plan_pallas(tcfg, tm, trad)
-        assert tuple(tplan) == tuple(jplan)
+        assert tuple(tplan) == (jplan.rect, jplan.entries)
         return (jagg.preprocess_pallas(jc, jfield.means, jfield.conics(),
                                        jrad, jplan),
                 tagg.preprocess_pallas(tc2, tm, tc, trad, tplan))
