@@ -8,6 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --dense    # the two dense kernels' and the dense
                                      # steps' times and the segment-sum's
                                      # memory only (see dense_times)
+    python3 chip_smoke.py --agg      # the aggregation kernels' and the
+                                     # aggregation and dynamics steps' times
+                                     # only (see agg_times)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
@@ -15,7 +18,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   2. build       - builds the CUDA kernel library (one nvcc per source, in
                    parallel, sm_90a) and the host capacity planner (g++) from
                    the sources; seconds and the ptxas register / spill
-                   report.
+                   report.  An aggregation kernel that spills fails the
+                   whole run (not the --tiled, --dense and --agg modes).
   3. parity      - the tiled forward CUDA kernel against its plain torch
                    version on the same operands: D in {1, 2, 3}, all four
                    orders, wrapped and unwrapped, C in {1, 2, 3, 4, 6} (the
@@ -107,8 +111,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    ladder on / off x with and without totals, (L, K) in
                    {(1, 4), (5, 3), (8, 8)}, every 7th radius culled, plus
                    nfreq 1 and 4, L = 12 / K = 20 (above one pass) and a tile
-                   range, at P = 3,000 (tail blocks); sentinel rows must come
-                   back exactly zero.
+                   range, at P = 3,000 (tail blocks); then the warp sweep's
+                   edges (agg_sweep.cuh): rows with more than 32 colliding
+                   pairs, tiles with one centre, 1 and 32 rows a warp, L
+                   above the widest pass, nfreq 1 and 4, open and wrapped,
+                   the ladder on and off, each checked present; sentinel
+                   rows must come back exactly zero.
      parity_agg_oracle - aggregate_pallas through the kernels against the
                    plain torch table path over an untruncated brute-force
                    table, outputs and all six gradients (twice, bitwise
@@ -116,9 +124,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      parity_dynamics - the aggregation kernels against their plain versions
                    on the operands the dynamics step gives them at full
                    width (P = 100,000, sigma * 3, L = 1, K = 4, nfreq = 2,
-                   the ladder recurrence), with the structure's pair counts
-                   and the forward and backward kernels' times, bounds and
-                   shares there.
+                   the ladder recurrence), with the structure's pair counts,
+                   the warp sweeps' body steps and lane use
+                   (kernels.aggregate.warp_schedule) and the forward and
+                   backward kernels' times, bounds and shares there.
  11. agg_slice   - the aggregation operating point of
                    tools/bench_aggregate.py at full width: P = 100,000,
                    D = 2, L = K = 8, nfreq = 4, through GaussianSampler
@@ -151,8 +160,10 @@ for the same work, the larger of the bytes over the memory rate and the
 operations over the fp32 rate, and the share of it; for the tiled and
 dense kernels also the instantiation's registers and shared memory, for
 the tiled ones kept and swept pairs and the same at the trainers' shapes;
-the segment-sum's row also index_add_'s time as library_ms and the D = 3
-case) and, last, the result line
+for the aggregation kernels candidate and colliding pairs, and for the
+forward and backward the warp sweep's body steps and lane use at the
+aggregation point; the segment-sum's row also index_add_'s time as
+library_ms and the D = 3 case) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -1303,13 +1314,17 @@ AGG_GROUPS = ("features", "transform", "queries", "keys", "frequencies",
 
 
 def agg_case(dev, seed, P, D, L, K, nfreq, sigma, *, period=2.0,
-             ladder=False, cull=0, tile_range=None):
+             ladder=False, cull=0, tile_range=None, spread=None):
     """A seeded cloud, its kernel aggregation structure and random
     parameters of the six groups: (cfg, (means, conics, radii), params,
     agg).  ``cull`` > 0 zeroes every cull-th radius; ``tile_range`` is a
-    pair of fractions of the tile count."""
+    pair of fractions of the tile count; ``spread`` scales the means (a
+    dense cluster below 1)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     field = init_field(g, P, D, L, sigma=sigma)
+    if spread is not None:
+        with torch.no_grad():
+            field.means.mul_(spread)
     cfg = (SamplerConfig(eig_floor=1e-12) if period
            else SamplerConfig(eig_floor=1e-12, period=None,
                               upper_bounds=(1.0, 1.0))).with_dims(D)
@@ -1348,10 +1363,15 @@ def agg_operands(params, agg):
         params["frequencies"], params["distance_transform"], agg)
 
 
-def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g):
+def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g,
+                        rows=None):
     """The three aggregation kernels against their plain versions on one
-    structure's operands and a random cotangent; sentinel centres and
-    entries must come back exactly zero.  Returns the errors by kernel."""
+    structure's operands and a random cotangent, the forward and backward
+    kernels at ``rows`` rows a warp (None: the wrappers' default); sentinel
+    centres and entries must come back exactly zero.  Returns the errors by
+    kernel."""
+    fwd_kw = {} if rows is None else {"rows_per_warp": rows}
+    bwd_kw = {} if rows is None else {"rows_per_warp": (rows, rows)}
     ent_fk, ctr_geo, dtf = agg_operands(params, agg)
     ce, ranges = agg.ctr_ent, (agg.ctr_ent, agg.ent_ctr)
     P = agg.pos.shape[0]                  # the sentinel id
@@ -1363,7 +1383,7 @@ def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g):
     for with_totals in (False, True):
         got = kagg.forward(D, L, K, nfreq, period, ce, agg.ent_geo, ent_fk,
                            ctr_geo, dtf, ladder=ladder,
-                           with_totals=with_totals)
+                           with_totals=with_totals, **fwd_kw)
         ref = kagg.forward_plain(D, L, K, nfreq, period, ce, agg.ent_geo,
                                  ent_fk, ctr_geo, dtf, ladder=ladder,
                                  with_totals=with_totals)
@@ -1380,7 +1400,7 @@ def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g):
     gpre = torch.randn(ctr_geo.shape[0], L, generator=g, device=ctr_geo.device)
     gsum = gpre.sum(dim=1, keepdim=True)
     got = kagg.backward(D, L, K, nfreq, period, ranges, agg.ent_geo, ent_fk,
-                        ctr_geo, dtf, gpre, gsum, ladder=ladder)
+                        ctr_geo, dtf, gpre, gsum, ladder=ladder, **bwd_kw)
     ref = kagg.backward_plain(D, L, K, nfreq, period, ranges, agg.ent_geo,
                               ent_fk, ctr_geo, dtf, gpre, gsum, ladder=ladder)
     torch.cuda.synchronize()
@@ -1410,23 +1430,61 @@ def phase_parity_agg(dev, P=3000):
               (3, 2.0, True, 8, 8, 4, 0, None),        # the widest code
               (2, 2.0, True, 12, 20, 2, 5, None),      # L, K above one pass
               (2, 2.0, False, 5, 3, 2, 7, (0.25, 0.6))]   # a tile range
-    for D, period, ladder, L, K, nfreq, cull, tile_range in cases:
+    cases = [c + (None, None, None) for c in cases]
+    # The warp sweep's edges (agg_sweep.cuh): rows with more than 32
+    # colliding pairs (several drains a row), tiles with a single centre,
+    # one and 32 rows a warp, L above the widest partials' pass, nfreq 1
+    # and 4, open and wrapped domains, the ladder on and off.
+    cases += [(1, 2.0, False, 5, 3, 3, 0, None, 1, 0.2, None),
+              (2, None, True, 12, 6, 4, 0, None, 32, 0.05, 0.15),
+              (2, 2.0, True, 3, 5, 1, 7, None, 4, 0.004, None),
+              (3, None, False, 9, 4, 4, 0, (0.2, 0.7), 32, 0.1, None),
+              (2, 2.0, False, 2, 3, 2, 0, None, 1, 0.05, None)]
+    sweep_edges = []
+    for (D, period, ladder, L, K, nfreq, cull, tile_range, rows, sigma,
+         spread) in cases:
         g = torch.Generator(device=dev).manual_seed(90 + D)
         _, _, params, agg = agg_case(
-            dev, 80 + D, P, D, L, K, nfreq, AGG_SIGMA[D], period=period,
-            ladder=ladder, cull=cull, tile_range=tile_range)
+            dev, 80 + D, P, D, L, K, nfreq, sigma or AGG_SIGMA[D],
+            period=period, ladder=ladder, cull=cull, tile_range=tile_range,
+            spread=spread)
+        edges = agg_edges(D, agg)
+        if rows is not None:
+            sweep_edges.append(edges)
         # The entries are pre-shifted, so the kernels run unwrapped; the
         # wrap itself is held on the same operands (a no-op on them).
         for kernel_period in (None,) if period is None else (None, period):
             errs = compare_agg_kernels(agg, params, D, L, K, nfreq,
-                                       kernel_period, ladder, g)
+                                       kernel_period, ladder, g, rows)
             cand, coll = kagg.pair_counts(D, kernel_period, agg.ctr_ent,
                                           agg.ent_geo, agg.ctr_static)
             emit("parity_agg", D=D, period=period,
                  kernel_period=kernel_period, ladder=ladder, L=L, K=K,
                  nfreq=nfreq, P=P, culled_every=cull, tile_range=tile_range,
-                 rect=agg.rect, candidate_pairs=cand, colliding_pairs=coll,
-                 err=err_fields(errs))
+                 rows_per_warp=rows, rect=agg.rect, candidate_pairs=cand,
+                 colliding_pairs=coll, **edges, err=err_fields(errs))
+    # The edges the sweep's cases are for must be present.
+    if not (sweep_edges[0]["most_colliding_per_centre"] > 32
+            and sweep_edges[1]["most_colliding_per_centre"] > 32
+            and sweep_edges[2]["single_centre_tiles"] > 0
+            and all(e["empty_centre_rows"] for e in sweep_edges)):
+        raise AssertionError(f"parity_agg's sweep cases miss their edges: "
+                             f"{sweep_edges}")
+
+
+def agg_edges(D, agg):
+    """What a structure holds for the warp sweep: the most colliding pairs
+    of one centre, tiles with a single centre, rows with an empty range."""
+    ce = agg.ctr_ent
+    row, _, coll = kagg._masked_pairs(D, None, ce, agg.ent_geo,
+                                      agg.ctr_static)
+    per_centre = torch.bincount(row[coll], minlength=ce.shape[1])
+    live = ce[1] > ce[0]
+    _, per_tile = torch.unique(ce[0][live], return_counts=True)
+    return {"most_colliding_per_centre": int(per_centre.max()),
+            "single_centre_tiles": int((per_tile == 1).sum()),
+            "empty_centre_rows": int((~live).sum()),
+            "empty_entry_rows": int((agg.ent_ctr[1] == agg.ent_ctr[0]).sum())}
 
 
 def agg_grads(fn, params):
@@ -1520,12 +1578,15 @@ def agg_bound(kind, cand, coll, n_floats, D, L, K, nfreq, ladder):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def phase_agg_slice(dev, P=100_000):
-    """The aggregation operating point of tools/bench_aggregate.py at full
-    width, through the facade: structure build, the forward (serving) and
-    forward + backward over all six groups."""
-    D, L, K, nfreq = 2, 8, 8, 4
-    ladder = False      # the facade passes no certificate: the direct code
+AGG_P = 100_000
+AGG_DIMS = (2, 8, 8, 4)      # D, L, K, nfreq of the aggregation point
+
+
+def agg_point(dev, P=AGG_P):
+    """The aggregation operating point of tools/bench_aggregate.py: a
+    GaussianSampler(method="pallas") preprocessed over the cloud, and the
+    six parameter groups: (sampler, params, means)."""
+    D, L, K, nfreq = AGG_DIMS
     g = torch.Generator(device=dev).manual_seed(0)
     field = init_field(g, P, D, L, sigma=2.0 / math.sqrt(P))
     with torch.no_grad():
@@ -1546,14 +1607,13 @@ def phase_agg_slice(dev, P=100_000):
         config=SamplerConfig(tile_size=0.051, eig_floor=1e-12),
         method="pallas")
     sampler.preprocess(means, params["features"], covs, conics, means[:128])
+    return sampler, params, means
 
-    reset_launches()
-    pre_ms = host_ms(lambda: sampler.preprocess_aggregate(method="pallas"), 5)
-    pre_launches = expect_launches("6 structure builds", agg_totals=6)
-    agg = sampler.neighbors
-    if int(agg.overflow):
-        raise AssertionError(f"aggregation overflow {int(agg.overflow)}")
 
+def agg_point_calls(sampler, params):
+    """(leaves, serve, step) over the structure ``sampler`` holds:
+    aggregate_neighbors without gradients, and forward + backward() of
+    sum(out^2) to all six groups."""
     leaves = [params[k].clone().requires_grad_() for k in AGG_GROUPS]
 
     def serve():
@@ -1567,6 +1627,52 @@ def phase_agg_slice(dev, P=100_000):
         (out * out).sum().backward()
         return out.detach()
 
+    return leaves, serve, step
+
+
+def sweep_numbers(D, agg):
+    """The kernels-line fields of warp_schedule for the schedule the
+    kernels use ("warp_per_row", ROWS_PER_WARP rows a warp): the forward's,
+    and the backward's over its two sweeps (each pair runs the body in
+    both)."""
+    n = {sweep: kagg.warp_schedule(
+        D, None, agg.ctr_ent, agg.ent_ctr, agg.ent_geo, agg.ctr_static,
+        "warp_per_row", kagg.ROWS_PER_WARP[sweep])[sweep]
+        for sweep in kagg.SWEEPS}
+    fwd = n["forward"]
+    bwd = [n["backward_entries"], n["backward_centres"]]
+    steps = sum(b["body_steps"] for b in bwd)
+    pairs = {"candidate_pairs": fwd["candidate_pairs"],
+             "colliding_pairs": fwd["colliding_pairs"]}
+    return {
+        "totals": pairs,
+        "forward": {**pairs, "body_steps": fwd["body_steps"],
+                    "lane_use": fwd["lane_use"],
+                    "rows_per_warp": kagg.ROWS_PER_WARP["forward"]},
+        "backward": {**pairs, "body_steps": steps,
+                     "lane_use": 2 * fwd["colliding_pairs"] / (32 * steps),
+                     "by_sweep": {"entries": bwd[0], "centres": bwd[1]},
+                     "rows_per_warp": [
+                         kagg.ROWS_PER_WARP["backward_entries"],
+                         kagg.ROWS_PER_WARP["backward_centres"]]}}
+
+
+def phase_agg_slice(dev, P=AGG_P):
+    """The aggregation operating point of tools/bench_aggregate.py at full
+    width, through the facade: structure build, the forward (serving) and
+    forward + backward over all six groups."""
+    D, L, K, nfreq = AGG_DIMS
+    ladder = False      # the facade passes no certificate: the direct code
+    sampler, params, means = agg_point(dev, P)
+
+    reset_launches()
+    pre_ms = host_ms(lambda: sampler.preprocess_aggregate(method="pallas"), 5)
+    pre_launches = expect_launches("6 structure builds", agg_totals=6)
+    agg = sampler.neighbors
+    if int(agg.overflow):
+        raise AssertionError(f"aggregation overflow {int(agg.overflow)}")
+
+    leaves, serve, step = agg_point_calls(sampler, params)
     reset_launches()
     fwd_ms = host_ms(serve, 5)
     serve_launches = expect_launches("6 aggregations", agg_forward=6)
@@ -1642,6 +1748,8 @@ def phase_agg_slice(dev, P=100_000):
                 "max_abs_err": errs[name + "_ladder"][0],
                 "ms": cuda_ms(lambda: call(kernel, True)),
                 **agg_bound(name, cand, coll, moved, D, L, K, nfreq, True)}
+    for name, counts in sweep_numbers(D, agg).items():
+        numbers[name].update(counts)
     emit("agg_slice", P=P, D=D, L=L, K=K, nfreq=nfreq, ladder=ladder,
          tile=aggregation.plan_pallas(sampler.config, means,
                                       sampler.radii)[0].tile_size,
@@ -1775,6 +1883,9 @@ def phase_parity_dynamics(dev, P=DYN_P):
         ms = cuda_ms(call)
         bound = agg_bound(kind, cand, coll, moved, D, L, K, nfreq, True)
         numbers[kind] = {"ms": ms, **bound, "share": bound["bound_ms"] / ms}
+    for kind, counts in sweep_numbers(D, nbr).items():
+        if kind in numbers:
+            numbers[kind].update(counts)
     emit("parity_dynamics", P=P, D=D, L=L, K=K, nfreq=nfreq, ladder=True,
          rect=nbr.rect, entries=int((nbr.ent_gid < P).sum()),
          candidate_pairs=cand, colliding_pairs=coll, err=err_fields(errs),
@@ -2134,6 +2245,155 @@ def dense_times(dev, reps=10, steps=30):
     emit("spin", **_spin)
 
 
+def agg_instantiation(kernel, D, L, K, nfreq, ladder):
+    """{"registers", "shared_bytes", "spill_bytes"} of the aggregation
+    kernel ("forward", "backward_entries", "backward_centres") that the
+    shapes launch, from the ptxas report of the build."""
+    lad = int(ladder)
+    name = {"forward": f"agg_forward_kernelILi{D}ELb{lad}ELb0ELi"
+                       f"{8 if L > 4 else 4}EE",
+            "backward_entries": f"agg_backward_entries_kernelILi{D}ELb{lad}"
+                                f"ELi{16 if L + K > 8 else 8}EE",
+            "backward_centres": f"agg_backward_centres_kernelILi{D}ELi"
+                                f"{nfreq}ELb{lad}ELi{8 if K > 4 else 4}EE",
+            }[kernel]
+    reports = [
+        r for r in _build.build_log().split("Compiling entry function")[1:]
+        if name in r.split("'")[1]]
+    if len(reports) != 1:
+        raise AssertionError(f"{len(reports)} ptxas reports for {name}")
+    smem = re.search(r"(\d+) bytes smem", reports[0])
+    spill = re.search(r"(\d+) bytes spill stores", reports[0])
+    return {"registers": int(re.search(r"Used (\d+) registers",
+                                       reports[0]).group(1)),
+            "shared_bytes": int(smem.group(1)) if smem else 0,
+            "spill_bytes": int(spill.group(1)) if spill else 0}
+
+
+def agg_shapes(dev):
+    """The aggregation point's sampler and parameters, and both shapes of
+    kernels 5-7: {shape: (structure, groups, D, L, K, nfreq, ladder)}."""
+    sampler, params, _ = agg_point(dev)
+    point_agg = sampler.preprocess_aggregate(method="pallas")
+    _, _, field, nbr, dparams = dynamics_structure(dev)
+    nfreq = 2
+    dyn_groups = dict(
+        features=field.values.detach(), queries=dparams.queries.detach(),
+        keys=dparams.keys.detach(),
+        frequencies=dparams.frequencies.detach()[0] * torch.arange(
+            1, nfreq + 1, dtype=torch.float32, device=dev),
+        distance_transform=dparams.distance_transform.detach())
+    return sampler, params, {
+        "aggregation_point": (point_agg, params, *AGG_DIMS, False),
+        "dynamics": (nbr, dyn_groups, 2, 1, dparams.queries.shape[1], nfreq,
+                     True)}
+
+
+def agg_schedules(shapes):
+    """warp_schedule's counts at each shape: the block-staged lane_per_row
+    schedule (the first aggregation kernels) and the warp sweep at 1 to 32
+    rows a warp."""
+    for shape, (agg, _, D, *_) in shapes.items():
+        for schedule, rows in [("lane_per_row", 1)] + [
+                ("warp_per_row", r) for r in (1, 2, 4, 8, 16, 32)]:
+            emit("agg_schedule", shape=shape, schedule=schedule,
+                 rows_per_warp=rows, **kagg.warp_schedule(
+                     D, None, agg.ctr_ent, agg.ent_ctr, agg.ent_geo,
+                     agg.ctr_static, schedule, rows))
+
+
+def agg_times(dev, reps=10, steps=30):
+    """Kernels 5-7 through their wrappers at the aggregation point and at
+    the dynamics shapes, and the aggregation and dynamics steps (python3
+    chip_smoke.py --agg).  Per shape: warp_schedule's counts of both
+    schedules (the warp sweep at 1 to 32 rows a warp) where the tree has
+    it; each kernel's time (CUDA events, median of ``reps``), bound, share,
+    registers, resident blocks and waves; the backward's split between its
+    two kernels (device time under the profiler); and, where the wrappers
+    take rows_per_warp, the forward and backward at 1 to 32 rows a warp.
+    Steps: ``steps`` synchronised host-clock times each and device busy ms
+    (device_profile).  Two trees are compared by running this script's
+    --agg in each of them on one card, in turns (first, second, second,
+    first)."""
+    rows_tree = getattr(kagg, "ROWS_PER_WARP", None)
+    sampler, params, shapes = agg_shapes(dev)
+    if hasattr(kagg, "warp_schedule"):
+        agg_schedules(shapes)
+    for shape, (agg, groups, D, L, K, nfreq, ladder) in shapes.items():
+        ent_fk, ctr_geo, dtf = agg_operands(groups, agg)
+        ce, ranges = agg.ctr_ent, (agg.ctr_ent, agg.ent_ctr)
+        g = torch.Generator(device=dev).manual_seed(5)
+        gpre = torch.randn((ctr_geo.shape[0], L), generator=g, device=dev)
+        gsum = gpre.sum(dim=1, keepdim=True)
+        cand, coll = kagg.pair_counts(D, None, ce, agg.ent_geo,
+                                      agg.ctr_static)
+
+        def fwd(**kw):
+            return kagg.forward(D, L, K, nfreq, None, ce, agg.ent_geo,
+                                ent_fk, ctr_geo, dtf, ladder=ladder, **kw)
+
+        def bwd(**kw):
+            return kagg.backward(D, L, K, nfreq, None, ranges, agg.ent_geo,
+                                 ent_fk, ctr_geo, dtf, gpre, gsum,
+                                 ladder=ladder, **kw)
+
+        def split(**kw):
+            """The backward's device ms per call by kernel."""
+            _, top = device_profile(lambda: bwd(**kw), reps)
+            return {k: sum(t for n, t in top if f"agg_backward_{k}" in n)
+                    for k in ("entries", "centres")}
+
+        moved = {"totals": agg.ent_geo.numel() + ctr_geo.shape[0] * (D + 2)
+                 + ce.numel(),
+                 "forward": sum(t.numel() for t in (
+                     agg.ent_geo, ent_fk, ctr_geo, dtf, ce))
+                 + ctr_geo.shape[0] * L,
+                 "backward": sum(t.numel() for t in (
+                     agg.ent_geo, ent_fk, ctr_geo, dtf, gpre, gsum, ce,
+                     agg.ent_ctr)) + sum(t.numel() for t in bwd())}
+        row = {}
+        for kind, call, kernels in (
+                ("totals", lambda: kagg.totals(D, None, ce, agg.ent_geo,
+                                               agg.ctr_static), ()),
+                ("forward", fwd, ("forward",)),
+                ("backward", bwd, ("backward_entries", "backward_centres"))):
+            ms = cuda_ms(call, reps)
+            bound = agg_bound(kind, cand, coll, moved[kind], D, L, K, nfreq,
+                              ladder)
+            row[kind] = {"ms": ms, **bound, "share": bound["bound_ms"] / ms}
+            for k in kernels:
+                inst = agg_instantiation(k, D, L, K, nfreq, ladder)
+                n_rows = (agg.ent_geo.shape[1] if k == "backward_entries"
+                          else ctr_geo.shape[0])
+                per_block = 4 * rows_tree[k] if rows_tree else 128
+                blocks = -(-n_rows // per_block)
+                resident = resident_blocks(inst["registers"], 128,
+                                           inst["shared_bytes"])
+                row[kind][k] = {**inst, "blocks": blocks,
+                                "resident_blocks": resident,
+                                "waves": blocks / (132 * resident)}
+        row["backward"]["split_ms"] = split()
+        if rows_tree:
+            row["rows_variants"] = {
+                r: {"forward_ms": cuda_ms(lambda: fwd(rows_per_warp=r),
+                                          reps),
+                    "backward_ms": split(rows_per_warp=(r, r))}
+                for r in (1, 2, 4, 8, 16, 32)}
+        emit("agg_times", shape=shape, D=D, L=L, K=K, nfreq=nfreq,
+             ladder=ladder, centres=ctr_geo.shape[0],
+             entries=agg.ent_geo.shape[1], candidate_pairs=cand,
+             colliding_pairs=coll, rows_per_warp=rows_tree, **row)
+    _, _, agg_step = agg_point_calls(sampler, params)
+    for path, fn in (("agg_step", agg_step),
+                     ("dynamics", dynamics_step(dev))):
+        times = host_ms(fn, steps)
+        busy, top = device_profile(fn, 10)
+        emit("agg_steps", path=path, step_ms_median=statistics.median(times),
+             step_ms_min=min(times), step_ms_max=max(times),
+             device_busy_ms_per_step=busy, top=top)
+    emit("spin", **_spin)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2144,6 +2404,12 @@ def main():
         return tiled_times(dev)
     if sys.argv[1:] == ["--dense"]:
         return dense_times(dev)
+    if sys.argv[1:] == ["--agg"]:
+        return agg_times(dev)
+    agg_spills = {k: b for k, b in build["spilling_kernels"].items()
+                  if k.startswith("agg_")}
+    if agg_spills:
+        raise AssertionError(f"aggregation kernels spill: {agg_spills}")
     # The many-line parity phases first, the measured paths after them, so
     # that the end of the output holds every number of the kernels line.
     phase_parity(dev)

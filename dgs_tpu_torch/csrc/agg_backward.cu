@@ -12,47 +12,68 @@
 //
 // Design.  The TPU kernel gets per-entry and per-centre sums out of one
 // ordered sweep by writing a slab per work item.  CUDA blocks run in no
-// order, so the simple deterministic design is two kernels in this source:
+// order, so the deterministic design is two kernels in this source, both
+// the warp sweep of agg_sweep.cuh (a warp over `rows` consecutive
+// tile-sorted rows, its lanes across their ranges, the colliding pairs
+// compacted into a queue so that the body runs on full warps):
 //
-//   * entry-major (agg_backward_entries_kernel): one thread per tile-sorted
-//     entry over the centre range of its tile, as tiled_backward.cu.  The
-//     block's contiguous centre range is staged through shared memory
-//     (geometry, cotangent rows, query rows); a thread's own L + K feature
-//     and key values ride a shared-memory column (runtime sizes) and its
-//     L + K output rows are taken RB at a time in registers (RB is 8 or 16,
-//     the wrapper's pick, so L + K <= 16 is one pass).  Output (L + K, Ep),
-//     written coalesced; the caller segment-sums the columns by Gaussian id.
-//   * centre-major (agg_backward_centres_kernel): one thread per tile-sorted
-//     centre over its tile's entry range, as agg_forward.cu.  A thread keeps
-//     KB query accumulators and the 4 D nfreq + 2 + nfreq code accumulators
-//     in registers, which needs D and nfreq at compile time (nfreq 1 to 4
-//     are built); its own queries and cotangent ride a shared-memory column.
-//     Output (Cp, K + 2E + nfreq), one row per centre; the caller un-sorts
-//     the query columns and sums the code columns over centres.
+//   * entry-major (agg_backward_entries_kernel): rows are the entries, over
+//     the centre range of their tile.  A pair's partials are the entry's
+//     L + K output rows, g_i[l] G w fac and q_i[k] dw, taken RB at a time
+//     (RB is 8 or 16, the wrapper's pick, so L + K <= 16 is one pass).
+//     Output (L + K, Ep); the caller segment-sums the columns by Gaussian
+//     id.
+//   * centre-major (agg_backward_centres_kernel): rows are the centres, over
+//     the entry range of their tile.  A pair's partials are KB query
+//     gradients k_j[k] dw and, in the first pass, the 4 D nfreq + 2 + nfreq
+//     code partials, which need D and nfreq at compile time (nfreq 1 to 4
+//     are built).  Output (Cp, K + 2E + nfreq), one row per centre; the
+//     caller un-sorts the query columns and sums the code columns over
+//     centres.
 //
-// Every thread writes its own rows once: no atomics, and two runs agree
-// bitwise.  Both kernels recompute the pair's geometry, weight and code;
-// fusing them into one sweep is later work.
+// Every row is written once by its warp: no atomics, and two runs agree
+// bitwise.  Both kernels recompute the pair's geometry, weight and code.
+// Operands are read through L1: the warps of a tile read the same columns.
 //
 // What bounds it.  Per colliding pair each kernel pays the forward's work
 // (the K-term dot product, the code's sin / cos) plus an L-term dot product
-// and its accumulators: L + K FMAs entry-major, K + 6 D nfreq centre-major.
-// Bound by fp32 and special-function issue, not by device memory.
+// and its partials: L + K entry-major, K + 6 D nfreq centre-major.  Bound
+// by fp32 and special-function issue, not by device memory; as in
+// agg_forward.cu, where tiles hold hundreds of rows the candidate tests
+// dominate and resident warps count.
 //
 // Built by dgs_tpu_torch/kernels/_build.py (nvcc, sm_90a, plain C ABI,
 // ctypes).  Never with --use_fast_math (see agg_math.cuh).
 #include <cuda_runtime.h>
 
-#include "agg_math.cuh"
+#include "agg_sweep.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;   // rows per block, one per thread (both kernels)
-constexpr int kChunkC = 64;   // centres staged per chunk, entry-major
-constexpr int kChunkE = 128;  // entries staged per chunk, centre-major
+constexpr int kWarps = 4;  // warps a block (both kernels)
+// Blocks an SM that each kernel asks ptxas to fit (so at most 65,536 /
+// (128 x blocks) registers).  The sweep waits on loads and shuffles, so
+// resident warps matter: 8 blocks (64 registers) for the entry-major
+// kernel, the most that spills nowhere (9 spilled at D = 3); the
+// centre-major one, with its wide partials, needs more.  With the maximum
+// of threads alone, ptxas spilled in several instantiations.
+constexpr int kEntryBlocks = 8;
+constexpr int kCentreBlocks = 1;
+constexpr int kBlock = kWarps * dgs::kSweepWarp;
+constexpr int kMaxCode = 2048;  // 2E + nfreq floats of dynamic shared memory
+constexpr int kPad = dgs::kPartStride;  // row stride of the partials
+
+// The block's copy of the distance transform and the frequencies; the one
+// barrier of both kernels.
+__device__ __forceinline__ void load_code(const float* dtf, int ndt,
+                                          float* s_dt) {
+  for (int t = threadIdx.x; t < ndt; t += kBlock) s_dt[t] = dtf[t];
+  __syncthreads();
+}
 
 template <int D, bool LADDER, int RB>
-__global__ void __launch_bounds__(kBlock) agg_backward_entries_kernel(
+__global__ void __launch_bounds__(kBlock, kEntryBlocks)
+    agg_backward_entries_kernel(
     const float* __restrict__ ent_geo,  // (D + tri + 1, Ep): mu', conic, r
     const float* __restrict__ ent_fk,   // (L + K, Ep): features, keys
     long long Ep,
@@ -62,102 +83,93 @@ __global__ void __launch_bounds__(kBlock) agg_backward_entries_kernel(
     const float* __restrict__ dtf,      // (2E + nfreq,)
     const float* __restrict__ gpre,     // (Cp, L) cotangent, inv_tot-scaled
     const float* __restrict__ gsum,     // (Cp,) its channel sum
-    int L, int K, int nfreq, int E, int do_wrap, float period,
+    int L, int K, int nfreq, int E, int do_wrap, float period, int rows,
     float* __restrict__ dent) {         // (L + K, Ep)
   constexpr int TRI = dgs::tri_size(D);
-  extern __shared__ float smem[];
-  const int ndt = 2 * E + nfreq, R = L + K;
-  float* s_dt = smem;                     // ndt
-  float* s_own = s_dt + ndt;              // R x kBlock: own features, keys
-  float* s_ctr = s_own + R * kBlock;      // (D + 3) x kChunkC: mu, r,
-                                          //   inv_norm, gsum
-  float* s_gq = s_ctr + (D + 3) * kChunkC;  // R x kChunkC: cotangent, queries
-  __shared__ int s_range[2];
+  static_assert(kWarps * sizeof(dgs::SweepScratch<RB>) +
+                        kMaxCode * sizeof(float) <= 48 * 1024,
+                "shared memory must stay under 48 KB");
+  __shared__ dgs::SweepScratch<RB> s_sweep[kWarps];
+  extern __shared__ float s_dt[];
+  load_code(dtf, 2 * E + nfreq, s_dt);
 
-  const int tid = threadIdx.x;
-  const long long j = (long long)blockIdx.x * kBlock + tid;
-  const bool live = j < Ep;
-  float mu_j[D], con[TRI], r_j = 0.0f;
+  const int warp = threadIdx.x / dgs::kSweepWarp;
+  const int lane = threadIdx.x % dgs::kSweepWarp;
+  const long long row0 = ((long long)blockIdx.x * kWarps + warp) * rows;
+  if (row0 >= Ep) return;
+  const int nrows = (int)min((long long)rows, Ep - row0);
+  const int R = L + K;
+  // Lane s < nrows holds entry s's range, mean and radius.
+  float mu_r[D], r_r = 0.0f;
   int lo = 0, hi = 0;
+  if (lane < nrows) {
+    const long long j = row0 + lane;
 #pragma unroll
-  for (int d = 0; d < D; ++d) mu_j[d] = live ? ent_geo[d * Ep + j] : 0.0f;
-#pragma unroll
-  for (int t = 0; t < TRI; ++t)
-    con[t] = live ? ent_geo[(D + t) * Ep + j] : 0.0f;
-  if (live) {
-    r_j = ent_geo[(D + TRI) * Ep + j];
+    for (int d = 0; d < D; ++d) mu_r[d] = ent_geo[d * Ep + j];
+    r_r = ent_geo[(D + TRI) * Ep + j];
     lo = ent_ctr[j];
     hi = ent_ctr[Ep + j];
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) mu_r[d] = 0.0f;
   }
-  for (int r = 0; r < R; ++r)
-    s_own[r * kBlock + tid] = live ? ent_fk[r * Ep + j] : 0.0f;
-  for (int t = tid; t < ndt; t += kBlock) s_dt[t] = dtf[t];
-  int blo, bhi;
-  dgs::block_range(lo, hi, s_range, blo, bhi);  // also publishes s_dt
 
   for (int r0 = 0; r0 < R; r0 += RB) {
-    float acc[RB];
+    auto cand = [&](bool in, int slot, int i) {
+      float mu_j[D], mu_i[D], X[D];
 #pragma unroll
-    for (int u = 0; u < RB; ++u) acc[u] = 0.0f;
-
-    for (int c0 = blo; c0 < bhi; c0 += kChunkC) {
-      const int n = min(kChunkC, bhi - c0);
-      __syncthreads();  // the previous chunk is fully consumed
-      for (int t = tid; t < n * (D + 2); t += kBlock) {
-        const int c = t / (D + 2), col = t % (D + 2);
-        s_ctr[col * kChunkC + c] = ctr_geo[(long long)(c0 + c) * cols + col];
+      for (int d = 0; d < D; ++d) mu_j[d] = __shfl_sync(~0u, mu_r[d], slot);
+      const float r_j = __shfl_sync(~0u, r_r, slot);
+      if (!in) return false;
+      const float* c = ctr_geo + (long long)i * cols;
+#pragma unroll
+      for (int d = 0; d < D; ++d) mu_i[d] = c[d];
+      dgs::agg_offset<D>(mu_j, mu_i, do_wrap, period, X);
+      return dgs::agg_candidate<D>(X, c[D], r_j);
+    };
+    auto body = [&](int slot, int i, float* p) {
+      const long long j = row0 + slot;
+      const float* c = ctr_geo + (long long)i * cols;
+      const float* g = gpre + (long long)i * L;
+      float mu_i[D], mu_j[D], X[D], con[TRI], a[D], G = 0.0f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        mu_i[d] = c[d];
+        mu_j[d] = ent_geo[d * Ep + j];
       }
-      for (int t = tid; t < n; t += kBlock)
-        s_ctr[(D + 2) * kChunkC + t] = gsum[c0 + t];
-      for (int t = tid; t < n * L; t += kBlock) {
-        const int c = t / L, l = t % L;
-        s_gq[l * kChunkC + c] = gpre[(long long)(c0 + c) * L + l];
+#pragma unroll
+      for (int t = 0; t < TRI; ++t) con[t] = ent_geo[(D + t) * Ep + j];
+      dgs::agg_offset<D>(mu_j, mu_i, do_wrap, period, X);
+      if (!dgs::pair_power<D>(X, con, a, G)) G = 0.0f;
+      float w = 0.0f, gdotf = 0.0f;
+      for (int k = 0; k < K; ++k)
+        w = fmaf(c[D + 3 + k], ent_fk[(L + k) * Ep + j], w);
+      for (int l = 0; l < L; ++l)
+        gdotf = fmaf(g[l], ent_fk[l * Ep + j], gdotf);
+      const float inv_norm = c[D + 1];
+      float Xn[D], emb, fac;
+#pragma unroll
+      for (int d = 0; d < D; ++d) Xn[d] = X[d] * inv_norm;
+      dgs::agg_code<D, LADDER>(Xn, s_dt, s_dt + 2 * E, nfreq, E, emb, fac);
+      const float cf = G * w * fac;
+      const float dw = G * (fac * gdotf + emb * gsum[i]);
+#pragma unroll
+      for (int u = 0; u < RB; ++u) {
+        const int r = r0 + u;
+        p[u * kPad] =
+            r < L ? g[r] * cf : (r < R ? c[D + 3 + r - L] * dw : 0.0f);
       }
-      for (int t = tid; t < n * K; t += kBlock) {
-        const int c = t / K, k = t % K;
-        s_gq[(L + k) * kChunkC + c] =
-            ctr_geo[(long long)(c0 + c) * cols + D + 3 + k];
-      }
-      __syncthreads();
-      const int i0 = max(lo - c0, 0), i1 = min(hi - c0, n);
-      for (int i = i0; i < i1; ++i) {
-        float mu_i[D], X[D], G;
-#pragma unroll
-        for (int d = 0; d < D; ++d) mu_i[d] = s_ctr[d * kChunkC + i];
-        dgs::agg_offset<D>(mu_j, mu_i, do_wrap, period, X);
-        if (!dgs::agg_density<D>(X, con, s_ctr[D * kChunkC + i], r_j, G))
-          continue;
-        const float w = dgs::dot_strided(s_gq + L * kChunkC + i, kChunkC,
-                                         s_own + L * kBlock + tid, kBlock, K);
-        const float gdotf =
-            dgs::dot_strided(s_gq + i, kChunkC, s_own + tid, kBlock, L);
-        const float inv_norm = s_ctr[(D + 1) * kChunkC + i];
-        float Xn[D], emb, fac;
-#pragma unroll
-        for (int d = 0; d < D; ++d) Xn[d] = X[d] * inv_norm;
-        dgs::agg_code<D, LADDER>(Xn, s_dt, s_dt + 2 * E, nfreq, E, emb, fac);
-        const float cf = G * w * fac;
-        const float dw =
-            G * (fac * gdotf + emb * s_ctr[(D + 2) * kChunkC + i]);
-#pragma unroll
-        for (int u = 0; u < RB; ++u) {
-          const int r = r0 + u;
-          if (r < R)
-            acc[u] = fmaf(s_gq[r * kChunkC + i], r < L ? cf : dw, acc[u]);
-        }
-      }
-    }
-
-    if (live) {
-#pragma unroll
-      for (int u = 0; u < RB; ++u)
-        if (r0 + u < R) dent[(long long)(r0 + u) * Ep + j] = acc[u];
-    }
+    };
+    auto store = [&](int slot, int ch, float v) {
+      if (ch < RB && r0 + ch < R) dent[(r0 + ch) * Ep + row0 + slot] = v;
+    };
+    dgs::warp_sweep<RB>(s_sweep[warp], nrows, lo, hi, cand, body, store);
   }
 }
 
 template <int D, int NF, bool LADDER, int KB>
-__global__ void __launch_bounds__(kBlock) agg_backward_centres_kernel(
+__global__ void __launch_bounds__(kBlock, kCentreBlocks)
+    agg_backward_centres_kernel(
     const float* __restrict__ ent_geo,  // (D + tri + 1, Ep)
     const float* __restrict__ ent_fk,   // (L + K, Ep)
     long long Ep,
@@ -167,101 +179,100 @@ __global__ void __launch_bounds__(kBlock) agg_backward_centres_kernel(
     const float* __restrict__ dtf,      // (2E + NF,)
     const float* __restrict__ gpre,     // (Cp, L)
     const float* __restrict__ gsum,     // (Cp,)
-    int L, int K, int E, int do_wrap, float period,
-    float* __restrict__ dctr) {         // (Cp, K + 2E + NF), zeroed
+    int L, int K, int E, int do_wrap, float period, int rows,
+    float* __restrict__ dctr) {         // (Cp, K + 2E + NF)
   constexpr int TRI = dgs::tri_size(D);
-  constexpr int GEO = D + TRI + 1;
   constexpr int NACC = 4 * D * NF + 2 + NF;
-  extern __shared__ float smem[];
-  const int ndt = 2 * E + NF, R = L + K, S = K + 2 * E + NF;
-  float* s_dt = smem;                    // ndt
-  float* s_own = s_dt + ndt;             // R x kBlock: own cotangent, queries
-  float* s_geo = s_own + R * kBlock;     // GEO x kChunkE
-  float* s_fk = s_geo + GEO * kChunkE;   // R x kChunkE: features, keys
-  __shared__ int s_range[2];
+  constexpr int W = KB + NACC;
+  static_assert(kWarps * sizeof(dgs::SweepScratch<W>) +
+                        kMaxCode * sizeof(float) <= 48 * 1024,
+                "shared memory must stay under 48 KB");
+  __shared__ dgs::SweepScratch<W> s_sweep[kWarps];
+  extern __shared__ float s_dt[];
+  load_code(dtf, 2 * E + NF, s_dt);
 
-  const int tid = threadIdx.x;
-  const long long i = (long long)blockIdx.x * kBlock + tid;
-  const bool live = i < Cp;
-  float mu[D], r_i = 0.0f, inv_norm = 0.0f, gs = 0.0f;
+  const int warp = threadIdx.x / dgs::kSweepWarp;
+  const int lane = threadIdx.x % dgs::kSweepWarp;
+  const long long row0 = ((long long)blockIdx.x * kWarps + warp) * rows;
+  if (row0 >= Cp) return;
+  const int nrows = (int)min((long long)rows, Cp - row0);
+  const int S = K + 2 * E + NF;
+  float mu_r[D], r_r = 0.0f;
   int lo = 0, hi = 0;
+  if (lane < nrows) {
+    const long long i = row0 + lane;
 #pragma unroll
-  for (int d = 0; d < D; ++d) mu[d] = live ? ctr_geo[i * cols + d] : 0.0f;
-  if (live) {
-    r_i = ctr_geo[i * cols + D];
-    inv_norm = ctr_geo[i * cols + D + 1];
-    gs = gsum[i];
+    for (int d = 0; d < D; ++d) mu_r[d] = ctr_geo[i * cols + d];
+    r_r = ctr_geo[i * cols + D];
     lo = ctr_ent[i];
     hi = ctr_ent[Cp + i];
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) mu_r[d] = 0.0f;
   }
-  for (int l = 0; l < L; ++l)
-    s_own[l * kBlock + tid] = live ? gpre[i * L + l] : 0.0f;
-  for (int k = 0; k < K; ++k)
-    s_own[(L + k) * kBlock + tid] =
-        live ? ctr_geo[i * cols + D + 3 + k] : 0.0f;
-  for (int t = tid; t < ndt; t += kBlock) s_dt[t] = dtf[t];
-  int blo, bhi;
-  dgs::block_range(lo, hi, s_range, blo, bhi);  // also publishes s_dt
 
   for (int k0 = 0; k0 < K; k0 += KB) {
-    float accq[KB], acc[NACC];
+    auto cand = [&](bool in, int slot, int j) {
+      float mu_i[D], mu_j[D], X[D];
 #pragma unroll
-    for (int k = 0; k < KB; ++k) accq[k] = 0.0f;
+      for (int d = 0; d < D; ++d) mu_i[d] = __shfl_sync(~0u, mu_r[d], slot);
+      const float r_i = __shfl_sync(~0u, r_r, slot);
+      if (!in) return false;
 #pragma unroll
-    for (int t = 0; t < NACC; ++t) acc[t] = 0.0f;
-
-    for (int e0 = blo; e0 < bhi; e0 += kChunkE) {
-      const int n = min(kChunkE, bhi - e0);
-      __syncthreads();  // the previous chunk is fully consumed
-      for (int j = tid; j < n; j += kBlock) {
-        const long long e = (long long)e0 + j;
+      for (int d = 0; d < D; ++d) mu_j[d] = ent_geo[d * Ep + j];
+      dgs::agg_offset<D>(mu_j, mu_i, do_wrap, period, X);
+      return dgs::agg_candidate<D>(X, r_i, ent_geo[(D + TRI) * Ep + j]);
+    };
+    auto body = [&](int slot, int j, float* p) {
+      const long long i = row0 + slot;
+      const float* c = ctr_geo + i * cols;
+      const float* g = gpre + i * L;
+      float mu_i[D], mu_j[D], X[D], con[TRI], a[D], G = 0.0f;
 #pragma unroll
-        for (int r = 0; r < GEO; ++r)
-          s_geo[r * kChunkE + j] = ent_geo[r * Ep + e];
-        for (int r = 0; r < R; ++r) s_fk[r * kChunkE + j] = ent_fk[r * Ep + e];
+      for (int d = 0; d < D; ++d) {
+        mu_i[d] = c[d];
+        mu_j[d] = ent_geo[d * Ep + j];
       }
-      __syncthreads();
-      const int j0 = max(lo - e0, 0), j1 = min(hi - e0, n);
-      for (int j = j0; j < j1; ++j) {
-        float mu_j[D], X[D], con[TRI], G;
 #pragma unroll
-        for (int d = 0; d < D; ++d) mu_j[d] = s_geo[d * kChunkE + j];
-        dgs::agg_offset<D>(mu_j, mu, do_wrap, period, X);
+      for (int t = 0; t < TRI; ++t) con[t] = ent_geo[(D + t) * Ep + j];
+      dgs::agg_offset<D>(mu_j, mu_i, do_wrap, period, X);
+      if (!dgs::pair_power<D>(X, con, a, G)) G = 0.0f;
+      float w = 0.0f, gdotf = 0.0f;
+      for (int k = 0; k < K; ++k)
+        w = fmaf(c[D + 3 + k], ent_fk[(L + k) * Ep + j], w);
+      for (int l = 0; l < L; ++l)
+        gdotf = fmaf(g[l], ent_fk[l * Ep + j], gdotf);
+      const float inv_norm = c[D + 1], gs = gsum[i];
+      float Xn[D], emb, fac, sn[D * NF], cs[D * NF];
 #pragma unroll
-        for (int t = 0; t < TRI; ++t) con[t] = s_geo[(D + t) * kChunkE + j];
-        if (!dgs::agg_density<D>(X, con, r_i, s_geo[(D + TRI) * kChunkE + j],
-                                 G))
-          continue;
-        const float w = dgs::dot_strided(s_own + L * kBlock + tid, kBlock,
-                                         s_fk + L * kChunkE + j, kChunkE, K);
-        const float gdotf =
-            dgs::dot_strided(s_own + tid, kBlock, s_fk + j, kChunkE, L);
-        float Xn[D], emb, fac, sn[D * NF], cs[D * NF];
-#pragma unroll
-        for (int d = 0; d < D; ++d) Xn[d] = X[d] * inv_norm;
-        dgs::agg_code_terms<D, NF, LADDER>(Xn, s_dt, s_dt + 2 * E, E, emb, fac,
-                                           sn, cs);
-        const float dw = G * (fac * gdotf + emb * gs);
-#pragma unroll
-        for (int k = 0; k < KB; ++k)
-          if (k0 + k < K)
-            accq[k] = fmaf(s_fk[(L + k0 + k) * kChunkE + j], dw, accq[k]);
-        if (k0 == 0) {
-          const float cw = G * w;
-          dgs::agg_code_partials<D, NF>(Xn, s_dt, E, cw * gs, cw * gdotf, sn,
-                                        cs, acc);
-        }
-      }
-    }
-
-    if (live) {
-      float* row = dctr + i * S;
+      for (int d = 0; d < D; ++d) Xn[d] = X[d] * inv_norm;
+      dgs::agg_code_terms<D, NF, LADDER>(Xn, s_dt, s_dt + 2 * E, E, emb, fac,
+                                         sn, cs);
+      const float dw = G * (fac * gdotf + emb * gs);
 #pragma unroll
       for (int k = 0; k < KB; ++k)
-        if (k0 + k < K) row[k0 + k] = accq[k];
-      if (k0 == 0) dgs::agg_code_store<D, NF>(acc, E, row + K, row + K + 2 * E);
-    }
+        p[k * kPad] = k0 + k < K ? ent_fk[(L + k0 + k) * Ep + j] * dw : 0.0f;
+      if (k0 == 0) {
+        const float cw = G * w;
+        dgs::code_contrib<D, NF>(Xn, s_dt, E, cw * gs, cw * gdotf, sn, cs,
+                                 p + KB * kPad, kPad);
+      }
+    };
+    auto store = [&](int slot, int ch, float v) {
+      float* row = dctr + (row0 + slot) * S;
+      if (ch < KB) {
+        if (k0 + ch < K) row[k0 + ch] = v;
+      } else if (ch < W && k0 == 0) {
+        row[K + dgs::code_column<D, NF>(ch - KB, E)] = v;
+      }
+    };
+    dgs::warp_sweep<W>(s_sweep[warp], nrows, lo, hi, cand, body, store);
   }
+}
+
+long long grid_of(long long n_rows, int rows) {
+  const long long per_block = (long long)kWarps * rows;
+  return (n_rows + per_block - 1) / per_block;
 }
 
 template <int D, bool LADDER, int RB>
@@ -270,20 +281,12 @@ cudaError_t launch_entries(const float* ent_geo, const float* ent_fk,
                            long long Cp, const int* ent_ctr, const float* dtf,
                            const float* gpre, const float* gsum, int L, int K,
                            int nfreq, int E, int do_wrap, float period,
-                           float* dent, cudaStream_t stream) {
-  const size_t bytes =
-      sizeof(float) * ((size_t)(2 * E + nfreq) + (size_t)(L + K) * kBlock +
-                       (size_t)(D + 3 + L + K) * kChunkC);
-  auto kernel = agg_backward_entries_kernel<D, LADDER, RB>;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((unsigned)((Ep + kBlock - 1) / kBlock)), block(kBlock);
-  kernel<<<grid, block, bytes, stream>>>(ent_geo, ent_fk, Ep, ctr_geo, cols,
-                                         Cp, ent_ctr, dtf, gpre, gsum, L, K,
-                                         nfreq, E, do_wrap, period, dent);
+                           int rows, float* dent, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * (size_t)(2 * E + nfreq);
+  agg_backward_entries_kernel<D, LADDER, RB>
+      <<<(unsigned)grid_of(Ep, rows), kBlock, bytes, stream>>>(
+          ent_geo, ent_fk, Ep, ctr_geo, cols, Cp, ent_ctr, dtf, gpre, gsum, L,
+          K, nfreq, E, do_wrap, period, rows, dent);
   return cudaGetLastError();
 }
 
@@ -292,23 +295,19 @@ cudaError_t launch_centres(const float* ent_geo, const float* ent_fk,
                            long long Ep, const float* ctr_geo, int cols,
                            long long Cp, const int* ctr_ent, const float* dtf,
                            const float* gpre, const float* gsum, int L, int K,
-                           int E, int do_wrap, float period, float* dctr,
-                           cudaStream_t stream) {
-  constexpr int GEO = D + dgs::tri_size(D) + 1;
-  const size_t bytes =
-      sizeof(float) * ((size_t)(2 * E + NF) + (size_t)(L + K) * kBlock +
-                       (size_t)(GEO + L + K) * kChunkE);
-  auto kernel = agg_backward_centres_kernel<D, NF, LADDER, KB>;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((unsigned)((Cp + kBlock - 1) / kBlock)), block(kBlock);
-  kernel<<<grid, block, bytes, stream>>>(ent_geo, ent_fk, Ep, ctr_geo, cols,
-                                         Cp, ctr_ent, dtf, gpre, gsum, L, K,
-                                         E, do_wrap, period, dctr);
+                           int E, int do_wrap, float period, int rows,
+                           float* dctr, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * (size_t)(2 * E + NF);
+  agg_backward_centres_kernel<D, NF, LADDER, KB>
+      <<<(unsigned)grid_of(Cp, rows), kBlock, bytes, stream>>>(
+          ent_geo, ent_fk, Ep, ctr_geo, cols, Cp, ctr_ent, dtf, gpre, gsum, L,
+          K, E, do_wrap, period, rows, dctr);
   return cudaGetLastError();
+}
+
+bool bad_shape(int n, int L, int K, int cols, int D, int rows, int ndt) {
+  return n < 1 || L < 1 || K < 1 || cols != D + 3 + K || rows < 1 ||
+         rows > dgs::kSweepWarp || ndt > kMaxCode;
 }
 
 }  // namespace
@@ -319,16 +318,17 @@ extern "C" {
 int dgs_agg_backward_max_nfreq() { return 4; }
 
 // Entry-major sweep: launches on `stream` and returns the CUDA error of the
-// launch (0 = launched).  L + K <= 8 runs the 8-row instantiation, larger
-// the 16-row one (in passes of 16 above that).
+// launch (0 = launched); `rows` (1 to 32) entries a warp.  L + K <= 8 runs
+// the 8-row instantiation, larger the 16-row one (in passes of 16 above
+// that).
 int dgs_agg_backward_entries(const void* ent_geo, const void* ent_fk, int Ep,
                              const void* ctr_geo, int cols, int Cp,
                              const void* ent_ctr, const void* dtf,
                              const void* gpre, const void* gsum, int D, int L,
                              int K, int nfreq, int E, int do_wrap,
-                             float period, int ladder, void* dent,
+                             float period, int ladder, int rows, void* dent,
                              void* stream) {
-  if (Ep < 1 || L < 1 || K < 1 || nfreq < 0 || cols != D + 3 + K)
+  if (nfreq < 0 || bad_shape(Ep, L, K, cols, D, rows, 2 * E + nfreq))
     return (int)cudaErrorInvalidValue;
   const auto* g = static_cast<const float*>(ent_geo);
   const auto* fk = static_cast<const float*>(ent_fk);
@@ -344,7 +344,7 @@ int dgs_agg_backward_entries(const void* ent_geo, const void* ent_fk, int Ep,
   case DD * 4 + LAD * 2 + WIDE:                                              \
     return (int)launch_entries<DD, (LAD != 0), (WIDE ? 16 : 8)>(             \
         g, fk, Ep, c, cols, Cp, r, dt, gp, gs, L, K, nfreq, E, do_wrap,      \
-        period, o, st);
+        period, rows, o, st);
 #define DGS_DIM(DD) \
   DGS_CASE(DD, 0, 0) DGS_CASE(DD, 0, 1) DGS_CASE(DD, 1, 0) DGS_CASE(DD, 1, 1)
     DGS_DIM(1) DGS_DIM(2) DGS_DIM(3)
@@ -356,18 +356,20 @@ int dgs_agg_backward_entries(const void* ent_geo, const void* ent_fk, int Ep,
 }
 
 // Centre-major sweep: launches on `stream` and returns the CUDA error of
-// the launch (0 = launched).  `dctr` must arrive zeroed.  nfreq outside
+// the launch (0 = launched); `rows` (1 to 32) centres a warp.  Every
+// column of `dctr` is written.  nfreq outside
 // 1..dgs_agg_backward_max_nfreq() is refused.  K <= 4 runs the
-// 4-accumulator instantiation, larger K the 8-accumulator one (in passes of
-// 8 above that).
+// 4-query instantiation, larger K the 8-query one (in passes of 8 above
+// that).
 int dgs_agg_backward_centres(const void* ent_geo, const void* ent_fk, int Ep,
                              const void* ctr_geo, int cols, int Cp,
                              const void* ctr_ent, const void* dtf,
                              const void* gpre, const void* gsum, int D, int L,
                              int K, int nfreq, int E, int do_wrap,
-                             float period, int ladder, void* dctr,
+                             float period, int ladder, int rows, void* dctr,
                              void* stream) {
-  if (Cp < 1 || L < 1 || K < 1 || cols != D + 3 + K)
+  if (nfreq < 1 || nfreq > 4 ||
+      bad_shape(Cp, L, K, cols, D, rows, 2 * E + nfreq))
     return (int)cudaErrorInvalidValue;
   const auto* g = static_cast<const float*>(ent_geo);
   const auto* fk = static_cast<const float*>(ent_fk);
@@ -378,13 +380,12 @@ int dgs_agg_backward_centres(const void* ent_geo, const void* ent_fk, int Ep,
   const auto* gs = static_cast<const float*>(gsum);
   auto* o = static_cast<float*>(dctr);
   auto st = static_cast<cudaStream_t>(stream);
-  if (nfreq < 1 || nfreq > 4) return (int)cudaErrorInvalidValue;
   switch (D * 16 + (nfreq - 1) * 4 + (ladder ? 2 : 0) + (K > 4 ? 1 : 0)) {
 #define DGS_CASE(DD, NF, LAD, WIDE)                                          \
   case DD * 16 + (NF - 1) * 4 + LAD * 2 + WIDE:                              \
     return (int)launch_centres<DD, NF, (LAD != 0), (WIDE ? 8 : 4)>(          \
-        g, fk, Ep, c, cols, Cp, r, dt, gp, gs, L, K, E, do_wrap, period, o,  \
-        st);
+        g, fk, Ep, c, cols, Cp, r, dt, gp, gs, L, K, E, do_wrap, period,     \
+        rows, o, st);
 #define DGS_FREQ(DD, NF)                                                 \
   DGS_CASE(DD, NF, 0, 0) DGS_CASE(DD, NF, 0, 1) DGS_CASE(DD, NF, 1, 0)   \
   DGS_CASE(DD, NF, 1, 1)

@@ -81,9 +81,24 @@ DGS_HD void agg_offset(const float (&mu_j)[D], const float (&mu_i)[D],
   }
 }
 
+// The collision mask without the quadratic form: both radii alive and
+// |X|^2 <= (r_i + r_j)^2, each product and sum rounded as the plain version
+// rounds it.  The cheap candidate test of the warp sweeps (agg_sweep.cuh).
+template <int D>
+DGS_HD bool agg_candidate(const float (&X)[D], float r_i, float r_j) {
+  if (!(r_j >= kAggAlive) || !(r_i >= kAggAlive)) return false;
+  float dist2 = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) dist2 = add_rn(dist2, mul_rn(X[d], X[d]));
+  const float rr = add_rn(r_i, r_j);
+  return dist2 <= mul_rn(rr, rr);
+}
+
 // The collision mask and the density.  Returns false, leaving G unwritten,
 // for a pair that contributes nothing: a culled radius on either side, a
-// distance beyond the sum of the radii, or a positive quadratic form.
+// distance beyond the sum of the radii, or a positive quadratic form.  The
+// test is agg_candidate's, written out: the totals kernel, built on top of
+// agg_candidate, ran 10-18% slower on the H100.
 template <int D>
 DGS_HD bool agg_density(const float (&X)[D], const float (&con)[tri_size(D)],
                         float r_i, float r_j, float& G) {
@@ -225,8 +240,9 @@ DGS_HD void agg_code_store(const float (&acc)[4 * D * NF + 2 + NF], int E,
   for (int e = 0; e < NF; ++e) dfreq[e] = acc[4 * DN + 2 + e];
 }
 
-// Shared-memory staging of a block's own range: the union of its threads'
-// [lo, hi) ranges (threads with an empty range stay out).  Device only.
+// Shared-memory staging of a block's own range (agg_totals.cu): the union
+// of its threads' [lo, hi) ranges (threads with an empty range stay out).
+// Device only.
 #if defined(__CUDACC__)
 __device__ __forceinline__ void block_range(int lo, int hi, int* s_range,
                                             int& blo, int& bhi) {

@@ -90,13 +90,14 @@ def load() -> ctypes.CDLL:
         lib.dgs_agg_totals.argtypes = [p, i, p, i, i, p, i, i, f, p, p]
         lib.dgs_agg_totals.restype = i
         lib.dgs_agg_forward.argtypes = [
-            p, p, i, p, i, i, p, p, i, i, i, i, i, i, f, i, i, p, p, p,
+            p, p, i, p, i, i, p, p, i, i, i, i, i, i, f, i, i, i, p, p, p,
         ]
         lib.dgs_agg_forward.restype = i
         for fn in (lib.dgs_agg_backward_entries,
                    lib.dgs_agg_backward_centres):
             fn.argtypes = [
-                p, p, i, p, i, i, p, p, p, p, i, i, i, i, i, i, f, i, p, p,
+                p, p, i, p, i, i, p, p, p, p, i, i, i, i, i, i, f, i, i, p,
+                p,
             ]
             fn.restype = i
         for fn in (lib.dgs_tiled_forward_pass, lib.dgs_tiled_backward_pass):

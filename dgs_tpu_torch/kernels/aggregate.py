@@ -15,13 +15,16 @@ chunk) items over chunk-padded sides.  Here both sides stay compact and
 tile-sorted, and each row carries the range of the other side that lies on
 its tile: ``ctr_ent`` (2, Cp) int32, the [lo, hi) entry range of each
 centre, and ``ent_ctr`` (2, Ep) int32, the [lo, hi) centre range of each
-entry (an empty range for pads).  A CUDA block stages the union of its rows'
-ranges, so no work list is built and no work capacity can overflow.
+entry (an empty range for pads).  A warp of the forward and backward
+kernels takes a few consecutive rows and its lanes sweep their ranges
+(``csrc/agg_sweep.cuh``), so no work list is built and no work capacity can
+overflow.
 
 ``totals``, ``forward`` and ``backward`` are the wrappers: a CUDA tensor
 launches the hand-written Hopper kernel (``dgs_tpu_torch/csrc/
 agg_totals.cu`` / ``agg_forward.cu`` / ``agg_backward.cu``, the per-pair
-math in ``agg_math.cuh``), a CPU tensor runs ``totals_plain`` /
+math in ``agg_math.cuh``, the warp sweep in ``agg_sweep.cuh``), a CPU
+tensor runs ``totals_plain`` /
 ``forward_plain`` / ``backward_plain``, the same function in plain torch.
 """
 
@@ -35,9 +38,15 @@ import torch
 from ..config import tri_size
 from ..ops import formulas
 
-# Rows per CUDA block of every aggregation kernel (kBlock of the sources,
-# which the wrappers check against the built library).
+# The structure's rows are padded to a multiple of this (kBlock of
+# agg_totals.cu, which the wrappers check against the built library).
 BLOCK = 128
+WARP = 32
+# Rows a warp takes in each warp-sweep kernel (1 to 32), by sweep: the
+# queue carries colliding pairs across a warp's rows, so a warp's drains run
+# full where a row has few colliding pairs, and fewer rows a warp keep more
+# warps in flight.
+ROWS_PER_WARP = {"forward": 4, "backward_entries": 8, "backward_centres": 8}
 # Pairs and centres one chunk of the plain versions holds at a time.
 PLAIN_PAIRS = 1 << 22
 PLAIN_ROWS = 4096
@@ -88,9 +97,10 @@ def _chunks(ranges):
 
 def _pair(D: int, period, ctr_ent, ent_geo, ctr_geo, chunk):
     """Per-pair quantities of one chunk, centres along rows and entries
-    along columns: the wrapped offsets X = mu_entry - mu_centre and the
+    along columns: the wrapped offsets X = mu_entry - mu_centre, the
     density G, zero outside the collision mask and outside each centre's
-    own entry range."""
+    own entry range, and that mask (radii alive, the distance test, the
+    range) itself."""
     c0, c1, e0, e1 = chunk
     tri = tri_size(D)
     g = ent_geo[:, e0:e1]
@@ -107,7 +117,7 @@ def _pair(D: int, period, ctr_ent, ent_geo, ctr_geo, chunk):
     mask = ((r_j >= ALIVE) & (r_i >= ALIVE) & (dist2 <= rr * rr)
             & (idx >= ctr_ent[0, c0:c1, None])
             & (idx < ctr_ent[1, c0:c1, None]))
-    return Xs, torch.where(mask, G, 0.0)
+    return Xs, torch.where(mask, G, 0.0), mask
 
 
 def _sincode(D: int, nfreq: int, E: int, Xn, dtf, ladder: bool):
@@ -143,9 +153,140 @@ def pair_counts(D: int, period: Optional[float], ctr_ent, ent_geo, ctr_geo):
     candidates = int((ctr_ent[1] - ctr_ent[0]).long().sum())
     colliding = 0
     for chunk in _chunks(ctr_ent):
-        _, G = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
+        _, G, _ = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
         colliding += int((G > 0).sum())
     return candidates, colliding
+
+
+# The kernels' sweeps: rows of one side against their range of the other.
+SWEEPS = ("forward", "backward_entries", "backward_centres")
+SCHEDULES = ("lane_per_row", "warp_per_row")
+# Entries or centres per staged chunk of the lane_per_row kernels (their
+# kChunk, kChunkC, kChunkE).
+_LANE_CHUNK = {"forward": 128, "backward_entries": 64,
+               "backward_centres": 128}
+
+
+def _masked_pairs(D, period, ctr_ent, ent_geo, ctr_geo):
+    """(centre, entry, colliding) of every pair under the collision mask:
+    the pairs whose body a warp_per_row kernel runs; colliding (G > 0) as
+    in pair_counts."""
+    rows, cols, coll = [], [], []
+    for chunk in _chunks(ctr_ent):
+        _, G, mask = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
+        r, c = mask.nonzero(as_tuple=True)
+        rows.append(r + chunk[0])
+        cols.append(c + chunk[2])
+        coll.append(G[r, c] > 0)
+    dev = ctr_geo.device
+    if not rows:
+        empty = torch.zeros((0,), dtype=torch.long, device=dev)
+        return empty, empty, torch.zeros((0,), dtype=torch.bool, device=dev)
+    return torch.cat(rows), torch.cat(cols), torch.cat(coll)
+
+
+def _lane_per_row_steps(ranges, row, col, chunk):
+    """(sweep steps, body steps) of a lane_per_row kernel: a block of BLOCK
+    rows stages the union of its rows' ranges in chunks of ``chunk``; in
+    each chunk a lane steps through the part inside its own range, so a
+    warp takes as many steps as its busiest lane, and its k-th step runs
+    the pair body when the k-th pair of any lane is under the mask."""
+    n = ranges.shape[1]
+    lo, hi = ranges[0].long(), ranges[1].long()
+    live = hi > lo
+    if not bool(live.any()):
+        return 0, 0
+    block = torch.arange(n, device=lo.device) // BLOCK
+    big = 1 << 62
+    blo = torch.full((-(-n // BLOCK),), big, dtype=torch.long,
+                     device=lo.device)
+    blo = blo.scatter_reduce(0, block[live], lo[live], "amin")
+    # Each live row's chunks: its range cut at the block's chunk grid.
+    r = torch.nonzero(live).squeeze(1)
+    b0 = blo[block[r]]
+    c_first = (lo[r] - b0) // chunk
+    c_last = (hi[r] - 1 - b0) // chunk
+    reps = c_last - c_first + 1
+    rr = torch.repeat_interleave(r, reps)
+    cidx = (torch.repeat_interleave(c_first, reps)
+            + torch.arange(int(reps.sum()), device=lo.device)
+            - torch.repeat_interleave(torch.cumsum(reps, 0) - reps, reps))
+    e0 = blo[block[rr]] + cidx * chunk
+    count = (torch.minimum(hi[rr], e0 + chunk)
+             - torch.maximum(lo[rr], e0))
+    n_chunks = int(c_last.max()) + 2
+    key = (rr // WARP) * n_chunks + cidx
+    uk, inv = torch.unique(key, return_inverse=True)
+    steps = torch.zeros(uk.shape, dtype=torch.long, device=lo.device)
+    steps = steps.scatter_reduce(0, inv, count, "amax")
+    # Body steps: the distinct (warp, chunk, step) of the masked pairs.
+    bp = blo[block[row]]
+    pc = (col - bp) // chunk
+    k = col - torch.maximum(lo[row], bp + pc * chunk)
+    body = torch.unique(((row // WARP) * n_chunks + pc) * chunk + k)
+    return int(steps.sum()), int(body.numel())
+
+
+def _warp_per_row_steps(ranges, row, rows_per_warp):
+    """(sweep steps, body steps) of a warp_per_row kernel: a warp owns
+    ``rows_per_warp`` consecutive rows and tests their ranges, one after
+    another, 32 columns a step; the masked columns go to a queue in order,
+    drained 32 at a time across the warp's rows and once at their end
+    (csrc/agg_sweep.cuh)."""
+    lo, hi = ranges[0].long(), ranges[1].long()
+    group = torch.arange(ranges.shape[1], device=lo.device) // rows_per_warp
+    n_groups = int(group[-1]) + 1
+    cand = torch.zeros(n_groups, dtype=torch.long, device=lo.device)
+    cand = cand.index_add(0, group, (hi - lo).clamp(min=0))
+    per_group = torch.bincount(row // rows_per_warp, minlength=n_groups)
+    return (int((-(-cand // WARP)).sum()),
+            int((-(-per_group // WARP)).sum()))
+
+
+def warp_schedule(D: int, period: Optional[float], ctr_ent, ent_ctr,
+                  ent_geo, ctr_geo, schedule: str, rows_per_warp: int = 1):
+    """How a kernel schedule spends its warps on a structure, per sweep
+    (``SWEEPS``: the forward, and the backward's entry-major and
+    centre-major sweeps), counted in plain torch from the structure alone:
+
+    * ``candidate_pairs``, ``colliding_pairs``: as pair_counts;
+    * ``body_pairs``: the pairs under the collision mask (radii alive, the
+      distance test), whose body the kernel runs (a pair whose quadratic
+      form is positive, which a positive-definite conic never gives, would
+      leave the lane_per_row body early);
+    * ``sweep_steps``: warp steps of the candidate test, 32 candidates
+      each (a warp_per_row kernel takes two of them in one loop pass);
+    * ``body_steps``: warp steps that run the pair body;
+    * ``lane_use``: colliding pairs / (32 body_steps).
+
+    ``schedule`` "lane_per_row" is the first aggregation kernels' (one
+    lane a tile-sorted row, 32 rows a warp, a block-wide staged range);
+    "warp_per_row" is one warp over ``rows_per_warp`` consecutive rows with
+    its lanes across each row's range and the masked pairs compacted into a
+    queue."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}: one of "
+                         f"{SCHEDULES}")
+    row_c, col_e, coll = _masked_pairs(D, period, ctr_ent, ent_geo, ctr_geo)
+    candidates = int((ctr_ent[1] - ctr_ent[0]).long().sum())
+    colliding = int(coll.sum())
+    out = {}
+    for sweep in SWEEPS:
+        ranges, row, col = ((ent_ctr, col_e, row_c)
+                            if sweep == "backward_entries"
+                            else (ctr_ent, row_c, col_e))
+        if schedule == "lane_per_row":
+            sweep_steps, body_steps = _lane_per_row_steps(
+                ranges, row, col, _LANE_CHUNK[sweep])
+        else:
+            sweep_steps, body_steps = _warp_per_row_steps(ranges, row,
+                                                          rows_per_warp)
+        out[sweep] = dict(
+            candidate_pairs=candidates, colliding_pairs=colliding,
+            body_pairs=int(row.numel()), sweep_steps=sweep_steps,
+            body_steps=body_steps,
+            lane_use=colliding / (WARP * body_steps) if body_steps else 0.0)
+    return out
 
 
 def totals_plain(D: int, period: Optional[float], ctr_ent, ent_geo,
@@ -155,7 +296,7 @@ def totals_plain(D: int, period: Optional[float], ctr_ent, ent_geo,
     Cp = ctr_geo.shape[0]
     out = torch.zeros((Cp, 1), dtype=torch.float32, device=ctr_geo.device)
     for chunk in _chunks(ctr_ent):
-        _, G = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
+        _, G, _ = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
         out[chunk[0]:chunk[1], 0] = G.sum(dim=1)
     return out
 
@@ -171,7 +312,7 @@ def forward_plain(D: int, L: int, K: int, nfreq: int,
     tot = torch.zeros((Cp, 1), dtype=torch.float32, device=ctr_geo.device)
     for chunk in _chunks(ctr_ent):
         c0, c1, e0, e1 = chunk
-        Xs, G = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
+        Xs, G, _ = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
         c = ctr_geo[c0:c1]
         fk = ent_fk[:, e0:e1]
         w = c[:, D + 3:D + 3 + K] @ fk[L:L + K]
@@ -197,11 +338,11 @@ def backward_plain(D: int, L: int, K: int, nfreq: int,
     S = K + 2 * E + nfreq
     dev = ctr_geo.device
     dent = torch.zeros((L + K, Ep), dtype=torch.float32, device=dev)
-    dctr = torch.zeros((Cp, S), dtype=torch.float32, device=dev)
+    dctr = torch.empty((Cp, S), dtype=torch.float32, device=dev)
     dt = dtf[0]
     for chunk in _chunks(ctr_ent):
         c0, c1, e0, e1 = chunk
-        Xs, G = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
+        Xs, G, _ = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
         c = ctr_geo[c0:c1]
         fk = ent_fk[:, e0:e1]
         q = c[:, D + 3:D + 3 + K]
@@ -324,16 +465,25 @@ def _code_E(name: str, D: int, nfreq: int, dtf) -> int:
     return E
 
 
+def _rows(name: str, sweep: str, rows_per_warp: Optional[int]) -> int:
+    rows = ROWS_PER_WARP[sweep] if rows_per_warp is None else rows_per_warp
+    if not 1 <= rows <= WARP:
+        raise ValueError(f"{name}: rows_per_warp={rows} outside 1..{WARP}")
+    return rows
+
+
 def forward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
             ctr_ent, ent_geo, ent_fk, ctr_geo, dtf, *,
-            ladder: bool = False, with_totals: bool = False):
+            ladder: bool = False, with_totals: bool = False,
+            rows_per_warp: Optional[int] = None):
     """(Cp, L) raw pre-activation rows, before the L x L transform:
     sum_j G <q_i, k_j> inv_tot_i (fac feat_j + emb) over each centre's
     tile.  ``with_totals`` also returns the (Cp, 1) total density of the
     same sweep (the structure's inv_tot column is then 1 and the caller
     normalises outside).  ``ladder`` certifies frequencies[e] ==
     (e + 1) frequencies[0].  CUDA tensors launch the CUDA kernel (counted
-    in ``forward.launches``); CPU tensors run forward_plain."""
+    in ``forward.launches``), ``rows_per_warp`` centres a warp (default
+    ROWS_PER_WARP); CPU tensors run forward_plain."""
     E = _code_E("forward", D, nfreq, dtf)
     if ctr_geo.device.type == "cpu":
         return forward_plain(D, L, K, nfreq, period, ctr_ent, ent_geo,
@@ -342,6 +492,7 @@ def forward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
     dev = ctr_geo.device
     _no_kernel("forward", dev)
     lib = _library("forward", D)
+    rows = _rows("forward", "forward", rows_per_warp)
     Cp, Ep = ctr_geo.shape[0], ent_geo.shape[1]
     _check("forward", dev, _operand_specs(
         D, L, K, nfreq, ent_geo, ent_fk, ctr_geo, dtf)
@@ -354,7 +505,7 @@ def forward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
             ent_geo.data_ptr(), ent_fk.data_ptr(), Ep, ctr_geo.data_ptr(),
             ctr_cols(D, K), Cp, ctr_ent.data_ptr(), dtf.data_ptr(), D, L, K,
             nfreq, E, *_period_args(period), int(ladder), int(with_totals),
-            out.data_ptr(), tot.data_ptr(),
+            rows, out.data_ptr(), tot.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"forward: CUDA launch failed (cudaError {err})")
@@ -367,7 +518,7 @@ forward.launches = 0
 
 def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
              ranges, ent_geo, ent_fk, ctr_geo, dtf, gpre, gsum, *,
-             ladder: bool = False):
+             ladder: bool = False, rows_per_warp=(None, None)):
     """(dent, dctr) from the cotangent of forward's rows.
 
     ``gpre`` (Cp, L) is the cotangent ALREADY scaled by inv_tot per centre
@@ -380,8 +531,10 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
 
     CUDA tensors launch the two kernels of csrc/agg_backward.cu, the
     entry-major and the centre-major sweep, each counted in
-    ``backward.launches``; the centre-major one is built for nfreq 1 to 4.
-    CPU tensors run backward_plain.  Deterministic: no atomics."""
+    ``backward.launches``, with ``rows_per_warp`` (entries a warp, centres
+    a warp; None takes ROWS_PER_WARP); the centre-major one is built for
+    nfreq 1 to 4.  CPU tensors run backward_plain.  Deterministic: no
+    atomics."""
     E = _code_E("backward", D, nfreq, dtf)
     if ctr_geo.device.type == "cpu":
         return backward_plain(D, L, K, nfreq, period, ranges, ent_geo,
@@ -389,6 +542,8 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
     dev = ctr_geo.device
     _no_kernel("backward", dev)
     lib = _library("backward", D)
+    rows_e = _rows("backward", "backward_entries", rows_per_warp[0])
+    rows_c = _rows("backward", "backward_centres", rows_per_warp[1])
     ctr_ent, ent_ctr = ranges
     Cp, Ep = ctr_geo.shape[0], ent_geo.shape[1]
     _check("backward", dev, _operand_specs(
@@ -404,7 +559,7 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
             f"{max_nfreq}, got nfreq={nfreq}")
     S = K + 2 * E + nfreq
     dent = torch.empty((L + K, Ep), dtype=torch.float32, device=dev)
-    dctr = torch.zeros((Cp, S), dtype=torch.float32, device=dev)
+    dctr = torch.empty((Cp, S), dtype=torch.float32, device=dev)
     do_wrap, per = _period_args(period)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -413,14 +568,16 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
         tail = (dtf.data_ptr(), gpre.data_ptr(), gsum.data_ptr(), D, L, K,
                 nfreq, E, do_wrap, per, int(ladder))
         err = lib.dgs_agg_backward_entries(
-            *common, ent_ctr.data_ptr(), *tail, dent.data_ptr(), stream)
+            *common, ent_ctr.data_ptr(), *tail, rows_e, dent.data_ptr(),
+            stream)
         if err != 0:
             raise RuntimeError(
                 f"backward: CUDA launch of the entry-major kernel failed "
                 f"(cudaError {err})")
         backward.launches += 1
         err = lib.dgs_agg_backward_centres(
-            *common, ctr_ent.data_ptr(), *tail, dctr.data_ptr(), stream)
+            *common, ctr_ent.data_ptr(), *tail, rows_c, dctr.data_ptr(),
+            stream)
         if err != 0:
             raise RuntimeError(
                 f"backward: CUDA launch of the centre-major kernel failed "

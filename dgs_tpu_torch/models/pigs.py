@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -86,18 +86,25 @@ DIAGNOSTICS = ("bin_overflow", "entry_overflow", "work_overflow_fwd",
 
 def pigs_loss(cfg: SamplerConfig, field: GaussianField, collocation,
               data_x, data_u, f_rhs: Callable, *, w_pde: float = 1.0,
-              w_data: float = 1.0, method: str = "tiled"):
+              w_data: float = 1.0, method: str = "tiled",
+              outs_reduce: Optional[Callable] = None):
     """PDE residual + data loss; returns (loss, metrics), metrics holding
     the loss terms and the binning diagnostics as 0-d tensors.  On the
     tiled path outputs stay tile-sorted and unmirrored (the Laplacian is
     the trace of the unique Hessian components), so the targets are
     evaluated at the sorted points; the all-pairs methods give the full
-    (N, D, D, C) Hessian in sample order."""
+    (N, D, D, C) Hessian in sample order.
+
+    ``outs_reduce`` (optional) maps the raw field-outputs dict right after
+    each evaluation: the hook through which Gaussian-sharded execution sums
+    partial mixtures across shards before the nonlinear loss."""
     D = field.D
     use_tiled = method == "tiled"
     outs, diag = field_outputs(
         cfg, field, collocation, orders=("value", "laplacian"),
         method=method, sorted_outputs=use_tiled, unique_outputs=use_tiled)
+    if outs_reduce is not None:
+        outs = outs_reduce(outs)
     if use_tiled:
         col_pts = collocation[diag["perm"].long()]
         hessu = outs["laplacian"]                   # (N, tri, C) unique
@@ -111,6 +118,8 @@ def pigs_loss(cfg: SamplerConfig, field: GaussianField, collocation,
     outs_d, diag_d = field_outputs(
         cfg, field, data_x, orders=("value",), method=method,
         sorted_outputs=use_tiled, unique_outputs=use_tiled)
+    if outs_reduce is not None:
+        outs_d = outs_reduce(outs_d)
     if use_tiled:
         u_d = outs_d["value"][:, 0, :]
         tgt = data_u[diag_d["perm"].long()]

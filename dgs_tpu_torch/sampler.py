@@ -4,9 +4,11 @@ The counterpart of ``dgs_tpu/sampler.py``.  With ``method="tiled"``
 ``preprocess`` builds the binning once and the four ``sample_gaussians*``
 methods and ``sample_all`` evaluate over it through the tiled kernels; with
 ``method="pallas"`` (the dense CUDA kernels; the name is dgs_tpu's) or
-``"dense"`` (plain torch) there is no binning and every sample meets every
-Gaussian.  Outputs are differentiable w.r.t. the ``means``, ``values`` and
-``conics`` handed to ``preprocess`` (the reference's autograd contract;
+any other method string (the plain torch all-pairs path, as
+``dgs_tpu/sampler.py`` runs every method it does not name) there is no
+binning and every sample meets every Gaussian.  Outputs are
+differentiable w.r.t. the ``means``, ``values`` and ``conics`` handed to
+``preprocess`` (the reference's autograd contract;
 covariances and samples only shape the binning).  ``preprocess_aggregate``
 and ``aggregate_neighbors`` are the neighbour-aggregation subsystem over the
 same Gaussians.  The chunked method is a later slice of the port and raises
@@ -25,18 +27,19 @@ from .ops import aggregation, sampling
 from .oracle.dense import radii as compute_radii
 from .utils.debug import check_finite, snapshot_call
 
-METHODS = ("tiled", "pallas", "dense")
-_NOT_PORTED = {"chunked": "ROADMAP.md item 11 (chunked path)"}
+# "tiled" and "pallas" have paths of their own; every other string runs
+# the plain all-pairs path (method "dense"), as in dgs_tpu.
+_NOT_PORTED = {"chunked": "ROADMAP.md item 1.2 (the chunked path)"}
 
 
 class GaussianSampler:
     def __init__(self, debug: bool = False,
                  config: SamplerConfig = SamplerConfig(),
                  method: str = "tiled"):
-        if method not in METHODS:
+        if method in _NOT_PORTED:
             raise NotImplementedError(
                 f"GaussianSampler(method={method!r}) is not ported to "
-                f"dgs_tpu_torch yet: {_NOT_PORTED.get(method, 'unknown method')}")
+                f"dgs_tpu_torch yet: {_NOT_PORTED[method]}")
         self.debug = debug
         self.config = config
         self.method = method
@@ -115,7 +118,8 @@ class GaussianSampler:
         if self.method != "tiled":
             return sampling.sample_all(
                 self.means, self.values, self.conics, self.samples,
-                period=cfg.period, orders=orders, method=self.method)
+                period=cfg.period, orders=orders,
+                method="pallas" if self.method == "pallas" else "dense")
         outs = snapshot_call(
             self.debug, "sample", sampling.sample_tiled_multi,
             tuple(orders), cfg, self.means, self.values, self.conics,

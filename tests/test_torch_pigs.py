@@ -81,6 +81,53 @@ def test_pigs_loss_and_grads_match(rng):
         assert_close(g, getattr(jg, name), f"dL/d{name}", rtol=2e-3)
 
 
+@pytest.mark.parametrize("method", ["tiled", "dense"])
+def test_pigs_loss_outs_reduce_matches(rng, method):
+    """pigs_loss with an outs_reduce hook that scales every output (the
+    place where Gaussian-sharded execution sums partial mixtures): loss,
+    terms and gradients against dgs_tpu's pigs_loss with the same hook, and
+    the hook sees each evaluation's outputs once."""
+    jf, tf = _field(5, P=32)
+    col = make_samples(rng, 96, 2)
+    dx = make_samples(rng, 32, 2)
+    ju, jrhs = jpigs.manufactured_solution(2)
+    tu, trhs = tpigs.manufactured_solution(2)
+    du = np.asarray(ju(jnp.asarray(dx)))
+    scale = 0.75
+    seen = []
+
+    def jreduce(outs):
+        return {k: scale * v for k, v in outs.items()}
+
+    def treduce(outs):
+        seen.append(tuple(sorted(outs)))
+        return {k: scale * v for k, v in outs.items()}
+
+    def jloss(field):
+        return jpigs.pigs_loss(JConfig(**CFG), field, jnp.asarray(col),
+                               jnp.asarray(dx), jnp.asarray(du), jrhs,
+                               method=method, outs_reduce=jreduce)
+
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jf)
+    tl, tm = tpigs.pigs_loss(TConfig(**CFG), tf, torch.from_numpy(col),
+                             torch.from_numpy(dx), torch.from_numpy(du.copy()),
+                             trhs, method=method, outs_reduce=treduce)
+    tl.backward()
+    assert seen == [("laplacian", "value"), ("value",)]
+    plain, _ = tpigs.pigs_loss(TConfig(**CFG), tf, torch.from_numpy(col),
+                               torch.from_numpy(dx),
+                               torch.from_numpy(du.copy()), trhs,
+                               method=method)
+    assert float(plain.detach()) != float(tl.detach())
+    assert_close(tl.detach(), jl, "loss")
+    for k in ("pde", "data"):
+        assert_close(tm[k], jm[k], k)
+    for name in PARAMS:
+        g = getattr(tf, name).grad
+        assert g is not None and bool(g.abs().max() > 0), name
+        assert_close(g, getattr(jg, name), f"dL/d{name}", rtol=2e-3)
+
+
 def test_adam_matches_optax(rng):
     """torch.optim.Adam(eps=1e-8) takes optax.adam's steps from the same
     gradients (two steps, so the bias corrections are checked)."""

@@ -117,8 +117,24 @@ def test_debug_errors(rng):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.2"):
         TSampler(method="chunked")
+
+
+@pytest.mark.parametrize("method", ["brute", "dense"])
+def test_unnamed_methods_run_the_all_pairs_path(rng, method):
+    """A method string the facade does not name runs the plain all-pairs
+    path in both packages (dgs_tpu/sampler.py dispatches every method but
+    "tiled" and "chunked" there), with the same outputs."""
+    arrays = _data(rng, P=40, N=300, sigma_range=(0.05, 0.2))
+    js = JSampler(config=JConfig(), method=method)
+    js.preprocess(*map(jnp.asarray, arrays))
+    ts = TSampler(config=TConfig(), method=method)
+    ts.preprocess(*map(torch.from_numpy, arrays))
+    ref, got = js.sample_all(ORDERS), ts.sample_all(ORDERS)
+    for order in ORDERS:
+        assert_close(got[order], ref[order], order)
+    assert_close(ts.sample_gaussians(), js.sample_gaussians(), "value")
 
 
 def assert_grad_close(got, ref, err_msg=""):
