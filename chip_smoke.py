@@ -113,7 +113,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    nfreq 1 and 4, L = 12 / K = 20 (above one pass) and a tile
                    range, at P = 3,000 (tail blocks); then the warp sweep's
                    edges (agg_sweep.cuh): rows with more than 32 colliding
-                   pairs, tiles with one centre, 1 and 32 rows a warp, L
+                   pairs, tiles with one centre, 1 and 32 rows a warp
+                   (kernels.aggregate.ROWS_PER_WARP set for the case), L
                    above the widest pass, nfreq 1 and 4, open and wrapped,
                    the ladder on and off, each checked present; sentinel
                    rows must come back exactly zero.
@@ -168,6 +169,7 @@ library_ms and the D = 3 case) and, last, the result line
 The script imports no JAX and nothing of the JAX package.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1314,12 +1316,13 @@ AGG_GROUPS = ("features", "transform", "queries", "keys", "frequencies",
 
 
 def agg_case(dev, seed, P, D, L, K, nfreq, sigma, *, period=2.0,
-             ladder=False, cull=0, tile_range=None, spread=None):
+             ladder=False, cull=0, tile_range=None, spread=None, E=None):
     """A seeded cloud, its kernel aggregation structure and random
     parameters of the six groups: (cfg, (means, conics, radii), params,
     agg).  ``cull`` > 0 zeroes every cull-th radius; ``tile_range`` is a
     pair of fractions of the tile count; ``spread`` scales the means (a
-    dense cluster below 1)."""
+    dense cluster below 1); ``E`` is the distance transform's half length
+    (default 2 D nfreq + 1)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     field = init_field(g, P, D, L, sigma=sigma)
     if spread is not None:
@@ -1334,7 +1337,7 @@ def agg_case(dev, seed, P, D, L, K, nfreq, sigma, *, period=2.0,
                            cfg.eig_floor)
     if cull:
         rad[::cull] = 0.0
-    E = 2 * D * nfreq + 1
+    E = E or 2 * D * nfreq + 1
 
     def normal(*shape):
         return torch.randn(shape, generator=g, device=dev)
@@ -1363,15 +1366,23 @@ def agg_operands(params, agg):
         params["frequencies"], params["distance_transform"], agg)
 
 
-def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g,
-                        rows=None):
+@contextlib.contextmanager
+def rows_per_warp(rows):
+    """kernels.aggregate.ROWS_PER_WARP set to ``rows`` for every sweep
+    inside the block (None: left as it is)."""
+    old = dict(kagg.ROWS_PER_WARP)
+    if rows is not None:
+        kagg.ROWS_PER_WARP.update({k: rows for k in old})
+    try:
+        yield
+    finally:
+        kagg.ROWS_PER_WARP.update(old)
+
+
+def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g):
     """The three aggregation kernels against their plain versions on one
-    structure's operands and a random cotangent, the forward and backward
-    kernels at ``rows`` rows a warp (None: the wrappers' default); sentinel
-    centres and entries must come back exactly zero.  Returns the errors by
-    kernel."""
-    fwd_kw = {} if rows is None else {"rows_per_warp": rows}
-    bwd_kw = {} if rows is None else {"rows_per_warp": (rows, rows)}
+    structure's operands and a random cotangent; sentinel centres and
+    entries must come back exactly zero.  Returns the errors by kernel."""
     ent_fk, ctr_geo, dtf = agg_operands(params, agg)
     ce, ranges = agg.ctr_ent, (agg.ctr_ent, agg.ent_ctr)
     P = agg.pos.shape[0]                  # the sentinel id
@@ -1383,7 +1394,7 @@ def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g,
     for with_totals in (False, True):
         got = kagg.forward(D, L, K, nfreq, period, ce, agg.ent_geo, ent_fk,
                            ctr_geo, dtf, ladder=ladder,
-                           with_totals=with_totals, **fwd_kw)
+                           with_totals=with_totals)
         ref = kagg.forward_plain(D, L, K, nfreq, period, ce, agg.ent_geo,
                                  ent_fk, ctr_geo, dtf, ladder=ladder,
                                  with_totals=with_totals)
@@ -1400,13 +1411,13 @@ def compare_agg_kernels(agg, params, D, L, K, nfreq, period, ladder, g,
     gpre = torch.randn(ctr_geo.shape[0], L, generator=g, device=ctr_geo.device)
     gsum = gpre.sum(dim=1, keepdim=True)
     got = kagg.backward(D, L, K, nfreq, period, ranges, agg.ent_geo, ent_fk,
-                        ctr_geo, dtf, gpre, gsum, ladder=ladder, **bwd_kw)
+                        ctr_geo, dtf, gpre, gsum, ladder=ladder)
     ref = kagg.backward_plain(D, L, K, nfreq, period, ranges, agg.ent_geo,
                               ent_fk, ctr_geo, dtf, gpre, gsum, ladder=ladder)
     torch.cuda.synchronize()
     if bool((got[0][:, dead_e] != 0).any() or (got[1][dead_c] != 0).any()):
         raise AssertionError("backward: a sentinel row is not 0")
-    E = 2 * D * nfreq + 1
+    E = (dtf.shape[1] - nfreq) // 2
     for name, a, b in (
             ("backward_dfeatures", got[0][:L], ref[0][:L]),
             ("backward_dkeys", got[0][L:], ref[0][L:]),
@@ -1454,8 +1465,9 @@ def phase_parity_agg(dev, P=3000):
         # The entries are pre-shifted, so the kernels run unwrapped; the
         # wrap itself is held on the same operands (a no-op on them).
         for kernel_period in (None,) if period is None else (None, period):
-            errs = compare_agg_kernels(agg, params, D, L, K, nfreq,
-                                       kernel_period, ladder, g, rows)
+            with rows_per_warp(rows):
+                errs = compare_agg_kernels(agg, params, D, L, K, nfreq,
+                                           kernel_period, ladder, g)
             cand, coll = kagg.pair_counts(D, kernel_period, agg.ctr_ent,
                                           agg.ent_geo, agg.ctr_static)
             emit("parity_agg", D=D, period=period,
@@ -1463,6 +1475,23 @@ def phase_parity_agg(dev, P=3000):
                  nfreq=nfreq, P=P, culled_every=cull, tile_range=tile_range,
                  rows_per_warp=rows, rect=agg.rect, candidate_pairs=cand,
                  colliding_pairs=coll, **edges, err=err_fields(errs))
+    # A code stride of 2 nfreq + 1 (E = 11 at D = 2, nfreq = 2: columns 4
+    # and 9 of each half unused, and never written by the kernel) and the
+    # plain versions in chunks of 8 centres (the trailing chunks of pad
+    # centres alone are skipped there).
+    D, L, K, nfreq = 2, 3, 4, 2
+    g = torch.Generator(device=dev).manual_seed(97)
+    _, _, params, agg = agg_case(dev, 87, P, D, L, K, nfreq, AGG_SIGMA[D],
+                                 cull=7, E=11)
+    plain_rows, kagg.PLAIN_ROWS = kagg.PLAIN_ROWS, 8
+    try:
+        errs = compare_agg_kernels(agg, params, D, L, K, nfreq, None, False,
+                                   g)
+    finally:
+        kagg.PLAIN_ROWS = plain_rows
+    emit("parity_agg", D=D, period=2.0, kernel_period=None, ladder=False,
+         L=L, K=K, nfreq=nfreq, E=11, P=P, culled_every=7, plain_rows=8,
+         rect=agg.rect, err=err_fields(errs))
     # The edges the sweep's cases are for must be present.
     if not (sweep_edges[0]["most_colliding_per_centre"] > 32
             and sweep_edges[1]["most_colliding_per_centre"] > 32
@@ -2309,9 +2338,7 @@ def agg_times(dev, reps=10, steps=30):
     schedules (the warp sweep at 1 to 32 rows a warp) where the tree has
     it; each kernel's time (CUDA events, median of ``reps``), bound, share,
     registers, resident blocks and waves; the backward's split between its
-    two kernels (device time under the profiler); and, where the wrappers
-    take rows_per_warp, the forward and backward at 1 to 32 rows a warp.
-    Steps: ``steps`` synchronised host-clock times each and device busy ms
+    two kernels (device time under the profiler).  Steps: ``steps`` synchronised host-clock times each and device busy ms
     (device_profile).  Two trees are compared by running this script's
     --agg in each of them on one card, in turns (first, second, second,
     first)."""
@@ -2328,18 +2355,18 @@ def agg_times(dev, reps=10, steps=30):
         cand, coll = kagg.pair_counts(D, None, ce, agg.ent_geo,
                                       agg.ctr_static)
 
-        def fwd(**kw):
+        def fwd():
             return kagg.forward(D, L, K, nfreq, None, ce, agg.ent_geo,
-                                ent_fk, ctr_geo, dtf, ladder=ladder, **kw)
+                                ent_fk, ctr_geo, dtf, ladder=ladder)
 
-        def bwd(**kw):
+        def bwd():
             return kagg.backward(D, L, K, nfreq, None, ranges, agg.ent_geo,
                                  ent_fk, ctr_geo, dtf, gpre, gsum,
-                                 ladder=ladder, **kw)
+                                 ladder=ladder)
 
-        def split(**kw):
+        def split():
             """The backward's device ms per call by kernel."""
-            _, top = device_profile(lambda: bwd(**kw), reps)
+            _, top = device_profile(bwd, reps)
             return {k: sum(t for n, t in top if f"agg_backward_{k}" in n)
                     for k in ("entries", "centres")}
 
@@ -2373,12 +2400,6 @@ def agg_times(dev, reps=10, steps=30):
                                 "resident_blocks": resident,
                                 "waves": blocks / (132 * resident)}
         row["backward"]["split_ms"] = split()
-        if rows_tree:
-            row["rows_variants"] = {
-                r: {"forward_ms": cuda_ms(lambda: fwd(rows_per_warp=r),
-                                          reps),
-                    "backward_ms": split(rows_per_warp=(r, r))}
-                for r in (1, 2, 4, 8, 16, 32)}
         emit("agg_times", shape=shape, D=D, L=L, K=K, nfreq=nfreq,
              ladder=ladder, centres=ctr_geo.shape[0],
              entries=agg.ent_geo.shape[1], candidate_pairs=cand,

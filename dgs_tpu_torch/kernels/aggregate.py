@@ -338,7 +338,7 @@ def backward_plain(D: int, L: int, K: int, nfreq: int,
     S = K + 2 * E + nfreq
     dev = ctr_geo.device
     dent = torch.zeros((L + K, Ep), dtype=torch.float32, device=dev)
-    dctr = torch.empty((Cp, S), dtype=torch.float32, device=dev)
+    dctr = torch.zeros((Cp, S), dtype=torch.float32, device=dev)
     dt = dtf[0]
     for chunk in _chunks(ctr_ent):
         c0, c1, e0, e1 = chunk
@@ -465,25 +465,25 @@ def _code_E(name: str, D: int, nfreq: int, dtf) -> int:
     return E
 
 
-def _rows(name: str, sweep: str, rows_per_warp: Optional[int]) -> int:
-    rows = ROWS_PER_WARP[sweep] if rows_per_warp is None else rows_per_warp
+def _rows(name: str, sweep: str) -> int:
+    rows = ROWS_PER_WARP[sweep]
     if not 1 <= rows <= WARP:
-        raise ValueError(f"{name}: rows_per_warp={rows} outside 1..{WARP}")
+        raise ValueError(f"{name}: ROWS_PER_WARP[{sweep!r}]={rows} outside "
+                         f"1..{WARP}")
     return rows
 
 
 def forward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
             ctr_ent, ent_geo, ent_fk, ctr_geo, dtf, *,
-            ladder: bool = False, with_totals: bool = False,
-            rows_per_warp: Optional[int] = None):
+            ladder: bool = False, with_totals: bool = False):
     """(Cp, L) raw pre-activation rows, before the L x L transform:
     sum_j G <q_i, k_j> inv_tot_i (fac feat_j + emb) over each centre's
     tile.  ``with_totals`` also returns the (Cp, 1) total density of the
     same sweep (the structure's inv_tot column is then 1 and the caller
     normalises outside).  ``ladder`` certifies frequencies[e] ==
     (e + 1) frequencies[0].  CUDA tensors launch the CUDA kernel (counted
-    in ``forward.launches``), ``rows_per_warp`` centres a warp (default
-    ROWS_PER_WARP); CPU tensors run forward_plain."""
+    in ``forward.launches``), ROWS_PER_WARP["forward"] centres a warp;
+    CPU tensors run forward_plain."""
     E = _code_E("forward", D, nfreq, dtf)
     if ctr_geo.device.type == "cpu":
         return forward_plain(D, L, K, nfreq, period, ctr_ent, ent_geo,
@@ -492,7 +492,7 @@ def forward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
     dev = ctr_geo.device
     _no_kernel("forward", dev)
     lib = _library("forward", D)
-    rows = _rows("forward", "forward", rows_per_warp)
+    rows = _rows("forward", "forward")
     Cp, Ep = ctr_geo.shape[0], ent_geo.shape[1]
     _check("forward", dev, _operand_specs(
         D, L, K, nfreq, ent_geo, ent_fk, ctr_geo, dtf)
@@ -518,7 +518,7 @@ forward.launches = 0
 
 def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
              ranges, ent_geo, ent_fk, ctr_geo, dtf, gpre, gsum, *,
-             ladder: bool = False, rows_per_warp=(None, None)):
+             ladder: bool = False):
     """(dent, dctr) from the cotangent of forward's rows.
 
     ``gpre`` (Cp, L) is the cotangent ALREADY scaled by inv_tot per centre
@@ -531,9 +531,8 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
 
     CUDA tensors launch the two kernels of csrc/agg_backward.cu, the
     entry-major and the centre-major sweep, each counted in
-    ``backward.launches``, with ``rows_per_warp`` (entries a warp, centres
-    a warp; None takes ROWS_PER_WARP); the centre-major one is built for
-    nfreq 1 to 4.  CPU tensors run backward_plain.  Deterministic: no
+    ``backward.launches``, with ROWS_PER_WARP's entries and centres a
+    warp; the centre-major one is built for nfreq 1 to 4.  CPU tensors run backward_plain.  Deterministic: no
     atomics."""
     E = _code_E("backward", D, nfreq, dtf)
     if ctr_geo.device.type == "cpu":
@@ -542,8 +541,8 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
     dev = ctr_geo.device
     _no_kernel("backward", dev)
     lib = _library("backward", D)
-    rows_e = _rows("backward", "backward_entries", rows_per_warp[0])
-    rows_c = _rows("backward", "backward_centres", rows_per_warp[1])
+    rows_e = _rows("backward", "backward_entries")
+    rows_c = _rows("backward", "backward_centres")
     ctr_ent, ent_ctr = ranges
     Cp, Ep = ctr_geo.shape[0], ent_geo.shape[1]
     _check("backward", dev, _operand_specs(
@@ -559,7 +558,7 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
             f"{max_nfreq}, got nfreq={nfreq}")
     S = K + 2 * E + nfreq
     dent = torch.empty((L + K, Ep), dtype=torch.float32, device=dev)
-    dctr = torch.empty((Cp, S), dtype=torch.float32, device=dev)
+    dctr = torch.zeros((Cp, S), dtype=torch.float32, device=dev)
     do_wrap, per = _period_args(period)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -277,10 +277,11 @@ def _ptr(a):
 
 def structure(seed, D, P, L, K, nfreq, *, open_domain=False,
               sigma_range=(0.05, 0.25), cull=0, tile_range=None,
-              ladder=False):
+              ladder=False, E=None):
     """A seeded cloud's kernel structure and operands on the CPU: (agg,
     ent_fk, ctr_geo, dtf).  ``tile_range`` is a pair of fractions of the
-    tile count."""
+    tile count; ``E`` the distance transform's half length (default
+    2 D nfreq + 1)."""
     rng = np.random.default_rng(seed)
     means, _, covs, conics = make_gaussians(rng, P, D, 1,
                                             sigma_range=sigma_range)
@@ -297,7 +298,7 @@ def structure(seed, D, P, L, K, nfreq, *, open_domain=False,
     agg = tagg.preprocess_pallas(cfg, means, conics, rad, plan,
                                  tile_range=tile_range)
     assert int(agg.overflow) == 0
-    E = 2 * D * nfreq + 1
+    E = E or 2 * D * nfreq + 1
     freq = (0.83 * np.arange(1, nfreq + 1) if ladder
             else rng.uniform(0.5, 2.5, nfreq))
     params = [torch.from_numpy(a.astype(np.float32)) for a in (
@@ -448,6 +449,40 @@ def test_emulated_kernels_match_plain(emulated, cases, name):
     again = run_backward(bwd, D, L, K, nfreq, 2.0, agg, ent_fk, ctr_geo, dtf,
                          gpre, gsum, ladder, rows_b)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_emulated_kernels_with_unused_code_columns(emulated):
+    """A distance transform whose stride (E - 1) // D is 2 nfreq + 1 (D = 2,
+    nfreq = 2, E = 11): the forward kernel and both backward kernels
+    against the plain versions; the centre-major kernel leaves exactly the
+    unused columns of dctr unwritten (the wrapper zeroes them)."""
+    fwd, bwd = emulated
+    D, L, K, nfreq, E = 2, 3, 4, 2, 11
+    agg, ent_fk, ctr_geo, dtf = structure(40, D, 150, L, K, nfreq, cull=7,
+                                          E=E)
+    rows_b = (kagg.ROWS_PER_WARP["backward_entries"],
+              kagg.ROWS_PER_WARP["backward_centres"])
+    out = run_forward(fwd, D, L, K, nfreq, None, agg, ent_fk, ctr_geo, dtf,
+                      False, False, kagg.ROWS_PER_WARP["forward"])
+    assert_close(out, kagg.forward_plain(D, L, K, nfreq, None, agg.ctr_ent,
+                                         agg.ent_geo, ent_fk, ctr_geo, dtf),
+                 2e-4, "forward")
+    g = torch.Generator().manual_seed(4)
+    gpre = torch.randn((ctr_geo.shape[0], L), generator=g)
+    gsum = gpre.sum(dim=1, keepdim=True)
+    dent, dctr = run_backward(bwd, D, L, K, nfreq, None, agg, ent_fk,
+                              ctr_geo, dtf, gpre, gsum, False, rows_b)
+    ref_e, ref_c = kagg.backward_plain(
+        D, L, K, nfreq, None, (agg.ctr_ent, agg.ent_ctr), agg.ent_geo,
+        ent_fk, ctr_geo, dtf, gpre, gsum)
+    assert_close(dent, ref_e, 2e-3, "entry-major")
+    unused = [K + part + d * (E - 1) // D + 2 * nfreq
+              for part in (0, E) for d in range(D)]
+    written = torch.ones(dctr.shape[1], dtype=torch.bool)
+    written[unused] = False
+    assert bool(dctr[:, ~written].isnan().all())
+    assert not ref_c[:, ~written].any()
+    assert_close(dctr[:, written], ref_c[:, written], 2e-3, "centre-major")
 
 
 def test_queue_and_slot_helpers(helpers, rng):

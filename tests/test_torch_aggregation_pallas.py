@@ -408,3 +408,63 @@ def test_tile_range_with_padded_outputs(rng):
         assert_out_close(out[inside], whole[inside], str(tile_range))
         total += out
     assert_out_close(total, whole, "halves")
+
+
+@pytest.mark.parametrize("D, E", [(1, 6), (2, 11)])
+def test_code_stride_with_unused_columns(rng, D, E):
+    """A distance transform whose stride (E - 1) // D is 2 nfreq + 1 leaves
+    one column of each dimension's block unused (E - 2 at D = 1; 4 and 9
+    at D = 2, E = 11): outputs and all six gradients against dgs_tpu's,
+    and exactly zero d(distance_transform) in the unused columns."""
+    P, L, K, nfreq = 120, 4, 3, 2
+    assert (E - 1) // D == 2 * nfreq + 1
+    means, conics, radii, params = make_inputs(rng, P, D, L, K, nfreq,
+                                               cull=7)
+    params["distance_transform"] = rng.normal(0.0, 0.5, (2 * E,)).astype(
+        np.float32)
+    ja, ta = structures(means, conics, radii, D)
+    ref, g_ref = outputs_and_grads(
+        "jax", lambda *a: jagg.aggregate_pallas(
+            *a, ja, period=None, block_n=16, block_e=128), params)
+    got, g_got = outputs_and_grads(
+        "torch", lambda *a: tagg.aggregate_pallas(*a, ta), params)
+    assert_out_close(got, ref, f"D={D}, E={E}")
+    assert_grads_close(g_got, g_ref, f"D={D}, E={E}")
+    unused = [d * (E - 1) // D + 2 * nfreq for d in range(D)]
+    ddt = g_got["distance_transform"]
+    assert not ddt[unused].any() and not ddt[[E + u for u in unused]].any()
+    assert ddt[:E - 1].any()
+
+
+def test_plain_chunks_of_pad_rows_only(rng, monkeypatch):
+    """With few rows a chunk, whole chunks of the plain versions hold only
+    pad centres (empty ranges) and are skipped; their rows of the
+    backward's dctr are still exactly zero, and the gradients match
+    dgs_tpu's.  The allocator's free block is filled with NaN first, so a
+    row left unwritten shows."""
+    D, P, L, K, nfreq = 2, 90, 4, 3, 2
+    means, conics, radii, params = make_inputs(rng, P, D, L, K, nfreq, cull=7)
+    ja, ta = structures(means, conics, radii, D)
+    monkeypatch.setattr(tkagg, "PLAIN_ROWS", 8)
+    Cp = ta.cid.shape[0]
+    live = (ta.ctr_ent[1] > ta.ctr_ent[0]).numpy()
+    assert not live[-8:].any()       # a last chunk of pad centres alone
+    ref, g_ref = outputs_and_grads(
+        "jax", lambda *a: jagg.aggregate_pallas(
+            *a, ja, period=None, block_n=16, block_e=128), params)
+    got, g_got = outputs_and_grads(
+        "torch", lambda *a: tagg.aggregate_pallas(*a, ta), params)
+    assert_out_close(got, ref)
+    assert_grads_close(g_got, g_ref)
+
+    t_fk, t_ctr, t_dtf = tagg.kernel_operands(
+        *torch_all(*[params[k] for k in ("features", "queries", "keys",
+                                         "frequencies",
+                                         "distance_transform")]), ta)
+    S = K + 2 * (2 * D * nfreq + 1) + nfreq
+    torch.full((Cp, S), float("nan"))
+    gpre = torch.from_numpy(rng.normal(size=(Cp, L)).astype(np.float32))
+    _, dctr = tkagg.backward_plain(
+        D, L, K, nfreq, None, (ta.ctr_ent, ta.ent_ctr), ta.ent_geo, t_fk,
+        t_ctr, t_dtf, gpre, gpre.sum(1, keepdim=True))
+    assert not dctr[torch.from_numpy(~live)].any()
