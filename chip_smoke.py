@@ -11,6 +11,10 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --agg      # the aggregation kernels' and the
                                      # aggregation and dynamics steps' times
                                      # only (see agg_times)
+    python3 chip_smoke.py --segment  # the segment-sum's times on every
+                                     # path's rows only (see segment_times)
+
+Several modes may be given; they run in the order given.
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
@@ -45,7 +49,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    taken from the autograd graph of one loss of each path:
                    the instantiations those paths launch (pass width 1 and 2,
                    the scaled wrap); pad and sentinel columns exactly zero;
-                   the kernels' times and bounds at those shapes.
+                   the kernels' times and bounds at those shapes, and the
+                   segment-sum on the backward's rows there.
   4. slice       - the evaluation path at full width: GaussianSampler
                    (method "tiled") preprocess + sample_all(value,
                    derivative, laplacian) at P = 100,000 Gaussians x
@@ -62,13 +67,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    diagnostics, one launch of each kernel per step, finite
                    and bitwise-reproducible gradients, the backward kernel's
                    per-entry rows against its plain version and the
-                   segment-sum kernel on those rows against its plain
-                   version (bitwise) and index_add_; times the backward
-                   kernel, its plain version and the step.
+                   segment-sum kernel on those rows (entry-major, as the
+                   backward writes them, and feature-major) against its
+                   plain version (bitwise) and index_add_; times the
+                   backward kernel, its plain version and the step.
      segment     - the segment-sum at D = 3, R = 8, P = 100,000 (about 3.2 M
                    entries): its peak device memory must stay within its
-                   operands and output (no P * R^D slot buffer); the kernel
-                   bitwise equal to its plain version there.
+                   operands and output (no P * R^D slot buffer, no copy of
+                   the entry-major rows); the kernel bitwise equal to its
+                   plain version there in both layouts, and on the rows of
+                   a real D = 3 binning at 100,000 x 1,000,000; times of
+                   the kernel, index_add_ and segment_sum_rows as a whole.
   6. pigs        - PIGS training (config 4, phase A of tools/train_100k.py)
                    through dgs_tpu_torch.models.pigs.train: P = 100,000,
                    D = 2, C = 1, 262,144 collocation points, Adam lr 2e-3,
@@ -128,7 +137,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    the ladder recurrence), with the structure's pair counts,
                    the warp sweeps' body steps and lane use
                    (kernels.aggregate.warp_schedule) and the forward and
-                   backward kernels' times, bounds and shares there.
+                   backward kernels' times, bounds and shares there, and the
+                   segment-sum on the backward's entry-major rows.
  11. agg_slice   - the aggregation operating point of
                    tools/bench_aggregate.py at full width: P = 100,000,
                    D = 2, L = K = 8, nfreq = 4, through GaussianSampler
@@ -164,7 +174,7 @@ the tiled ones kept and swept pairs and the same at the trainers' shapes;
 for the aggregation kernels candidate and colliding pairs, and for the
 forward and backward the warp sweep's body steps and lane use at the
 aggregation point; the segment-sum's row also index_add_'s time as
-library_ms and the D = 3 case) and, last, the result line
+library_ms, both layouts and the D = 3 cases) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -745,46 +755,76 @@ def dense_blocks(kernel, P, N):
     return n_blocks * splits
 
 
-def segment_numbers(rows, gid, P):
-    """The segment-sum kernel against its plain version on the per-entry
-    rows ``rows`` (F, E) and their Gaussian ids (bitwise: both add each run
-    in run order), with the times of the kernel, the plain version and one
-    index_add_ (the PyTorch call that computes the same sums, in no fixed
-    order), and the byte bound (rows and ids read once, the (P, F) sums
-    written once)."""
+def segment_numbers(rows, gid, P, slots):
+    """The segment-sum on per-entry rows ``rows`` (F, E), as the backward
+    kernels hand them (the transpose view of an entry-major (E, F) buffer),
+    and their Gaussian ids ``gid``.  The kernel in both layouts it reads,
+    that view and contiguous feature-major rows, each bitwise equal to the
+    plain version (all add each run in run order), with its time; the plain
+    version's time; index_add_ (the PyTorch call that computes the same
+    sums, in no fixed order) on each layout, the entry-major one as
+    library_ms; segment_sum_rows as a whole (the sort by gid, searchsorted,
+    the slot check and the kernel) with its launches, and the sort and
+    searchsorted alone; the byte bound (rows and ids read once, the (P, F)
+    sums written once)."""
     F, E = rows.shape
-    g_sorted, order = torch.sort(gid, stable=True)
-    starts = torch.searchsorted(
-        g_sorted, torch.arange(P + 1, dtype=g_sorted.dtype, device=gid.device),
-        out_int32=True)
-    got = segment.segment_sum(rows, order, starts)
-    ref = segment.segment_sum_plain(rows, order, starts)
+    layouts = {"entry_major": (rows if rows.stride() == (1, F)
+                               else rows.T.contiguous().T),
+               "feature_major": rows.contiguous()}
+
+    def sort():
+        g_sorted, order = torch.sort(gid, stable=True)
+        return order, torch.searchsorted(
+            g_sorted, torch.arange(P + 1, dtype=g_sorted.dtype,
+                                   device=gid.device), out_int32=True)
+
+    order, starts = sort()
+    ref = segment.segment_sum_plain(layouts["feature_major"], order, starts)
+    idx = gid.long()
+    ms, library_ms, library_err = {}, {}, 0.0
+    for name, r in layouts.items():
+        got = segment.segment_sum(r, order, starts)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"segment_sum kernel ({name} rows) and "
+                                 "plain version differ")
+        ms[name] = cuda_ms(lambda: segment.segment_sum(r, order, starts))
+        acc = rows.new_zeros((P + 1, F))
+        lib = acc.clone().index_add_(0, idx, r.T)[:P]
+        library_err = max(library_err, check_close(
+            "index_add_ against the segment-sum kernel", lib, got, RTOL)[0])
+        library_ms[name] = cuda_ms(lambda: acc.index_add_(0, idx, r.T))
+    plain_ms = cuda_ms(lambda: segment.segment_sum_plain(
+        layouts["entry_major"], order, starts), reps=3)
+    view = layouts["entry_major"]
+    before = segment.segment_sum.launches
+    whole = sampling.segment_sum_rows(view, gid, P, slots)
+    launches = segment.segment_sum.launches - before
     torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError("segment_sum kernel and plain version differ")
-    idx, cols = gid.long(), rows.T
-    lib = rows.new_zeros((P + 1, F)).index_add_(0, idx, cols)[:P]
-    err = check_close("index_add_ against the segment-sum kernel", lib, got,
-                      RTOL)
-    ms = cuda_ms(lambda: segment.segment_sum(rows, order, starts))
-    plain_ms = cuda_ms(lambda: segment.segment_sum_plain(rows, order, starts),
-                       reps=3)
-    acc = rows.new_zeros((P + 1, F))
-    library_ms = cuda_ms(lambda: acc.index_add_(0, idx, cols))
+    if launches != 1 or not torch.equal(whole, ref):
+        raise AssertionError(f"segment_sum_rows: {launches} launches, "
+                             f"equal to plain {torch.equal(whole, ref)}")
     bound = 1e3 * 4 * (F * E + E + P * F) / MEM_BYTES_S
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
-            "library_max_abs_err": err[0], "bitwise_equal_to_plain": True,
-            "entries": E, "rows": F}
+    return {"max_abs_err": 0.0, "ms": ms["entry_major"], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library_ms["entry_major"],
+            "library_max_abs_err": library_err,
+            "bitwise_equal_to_plain": True, "ms_by_layout": ms,
+            "library_ms_by_layout": library_ms,
+            "segment_sum_rows_ms": cuda_ms(
+                lambda: sampling.segment_sum_rows(view, gid, P, slots)),
+            "segment_sum_rows_launches": launches, "sort_ms": cuda_ms(sort),
+            "entries": E, "rows": F, "gaussians": P}
 
 
 def segment_memory(dev, P=100_000, D=3, R=8, C=4):
     """Peak device memory of ops.sampling.segment_sum_rows at D = 3, R = 8
     and P = 100,000 (slots R^D = 512 a Gaussian) beyond its operands: each
     Gaussian a seeded count of 1 to 64 entries, 4,096 sentinel entries,
-    the entries shuffled, F = D + tri + C = 13 rows.  ``slot_layout_bytes``
-    is the size of the (P * R^D + 1, F) slot buffer that the earlier
-    segment-sum allocated (computed, not measured)."""
+    the entries shuffled, F = D + tri + C = 13 rows, entry-major as the
+    backward kernels write them.  ``slot_layout_bytes`` is the size of the
+    (P * R^D + 1, F) slot buffer that the earlier segment-sum allocated
+    (computed, not measured)."""
     g = torch.Generator(device=dev).manual_seed(5)
     counts = torch.randint(1, 65, (P,), generator=g, device=dev)
     gid = torch.cat([torch.repeat_interleave(
@@ -793,7 +833,7 @@ def segment_memory(dev, P=100_000, D=3, R=8, C=4):
     gid = gid[torch.randperm(gid.shape[0], generator=g, device=dev)].to(
         torch.int32)
     F, E = D + D * (D + 1) // 2 + C, gid.shape[0]
-    rows = torch.randn((F, E), generator=g, device=dev)
+    rows = torch.randn((E, F), generator=g, device=dev).T
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -809,17 +849,39 @@ def segment_memory(dev, P=100_000, D=3, R=8, C=4):
     return fields, rows, gid
 
 
+def segment_d3_rows(dev, P=100_000, N=1_000_000):
+    """The per-entry rows of a real D = 3 binning and their Gaussian ids:
+    the tiled backward's (all four orders, C = 4, unwrapped, tile 0.1275)
+    at 100,000 x 1,000,000 on a random cotangent, the shape of
+    tiled_times' d3_wide case; (rows, gid, P, slots)."""
+    cfg, state, geom, smp, period, P, _, g = small_case(
+        dev, 13, 3, True, 0.03, 4, P_small=P, N_small=N)
+    s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+    ct = torch.randn((ktiled.total_unique(ORDERS, 3) * 4, smp.shape[1]),
+                     generator=g, device=dev)
+    rows = ktiled.tiled_backward(ORDERS, period, 3, 4, geom, smp, ct, s_lo,
+                                 s_n)
+    E = state.num_entries
+    gid = torch.full((geom.shape[1],), P, dtype=state.ent_gid.dtype,
+                     device=dev)
+    gid[:E] = state.ent_gid[:E]
+    return rows, gid, P, cfg.max_tiles_per_gaussian ** 3
+
+
 def phase_segment(dev):
     """The segment-sum at D = 3, R = 8, P = 100,000 (segment_memory): its
     peak memory must stay within the operands and output, O(E F), with no
-    P * R^D slot buffer; and the kernel against its plain version there."""
+    P * R^D slot buffer; and the kernel against its plain version there,
+    and on the rows of a real D = 3 binning (segment_d3_rows)."""
     fields, rows, gid = segment_memory(dev)
     if fields["peak_bytes"] > fields["operand_bytes"] + fields["output_bytes"]:
         raise AssertionError(f"segment_sum_rows peak {fields['peak_bytes']} "
                              "bytes exceeds its operands and output")
-    numbers = segment_numbers(rows, gid, fields["P"])
-    emit("segment", **numbers)
-    return {**numbers, "peak_bytes": fields["peak_bytes"]}
+    numbers = segment_numbers(rows, gid, fields["P"], fields["slots"])
+    emit("segment", case="d3_r8", **numbers)
+    real = segment_numbers(*segment_d3_rows(dev))
+    emit("segment", case="d3_real", **real)
+    return ({**numbers, "peak_bytes": fields["peak_bytes"]}, real)
 
 
 def phase_slice(dev, P=100_000, N=1_000_000):
@@ -977,7 +1039,7 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
         SLICE_ORDERS, period, D, C, geom, smp, ct, s_lo, s_n), reps=3)
     gid = ktiled.prepare_entries(state, means, values, conics, ktiled.BLOCK_E,
                                  cfg=cfg)[0]
-    seg = segment_numbers(got, gid, P)
+    seg = segment_numbers(got, gid, P, cfg.max_tiles_per_gaussian ** D)
     emit("train_step", P=P, N=N, D=D, C=C, tile=cfg.tile_size,
          unwrapped_kernels=cfg.unwrapped_kernels,
          max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
@@ -1660,13 +1722,13 @@ def agg_point_calls(sampler, params):
 
 
 def sweep_numbers(D, agg):
-    """The kernels-line fields of warp_schedule for the schedule the
-    kernels use ("warp_per_row", ROWS_PER_WARP rows a warp): the forward's,
+    """The kernels-line fields of warp_schedule for the warp sweep the
+    kernels use (ROWS_PER_WARP rows a warp): the forward's,
     and the backward's over its two sweeps (each pair runs the body in
     both)."""
     n = {sweep: kagg.warp_schedule(
         D, None, agg.ctr_ent, agg.ent_ctr, agg.ent_geo, agg.ctr_static,
-        "warp_per_row", kagg.ROWS_PER_WARP[sweep])[sweep]
+        kagg.ROWS_PER_WARP[sweep])[sweep]
         for sweep in kagg.SWEEPS}
     fwd = n["forward"]
     bwd = [n["backward_entries"], n["backward_centres"]]
@@ -1864,6 +1926,20 @@ def dynamics_structure(dev, P=DYN_P):
     return cfg, gen, field, nbr, params
 
 
+def dynamics_groups(field, params, nfreq=2):
+    """The aggregation's parameter groups as the dynamics step hands them
+    to the kernels: the field's values as features, the frequencies the
+    ladder that rollout_step builds from the (1,) base."""
+    with torch.no_grad():
+        return dict(
+            features=field.values.detach(), queries=params.queries.detach(),
+            keys=params.keys.detach(),
+            frequencies=params.frequencies.detach()[0] * torch.arange(
+                1, nfreq + 1, dtype=torch.float32,
+                device=field.values.device),
+            distance_transform=params.distance_transform.detach())
+
+
 def phase_parity_dynamics(dev, P=DYN_P):
     """The aggregation kernels against their plain versions on the
     operands the dynamics step gives them at full width: L = 1, K = 4,
@@ -1873,14 +1949,7 @@ def phase_parity_dynamics(dev, P=DYN_P):
     if int(nbr.overflow):
         raise AssertionError(f"aggregation overflow {int(nbr.overflow)}")
     K = params.queries.shape[1]
-    with torch.no_grad():
-        groups = dict(
-            features=field.values.detach(), queries=params.queries.detach(),
-            keys=params.keys.detach(),
-            # the ladder rollout_step builds from the (1,) base
-            frequencies=params.frequencies.detach()[0] * torch.arange(
-                1, nfreq + 1, dtype=torch.float32, device=dev),
-            distance_transform=params.distance_transform.detach())
+    groups = dynamics_groups(field, params, nfreq)
     errs = compare_agg_kernels(nbr, groups, D, L, K, nfreq, None, True, gen)
     # The untrained parameters are small, so the absolute floor of
     # check_close is loose here: also hold each result's largest error
@@ -1915,11 +1984,15 @@ def phase_parity_dynamics(dev, P=DYN_P):
     for kind, counts in sweep_numbers(D, nbr).items():
         if kind in numbers:
             numbers[kind].update(counts)
+    dent = calls["backward"]()[0]
+    numbers["segment_sum"] = segment_numbers(dent, nbr.ent_gid, P,
+                                             nbr.rect ** D)
     emit("parity_dynamics", P=P, D=D, L=L, K=K, nfreq=nfreq, ladder=True,
          rect=nbr.rect, entries=int((nbr.ent_gid < P).sum()),
          candidate_pairs=cand, colliding_pairs=coll, err=err_fields(errs),
          kernel_ms={k: v["ms"] for k, v in numbers.items()},
          kernels=numbers)
+    return numbers["segment_sum"]
 
 
 def dynamics_step(dev, P=DYN_P, n_eval=DYN_EVAL):
@@ -1959,7 +2032,8 @@ def pigs_step(dev):
 def tiled_evaluations(t):
     """The tiled evaluations in the autograd graph under ``t``, each as the
     operands its two kernels were (and will be) launched with: a list of
-    dicts (orders, period, D, C, geom, smp, state)."""
+    dicts (orders, period, D, C, geom, smp, state, and the entries' gid, P
+    and slots for the segment-sum)."""
     seen, stack, found = set(), [t.grad_fn], []
     while stack:
         fn = stack.pop()
@@ -1967,10 +2041,11 @@ def tiled_evaluations(t):
             continue
         seen.add(fn)
         if type(fn).__name__ == "_TiledForwardBackward":
-            geom, smp, _ = fn.saved_tensors
+            geom, smp, gid = fn.saved_tensors
             found.append(dict(orders=fn.orders, period=fn.kernel_period,
                               D=fn.D, C=fn.C, geom=geom.detach(), smp=smp,
-                              state=fn.state))
+                              state=fn.state, gid=gid, P=fn.P,
+                              slots=fn.slots))
         stack.extend(f for f, _ in fn.next_functions)
     return found
 
@@ -2009,7 +2084,8 @@ def phase_parity_paths(dev):
     """Both tiled kernels against their plain versions on the operands the
     PIGS step and the dynamics step give them, at full width (the headline
     instantiation is held at full width by slice and train_step), with the
-    kernels' times and bounds at those shapes."""
+    kernels' times and bounds at those shapes, and the segment-sum on the
+    backward's rows there."""
     numbers = {}
     for name, ev in path_cases(dev).items():
         orders, period, D, C = ev["orders"], ev["period"], ev["D"], ev["C"]
@@ -2058,6 +2134,8 @@ def phase_parity_paths(dev):
                 "kept_pairs": pairs,
                 "swept_pairs": swept_pairs(state, side),
                 **instantiation(kernel, orders, D, C, period)}
+        numbers[name]["segment_sum"] = segment_numbers(
+            got_b, ev["gid"], ev["P"], ev["slots"])
         emit("parity_paths", path=name, orders=list(orders), D=D, C=C,
              wrapped=period is not None, samples=int(state.s_perm.shape[0]),
              entries=entries, pairs=pairs, pad_columns_zero=pads,
@@ -2274,12 +2352,58 @@ def dense_times(dev, reps=10, steps=30):
     emit("spin", **_spin)
 
 
+def segment_times(dev):
+    """The segment-sum (segment_numbers: both layouts, index_add_,
+    segment_sum_rows as a whole, the sort) on the per-entry rows of every
+    shape a path gives it, each from its backward kernel on a random
+    cotangent (python3 chip_smoke.py --segment): the headline training
+    step (tiled backward, 321,920 entries x 9 rows), the synthetic D = 3,
+    R = 8 case of segment_memory, a real D = 3 binning at 100,000 x
+    1,000,000 (segment_d3_rows) and the dynamics step's aggregation
+    backward (L + K = 5 rows).  Two trees are compared by running this
+    script's --segment in each of them on one card, in turns."""
+    P, D, C = 100_000, 2, 4
+    _, _, (means, values, covs, conics), samples, cfg, sb, _, _ = \
+        headline_step(dev, P, 1_000_000, C)
+    state = binning.build(cfg, means, covs, samples, sample_binning=sb)
+    geom, smp, _, _ = operands(state, (means, values, conics), samples, cfg)
+    s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+    g = torch.Generator(device=dev).manual_seed(7)
+    ct = torch.randn((ktiled.total_unique(SLICE_ORDERS, D) * C,
+                      smp.shape[1]), generator=g, device=dev)
+    rows = ktiled.tiled_backward(
+        SLICE_ORDERS, None if cfg.unwrapped_kernels else cfg.period, D, C,
+        geom, smp, ct, s_lo, s_n)
+    gid = ktiled.prepare_entries(state, means, values, conics, ktiled.BLOCK_E,
+                                 cfg=cfg)[0]
+    emit("segment_times", case="headline", **segment_numbers(
+        rows, gid, P, cfg.max_tiles_per_gaussian ** D))
+    fields, rows, gid = segment_memory(dev)
+    emit("segment_times", case="d3_r8", **segment_numbers(
+        rows, gid, fields["P"], fields["slots"]))
+    emit("segment_times", case="d3_real",
+         **segment_numbers(*segment_d3_rows(dev)))
+    _, gen, field, nbr, dparams = dynamics_structure(dev)
+    L, K, nfreq = 1, dparams.queries.shape[1], 2
+    ent_fk, ctr_geo, dtf = agg_operands(
+        dynamics_groups(field, dparams, nfreq), nbr)
+    gpre = torch.randn((ctr_geo.shape[0], L), generator=gen, device=dev)
+    dent, _ = kagg.backward(D, L, K, nfreq, None, (nbr.ctr_ent, nbr.ent_ctr),
+                            nbr.ent_geo, ent_fk, ctr_geo, dtf, gpre,
+                            gpre.sum(dim=1, keepdim=True), ladder=True)
+    emit("segment_times", case="dynamics_agg", **segment_numbers(
+        dent, nbr.ent_gid, DYN_P, nbr.rect ** D))
+    emit("spin", **_spin)
+
+
 def agg_instantiation(kernel, D, L, K, nfreq, ladder):
     """{"registers", "shared_bytes", "spill_bytes"} of the aggregation
-    kernel ("forward", "backward_entries", "backward_centres") that the
-    shapes launch, from the ptxas report of the build."""
+    kernel ("totals", "forward", "backward_entries", "backward_centres")
+    that the shapes launch (unwrapped), from the ptxas report of the
+    build."""
     lad = int(ladder)
-    name = {"forward": f"agg_forward_kernelILi{D}ELb{lad}ELb0ELi"
+    name = {"totals": f"agg_totals_kernelILi{D}ELb0EE",
+            "forward": f"agg_forward_kernelILi{D}ELb{lad}ELb0ELi"
                        f"{8 if L > 4 else 4}EE",
             "backward_entries": f"agg_backward_entries_kernelILi{D}ELb{lad}"
                                 f"ELi{16 if L + K > 8 else 8}EE",
@@ -2306,12 +2430,7 @@ def agg_shapes(dev):
     point_agg = sampler.preprocess_aggregate(method="pallas")
     _, _, field, nbr, dparams = dynamics_structure(dev)
     nfreq = 2
-    dyn_groups = dict(
-        features=field.values.detach(), queries=dparams.queries.detach(),
-        keys=dparams.keys.detach(),
-        frequencies=dparams.frequencies.detach()[0] * torch.arange(
-            1, nfreq + 1, dtype=torch.float32, device=dev),
-        distance_transform=dparams.distance_transform.detach())
+    dyn_groups = dynamics_groups(field, dparams, nfreq)
     return sampler, params, {
         "aggregation_point": (point_agg, params, *AGG_DIMS, False),
         "dynamics": (nbr, dyn_groups, 2, 1, dparams.queries.shape[1], nfreq,
@@ -2319,33 +2438,29 @@ def agg_shapes(dev):
 
 
 def agg_schedules(shapes):
-    """warp_schedule's counts at each shape: the block-staged lane_per_row
-    schedule (the first aggregation kernels) and the warp sweep at 1 to 32
+    """warp_schedule's counts of the warp sweep at each shape, at 1 to 32
     rows a warp."""
     for shape, (agg, _, D, *_) in shapes.items():
-        for schedule, rows in [("lane_per_row", 1)] + [
-                ("warp_per_row", r) for r in (1, 2, 4, 8, 16, 32)]:
-            emit("agg_schedule", shape=shape, schedule=schedule,
-                 rows_per_warp=rows, **kagg.warp_schedule(
-                     D, None, agg.ctr_ent, agg.ent_ctr, agg.ent_geo,
-                     agg.ctr_static, schedule, rows))
+        for rows in (1, 2, 4, 8, 16, 32):
+            emit("agg_schedule", shape=shape, rows_per_warp=rows,
+                 **kagg.warp_schedule(D, None, agg.ctr_ent, agg.ent_ctr,
+                                      agg.ent_geo, agg.ctr_static, rows))
 
 
 def agg_times(dev, reps=10, steps=30):
     """Kernels 5-7 through their wrappers at the aggregation point and at
     the dynamics shapes, and the aggregation and dynamics steps (python3
-    chip_smoke.py --agg).  Per shape: warp_schedule's counts of both
-    schedules (the warp sweep at 1 to 32 rows a warp) where the tree has
-    it; each kernel's time (CUDA events, median of ``reps``), bound, share,
-    registers, resident blocks and waves; the backward's split between its
-    two kernels (device time under the profiler).  Steps: ``steps`` synchronised host-clock times each and device busy ms
-    (device_profile).  Two trees are compared by running this script's
-    --agg in each of them on one card, in turns (first, second, second,
-    first)."""
-    rows_tree = getattr(kagg, "ROWS_PER_WARP", None)
+    chip_smoke.py --agg).  Per shape: warp_schedule's counts of the warp
+    sweep at 1 to 32 rows a warp; each kernel's time (CUDA events, median
+    of ``reps``), bound, share, registers, resident blocks and waves; the
+    backward's split between its two kernels (device time under the
+    profiler).  Steps: ``steps`` synchronised host-clock times each and
+    device busy ms (device_profile).  Two trees are compared by running
+    this script's --agg in each of them on one card, in turns (first,
+    second, second, first)."""
+    rows_tree = kagg.ROWS_PER_WARP
     sampler, params, shapes = agg_shapes(dev)
-    if hasattr(kagg, "warp_schedule"):
-        agg_schedules(shapes)
+    agg_schedules(shapes)
     for shape, (agg, groups, D, L, K, nfreq, ladder) in shapes.items():
         ent_fk, ctr_geo, dtf = agg_operands(groups, agg)
         ce, ranges = agg.ctr_ent, (agg.ctr_ent, agg.ent_ctr)
@@ -2378,10 +2493,12 @@ def agg_times(dev, reps=10, steps=30):
                  "backward": sum(t.numel() for t in (
                      agg.ent_geo, ent_fk, ctr_geo, dtf, gpre, gsum, ce,
                      agg.ent_ctr)) + sum(t.numel() for t in bwd())}
+        def tot():
+            return kagg.totals(D, None, ce, agg.ent_geo, agg.ctr_static)
+
         row = {}
         for kind, call, kernels in (
-                ("totals", lambda: kagg.totals(D, None, ce, agg.ent_geo,
-                                               agg.ctr_static), ()),
+                ("totals", tot, ("totals",)),
                 ("forward", fwd, ("forward",)),
                 ("backward", bwd, ("backward_entries", "backward_centres"))):
             ms = cuda_ms(call, reps)
@@ -2392,7 +2509,7 @@ def agg_times(dev, reps=10, steps=30):
                 inst = agg_instantiation(k, D, L, K, nfreq, ladder)
                 n_rows = (agg.ent_geo.shape[1] if k == "backward_entries"
                           else ctr_geo.shape[0])
-                per_block = 4 * rows_tree[k] if rows_tree else 128
+                per_block = 128 if k == "totals" else 4 * rows_tree[k]
                 blocks = -(-n_rows // per_block)
                 resident = resident_blocks(inst["registers"], 128,
                                            inst["shared_bytes"])
@@ -2421,12 +2538,12 @@ def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
     build = phase_build()
-    if sys.argv[1:] == ["--tiled"]:
-        return tiled_times(dev)
-    if sys.argv[1:] == ["--dense"]:
-        return dense_times(dev)
-    if sys.argv[1:] == ["--agg"]:
-        return agg_times(dev)
+    modes = {"--tiled": tiled_times, "--dense": dense_times,
+             "--agg": agg_times, "--segment": segment_times}
+    if sys.argv[1:]:
+        for mode in sys.argv[1:]:
+            modes[mode](dev)
+        return
     agg_spills = {k: b for k, b in build["spilling_kernels"].items()
                   if k.startswith("agg_")}
     if agg_spills:
@@ -2439,11 +2556,13 @@ def main():
     phase_parity_dense_bwd(dev)
     phase_parity_agg(dev)
     phase_parity_agg_oracle(dev)
-    phase_parity_dynamics(dev)
+    seg_dynamics = phase_parity_dynamics(dev)
     by_shape = phase_parity_paths(dev)
     slice_launches, k_fwd = phase_slice(dev)
     train_launches, k_bwd, k_seg, train_step = phase_train_step(dev)
-    k_seg["d3_r8"] = phase_segment(dev)
+    k_seg["d3_r8"], k_seg["d3_real"] = phase_segment(dev)
+    k_seg["by_shape"] = {"dynamics_agg": seg_dynamics, **{
+        p: v["segment_sum"] for p, v in by_shape.items()}}
     pigs_launches = phase_pigs(dev)
     (dense_eval_launches, dense_step_launches, k_dfwd, k_dbwd,
      dense_step) = phase_dense_slice(dev)

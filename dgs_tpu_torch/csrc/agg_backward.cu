@@ -21,8 +21,9 @@
 //     the centre range of their tile.  A pair's partials are the entry's
 //     L + K output rows, g_i[l] G w fac and q_i[k] dw, taken RB at a time
 //     (RB is 8 or 16, the wrapper's pick, so L + K <= 16 is one pass).
-//     Output (L + K, Ep); the caller segment-sums the columns by Gaussian
-//     id.
+//     Output entry-major, (Ep, L + K): an entry's rows are one record,
+//     stored by consecutive lanes, which the segment-sum by Gaussian id
+//     (csrc/segment_sum.cu) reads in one piece.
 //   * centre-major (agg_backward_centres_kernel): rows are the centres, over
 //     the entry range of their tile.  A pair's partials are KB query
 //     gradients k_j[k] dw and, in the first pass, the 4 D nfreq + 2 + nfreq
@@ -84,7 +85,7 @@ __global__ void __launch_bounds__(kBlock, kEntryBlocks)
     const float* __restrict__ gpre,     // (Cp, L) cotangent, inv_tot-scaled
     const float* __restrict__ gsum,     // (Cp,) its channel sum
     int L, int K, int nfreq, int E, int do_wrap, float period, int rows,
-    float* __restrict__ dent) {         // (L + K, Ep)
+    float* __restrict__ dent) {         // (Ep, L + K), entry-major
   constexpr int TRI = dgs::tri_size(D);
   static_assert(kWarps * sizeof(dgs::SweepScratch<RB>) +
                         kMaxCode * sizeof(float) <= 48 * 1024,
@@ -161,7 +162,7 @@ __global__ void __launch_bounds__(kBlock, kEntryBlocks)
       }
     };
     auto store = [&](int slot, int ch, float v) {
-      if (ch < RB && r0 + ch < R) dent[(r0 + ch) * Ep + row0 + slot] = v;
+      if (ch < RB && r0 + ch < R) dent[(row0 + slot) * R + r0 + ch] = v;
     };
     dgs::warp_sweep<RB>(s_sweep[warp], nrows, lo, hi, cand, body, store);
   }

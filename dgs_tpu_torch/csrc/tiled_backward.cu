@@ -5,9 +5,12 @@
 // (_wl_backward_kernel, classic _compute_one branch).  Same contract: for
 // every tile-sorted entry, the gradient of the loss w.r.t. the entry's
 // period-shifted mean (D rows), packed conic (tri rows) and values (C rows),
-// summed over the sorted samples on the entry's tile, written to a packed
-// (D + tri + C, Ep) fp32 array in entry order.  The caller segment-sums the
-// rows by Gaussian id (ops/sampling.py), so no atomics are needed here.
+// summed over the sorted samples on the entry's tile, written entry-major:
+// a packed (Ep, D + tri + C) fp32 array in entry order, one record of
+// D + tri + C values an entry (the wrapper hands it on as its
+// (D + tri + C, Ep) transpose).  The caller segment-sums the records by
+// Gaussian id (ops/sampling.py, csrc/segment_sum.cu), so no atomics are
+// needed here; a record is the segment-sum's contiguous read.
 //
 // Design.  The mirror of tiled_forward.cu.  One warp owns 32 consecutive
 // tile-sorted entries, one per lane, with the entry's parameters and its
@@ -127,7 +130,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) tiled_backward_kernel(
     const int* __restrict__ s_lo,    // (Ep / 32,) first sample of each warp's range
     const int* __restrict__ s_n,     // (Ep / 32,) length of the range
     float period, float inv_period, OrderRows rows,
-    float* __restrict__ out) {       // (D + tri + C, Ep)
+    float* __restrict__ out) {       // (Ep, D + tri + C), entry-major
   constexpr int TRI = dgs::tri_size(D);
   constexpr int K = dgs::total_unique(D, MASK);
   constexpr int NV = dgs::bwd_record_vecs(K, CB);
@@ -143,6 +146,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) tiled_backward_kernel(
   const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / kWarp;
   if (w * kWarp >= Ep) return;   // whole warps only: no barrier follows
   const long long col = w * kWarp + lane;
+  float* rec = out + col * (D + TRI + C);   // the entry's output record
   Entry<D, CB> ent;
   const float tile = geom[col];
 #pragma unroll
@@ -194,13 +198,13 @@ __global__ void __launch_bounds__(kWarps * kWarp) tiled_backward_kernel(
 
 #pragma unroll
     for (int c = 0; c < CB; ++c)
-      if (c0 + c < C) out[(D + TRI + c0 + c) * Ep + col] = ent.dv[c];
+      if (c0 + c < C) rec[D + TRI + c0 + c] = ent.dv[c];
   }
 
 #pragma unroll
-  for (int d = 0; d < D; ++d) out[d * Ep + col] = ent.dmu[d];
+  for (int d = 0; d < D; ++d) rec[d] = ent.dmu[d];
 #pragma unroll
-  for (int t = 0; t < TRI; ++t) out[(D + t) * Ep + col] = ent.dcon[t];
+  for (int t = 0; t < TRI; ++t) rec[D + t] = ent.dcon[t];
 }
 
 template <int D, int MASK, int CB>

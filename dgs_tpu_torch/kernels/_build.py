@@ -84,7 +84,8 @@ def load() -> ctypes.CDLL:
             p, i, i, p, i, p, i, i, i, i, i, ctypes.c_float, p, p,
         ]
         lib.dgs_dense_backward.restype = i
-        lib.dgs_segment_sum.argtypes = [p, i, i, p, p, i, p, p]
+        ll = ctypes.c_longlong
+        lib.dgs_segment_sum.argtypes = [p, ll, ll, i, p, p, i, p, p]
         lib.dgs_segment_sum.restype = i
         f = ctypes.c_float
         lib.dgs_agg_totals.argtypes = [p, i, p, i, i, p, i, i, f, p, p]

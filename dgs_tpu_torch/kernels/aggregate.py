@@ -160,17 +160,12 @@ def pair_counts(D: int, period: Optional[float], ctr_ent, ent_geo, ctr_geo):
 
 # The kernels' sweeps: rows of one side against their range of the other.
 SWEEPS = ("forward", "backward_entries", "backward_centres")
-SCHEDULES = ("lane_per_row", "warp_per_row")
-# Entries or centres per staged chunk of the lane_per_row kernels (their
-# kChunk, kChunkC, kChunkE).
-_LANE_CHUNK = {"forward": 128, "backward_entries": 64,
-               "backward_centres": 128}
 
 
 def _masked_pairs(D, period, ctr_ent, ent_geo, ctr_geo):
     """(centre, entry, colliding) of every pair under the collision mask:
-    the pairs whose body a warp_per_row kernel runs; colliding (G > 0) as
-    in pair_counts."""
+    the pairs whose body the warp sweep runs; colliding (G > 0) as in
+    pair_counts."""
     rows, cols, coll = [], [], []
     for chunk in _chunks(ctr_ent):
         _, G, mask = _pair(D, period, ctr_ent, ent_geo, ctr_geo, chunk)
@@ -185,50 +180,8 @@ def _masked_pairs(D, period, ctr_ent, ent_geo, ctr_geo):
     return torch.cat(rows), torch.cat(cols), torch.cat(coll)
 
 
-def _lane_per_row_steps(ranges, row, col, chunk):
-    """(sweep steps, body steps) of a lane_per_row kernel: a block of BLOCK
-    rows stages the union of its rows' ranges in chunks of ``chunk``; in
-    each chunk a lane steps through the part inside its own range, so a
-    warp takes as many steps as its busiest lane, and its k-th step runs
-    the pair body when the k-th pair of any lane is under the mask."""
-    n = ranges.shape[1]
-    lo, hi = ranges[0].long(), ranges[1].long()
-    live = hi > lo
-    if not bool(live.any()):
-        return 0, 0
-    block = torch.arange(n, device=lo.device) // BLOCK
-    big = 1 << 62
-    blo = torch.full((-(-n // BLOCK),), big, dtype=torch.long,
-                     device=lo.device)
-    blo = blo.scatter_reduce(0, block[live], lo[live], "amin")
-    # Each live row's chunks: its range cut at the block's chunk grid.
-    r = torch.nonzero(live).squeeze(1)
-    b0 = blo[block[r]]
-    c_first = (lo[r] - b0) // chunk
-    c_last = (hi[r] - 1 - b0) // chunk
-    reps = c_last - c_first + 1
-    rr = torch.repeat_interleave(r, reps)
-    cidx = (torch.repeat_interleave(c_first, reps)
-            + torch.arange(int(reps.sum()), device=lo.device)
-            - torch.repeat_interleave(torch.cumsum(reps, 0) - reps, reps))
-    e0 = blo[block[rr]] + cidx * chunk
-    count = (torch.minimum(hi[rr], e0 + chunk)
-             - torch.maximum(lo[rr], e0))
-    n_chunks = int(c_last.max()) + 2
-    key = (rr // WARP) * n_chunks + cidx
-    uk, inv = torch.unique(key, return_inverse=True)
-    steps = torch.zeros(uk.shape, dtype=torch.long, device=lo.device)
-    steps = steps.scatter_reduce(0, inv, count, "amax")
-    # Body steps: the distinct (warp, chunk, step) of the masked pairs.
-    bp = blo[block[row]]
-    pc = (col - bp) // chunk
-    k = col - torch.maximum(lo[row], bp + pc * chunk)
-    body = torch.unique(((row // WARP) * n_chunks + pc) * chunk + k)
-    return int(steps.sum()), int(body.numel())
-
-
 def _warp_per_row_steps(ranges, row, rows_per_warp):
-    """(sweep steps, body steps) of a warp_per_row kernel: a warp owns
+    """(sweep steps, body steps) of the warp sweep: a warp owns
     ``rows_per_warp`` consecutive rows and tests their ranges, one after
     another, 32 columns a step; the masked columns go to a queue in order,
     drained 32 at a time across the warp's rows and once at their end
@@ -244,43 +197,30 @@ def _warp_per_row_steps(ranges, row, rows_per_warp):
 
 
 def warp_schedule(D: int, period: Optional[float], ctr_ent, ent_ctr,
-                  ent_geo, ctr_geo, schedule: str, rows_per_warp: int = 1):
-    """How a kernel schedule spends its warps on a structure, per sweep
-    (``SWEEPS``: the forward, and the backward's entry-major and
-    centre-major sweeps), counted in plain torch from the structure alone:
+                  ent_geo, ctr_geo, rows_per_warp: int = 1):
+    """How the warp sweep of the kernels (csrc/agg_sweep.cuh: one warp over
+    ``rows_per_warp`` consecutive rows, its lanes across each row's range,
+    the masked pairs compacted into a queue) spends its warps on a
+    structure, per sweep (``SWEEPS``: the forward, and the backward's
+    entry-major and centre-major sweeps), counted in plain torch from the
+    structure alone:
 
     * ``candidate_pairs``, ``colliding_pairs``: as pair_counts;
     * ``body_pairs``: the pairs under the collision mask (radii alive, the
-      distance test), whose body the kernel runs (a pair whose quadratic
-      form is positive, which a positive-definite conic never gives, would
-      leave the lane_per_row body early);
+      distance test), whose body the kernel runs;
     * ``sweep_steps``: warp steps of the candidate test, 32 candidates
-      each (a warp_per_row kernel takes two of them in one loop pass);
+      each (the kernels take two of them in one loop pass);
     * ``body_steps``: warp steps that run the pair body;
-    * ``lane_use``: colliding pairs / (32 body_steps).
-
-    ``schedule`` "lane_per_row" is the first aggregation kernels' (one
-    lane a tile-sorted row, 32 rows a warp, a block-wide staged range);
-    "warp_per_row" is one warp over ``rows_per_warp`` consecutive rows with
-    its lanes across each row's range and the masked pairs compacted into a
-    queue."""
-    if schedule not in SCHEDULES:
-        raise ValueError(f"unknown schedule {schedule!r}: one of "
-                         f"{SCHEDULES}")
+    * ``lane_use``: colliding pairs / (32 body_steps)."""
     row_c, col_e, coll = _masked_pairs(D, period, ctr_ent, ent_geo, ctr_geo)
     candidates = int((ctr_ent[1] - ctr_ent[0]).long().sum())
     colliding = int(coll.sum())
     out = {}
     for sweep in SWEEPS:
-        ranges, row, col = ((ent_ctr, col_e, row_c)
-                            if sweep == "backward_entries"
-                            else (ctr_ent, row_c, col_e))
-        if schedule == "lane_per_row":
-            sweep_steps, body_steps = _lane_per_row_steps(
-                ranges, row, col, _LANE_CHUNK[sweep])
-        else:
-            sweep_steps, body_steps = _warp_per_row_steps(ranges, row,
-                                                          rows_per_warp)
+        ranges, row = ((ent_ctr, col_e) if sweep == "backward_entries"
+                       else (ctr_ent, row_c))
+        sweep_steps, body_steps = _warp_per_row_steps(ranges, row,
+                                                      rows_per_warp)
         out[sweep] = dict(
             candidate_pairs=candidates, colliding_pairs=colliding,
             body_pairs=int(row.numel()), sweep_steps=sweep_steps,
@@ -524,7 +464,9 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
     ``gpre`` (Cp, L) is the cotangent ALREADY scaled by inv_tot per centre
     and ``gsum`` (Cp, 1) its channel sum; ``ranges`` is (ctr_ent, ent_ctr).
     dent (L + K, Ep) holds the per-entry rows of dfeatures and dkeys (the
-    caller segment-sums the columns by Gaussian id); dctr
+    caller segment-sums the columns by Gaussian id; the CUDA kernel writes
+    them entry-major, so its dent is the transpose view of an
+    (Ep, L + K) buffer, the plain version's contiguous); dctr
     (Cp, K + 2E + nfreq) one row per centre: dqueries, then the centre's
     partial sums of d(distance_transform) and d(frequencies) (the caller
     sums them over centres).
@@ -557,7 +499,7 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
             f"backward: the centre-major kernel is built for nfreq 1 to "
             f"{max_nfreq}, got nfreq={nfreq}")
     S = K + 2 * E + nfreq
-    dent = torch.empty((L + K, Ep), dtype=torch.float32, device=dev)
+    dent = torch.empty((Ep, L + K), dtype=torch.float32, device=dev)
     dctr = torch.zeros((Cp, S), dtype=torch.float32, device=dev)
     do_wrap, per = _period_args(period)
     with torch.cuda.device(dev):
@@ -582,7 +524,7 @@ def backward(D: int, L: int, K: int, nfreq: int, period: Optional[float],
                 f"backward: CUDA launch of the centre-major kernel failed "
                 f"(cudaError {err})")
         backward.launches += 1
-    return dent, dctr
+    return dent.T, dctr
 
 
 backward.launches = 0

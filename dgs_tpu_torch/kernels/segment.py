@@ -12,6 +12,10 @@ bitwise.  A CUDA tensor launches the hand-written kernel
 ``segment_sum_plain``, the same sums in the same order in plain torch.
 Memory is the (P, F) output beside the operands, not a slot per possible
 entry.
+
+The rows are read through their strides and never copied: the backward
+kernels write them entry-major, an (E, F) buffer handed on as its (F, E)
+transpose, where an entry's F values are one contiguous record.
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ def segment_sum_plain(rows, order, starts) -> torch.Tensor:
 def segment_sum(rows, order, starts) -> torch.Tensor:
     """(P, F) fp32 sums of the columns of ``rows`` (F, E) over each
     Gaussian's run: Gaussian g sums the columns ``order[starts[g]:starts[g
-    + 1]]`` in that order.  ``order`` (E,) int64 is the entries' stable sort
+    + 1]]`` in that order.  ``rows`` may be any strided view (the kernel
+    reads it in place: an entry-major (E, F) buffer's transpose, or
+    contiguous (F, E) rows).  ``order`` (E,) int64 is the entries' stable sort
     by gid, ``starts`` (P + 1,) int32 the first position of each gid in it;
     entries past ``starts[P]`` (gid == P, sentinels) are not read.  CUDA
     tensors launch the CUDA kernel (counted in ``segment_sum.launches``); CPU
@@ -59,14 +65,15 @@ def segment_sum(rows, order, starts) -> torch.Tensor:
         raise ValueError(f"segment_sum: no kernel for device {dev}")
     from . import _build
 
-    rows, order, starts = (t.contiguous() for t in (rows, order, starts))
+    order, starts = order.contiguous(), starts.contiguous()
     out = torch.empty((P, F), dtype=torch.float32, device=dev)
     if P == 0 or F == 0:
         return out
+    sf, se = rows.stride()
     with torch.cuda.device(dev):
         err = _build.load().dgs_segment_sum(
-            rows.data_ptr(), E, F, order.data_ptr(), starts.data_ptr(), P,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            rows.data_ptr(), sf, se, F, order.data_ptr(), starts.data_ptr(),
+            P, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum: CUDA launch failed (cudaError {err})")
     segment_sum.launches += 1

@@ -304,7 +304,10 @@ def tiled_backward(orders: Tuple[str, ...], period: Optional[float],
                    D: int, C: int, geom, smp, ct, s_lo, s_n) -> torch.Tensor:
     """Packed per-entry gradients (D + tri + C, Ep) fp32: mean rows, conic
     rows, value rows, in the entry order of ``geom``; sentinel and pad
-    entries come back zero.  ``ct`` is the lane-major (K*C, Np) cotangent
+    entries come back zero.  The CUDA kernel writes them entry-major, so
+    its result is the transpose view of an (Ep, D + tri + C) buffer (each
+    entry's rows one contiguous record, what the segment-sum reads); the
+    plain version's is contiguous.  ``ct`` is the lane-major (K*C, Np) cotangent
     of tiled_forward's output; ``period`` is None exactly when the forward
     ran unwrapped.  The caller segment-sums the rows by Gaussian id.  CUDA
     tensors launch the CUDA kernel (counted in
@@ -350,7 +353,7 @@ def _tiled_backward_cuda(orders, period, D, C, geom, smp, ct, s_lo, s_n):
     if lib.dgs_tiled_backward_block() != BLOCK_E:
         raise RuntimeError("tiled_backward: kernel library range size "
                            "differs from kernels.tiled.BLOCK_E")
-    out = torch.empty((D + tri + C, Ep), dtype=torch.float32,
+    out = torch.empty((Ep, D + tri + C), dtype=torch.float32,
                       device=geom.device)
     with torch.cuda.device(geom.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -366,4 +369,4 @@ def _tiled_backward_cuda(orders, period, D, C, geom, smp, ct, s_lo, s_n):
         raise RuntimeError(
             f"tiled_backward: CUDA launch failed (cudaError {err})")
     tiled_backward.launches += 1
-    return out
+    return out.T

@@ -1,0 +1,182 @@
+"""Build the port's CUDA sources for the host, against a small emulation of
+the CUDA runtime, so that the CPU tests can run the kernels themselves.
+
+Each lane is a host thread; shuffles, ballots and ``__syncwarp`` are
+exchanges behind the warp's barrier, so lanes stay in step exactly where the
+sources rely on it; ``__syncthreads`` is the block's barrier; a launch runs
+its blocks one after another on one team of threads, and ``__shared__``
+variables become statics shared by the threads of the one block that runs.
+This checks the kernels' logic, not their speed or the card's arithmetic:
+``chip_smoke.py`` holds the same functions on the H100.  Used by
+``test_torch_agg_sweep.py`` (the aggregation sweeps) and
+``test_torch_segment_kernel.py`` (the segment-sum and the totals).
+"""
+
+import ctypes
+import os
+import re
+import subprocess
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "dgs_tpu_torch", "csrc")
+
+# The subset of the CUDA runtime the port's sources use, on the host.
+EMULATION = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+#define __CUDACC__ 1
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3 { unsigned x, y, z; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+using cudaError_t = int;
+using cudaStream_t = void*;
+constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
+inline cudaError_t cudaGetLastError() { return 0; }
+using std::max;
+using std::min;
+
+namespace emu {
+struct Warp {
+  std::barrier<> bar{32};
+  unsigned slot[32];
+};
+inline thread_local Warp* warp_;
+inline thread_local int lane_;
+inline thread_local std::barrier<>* block_;
+inline thread_local float* dyn_;
+
+template <class T>
+T exchange(T v, int src) {
+  static_assert(sizeof(T) == 4);
+  std::memcpy(&warp_->slot[lane_], &v, 4);
+  warp_->bar.arrive_and_wait();
+  T r;
+  std::memcpy(&r, &warp_->slot[src & 31], 4);
+  warp_->bar.arrive_and_wait();
+  return r;
+}
+}  // namespace emu
+
+inline thread_local uint3 threadIdx, blockIdx;
+
+template <class T>
+T __shfl_sync(unsigned, T v, int src) { return emu::exchange(v, src); }
+template <class T>
+T __shfl_up_sync(unsigned, T v, unsigned d) {
+  const int src = emu::lane_ - (int)d;
+  return emu::exchange(v, src < 0 ? emu::lane_ : src);
+}
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int m) {
+  return emu::exchange(v, emu::lane_ ^ m);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  emu::warp_->slot[emu::lane_] = pred ? (1u << emu::lane_) : 0u;
+  emu::warp_->bar.arrive_and_wait();
+  unsigned all = 0;
+  for (int l = 0; l < 32; ++l) all |= emu::warp_->slot[l];
+  emu::warp_->bar.arrive_and_wait();
+  return all;
+}
+inline unsigned __match_any_sync(unsigned, int v) {
+  emu::warp_->slot[emu::lane_] = (unsigned)v;
+  emu::warp_->bar.arrive_and_wait();
+  unsigned same = 0;
+  for (int l = 0; l < 32; ++l)
+    if (emu::warp_->slot[l] == (unsigned)v) same |= 1u << l;
+  emu::warp_->bar.arrive_and_wait();
+  return same;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline void __syncwarp() { emu::warp_->bar.arrive_and_wait(); }
+inline void __syncthreads() { emu::block_->arrive_and_wait(); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicMin(int* p, int v) {
+  const int o = *p;
+  *p = std::min(o, v);
+  return o;
+}
+inline int atomicMax(int* p, int v) {
+  const int o = *p;
+  *p = std::max(o, v);
+  return o;
+}
+
+namespace emu {
+template <class K, class... A>
+void launch(K kernel, dim3 grid, dim3 block, size_t bytes, void*, A... args) {
+  std::vector<float> dyn(bytes / sizeof(float) + 1);
+  std::vector<Warp> warps(block.x / 32);
+  std::barrier<> bar(block.x);
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < block.x; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = {t, 0, 0};
+      warp_ = &warps[t / 32];
+      lane_ = t % 32;
+      block_ = &bar;
+      dyn_ = dyn.data();
+      for (unsigned b = 0; b < grid.x; ++b) {
+        blockIdx = {b, 0, 0};
+        kernel(args...);
+        bar.arrive_and_wait();  // the block's statics are free again
+      }
+    });
+  for (auto& th : threads) th.join();
+}
+}  // namespace emu
+"""
+
+
+def gxx(args):
+    """g++ (C++20, a shared library) started on ``args``; wait() it."""
+    return subprocess.Popen(["g++", "-std=c++20", "-shared", "-fPIC"] + args,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def wait(procs):
+    for p in procs:
+        out, _ = p.communicate()
+        assert p.returncode == 0, out
+
+
+def build(tmpdir, names):
+    """The sources ``csrc/<name>.cu`` built for the host, in parallel,
+    against the emulated runtime: the launch syntax becomes emu::launch and
+    the dynamic shared array a per-launch buffer; nothing else of the
+    sources changes.  Returns one ctypes library a name."""
+    (tmpdir / "cuda_runtime.h").write_text(EMULATION)
+    objs, procs = [], []
+    for name in names:
+        src = open(os.path.join(CSRC, name + ".cu")).read()
+        src = src.replace("extern __shared__ float s_dt[];",
+                          "float* s_dt = emu::dyn_;")
+        src, n = re.subn(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\(",
+                         r"emu::launch(\1, \2, ", src, flags=re.S)
+        assert n >= 1, name
+        (tmpdir / (name + ".cpp")).write_text(src)
+        objs.append(str(tmpdir / (name + ".so")))
+        procs.append(gxx(["-O1", "-pthread", "-I", str(tmpdir), "-I", CSRC,
+                          "-o", objs[-1], str(tmpdir / (name + ".cpp"))]))
+    wait(procs)
+    return [ctypes.CDLL(o) for o in objs]

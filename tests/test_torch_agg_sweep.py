@@ -10,16 +10,15 @@ agg_sweep.cuh, agg_forward.cu, agg_backward.cu) on the CPU.
   chip_smoke.py holds the same cases on the H100.
 * The header's host helpers (queue position, row slot, the code columns
   and partials) are built with g++ and held against numpy and agg_math.cuh.
-* kernels.aggregate.warp_schedule is held against brute-force counts of
-  both schedules, and a numpy replica of the sweep (queue, drains, the
-  per-row fixed-order reduction) against forward_plain / backward_plain.
+* kernels.aggregate.warp_schedule, and a model of the first aggregation
+  kernels' lane_per_row schedule kept here to compare with, are held
+  against brute-force counts,
+  and a numpy replica of the sweep (queue, drains, the per-row fixed-order
+  reduction) against forward_plain / backward_plain.
 """
 
 import ctypes
 import math
-import os
-import re
-import subprocess
 
 import numpy as np
 import pytest
@@ -31,127 +30,13 @@ from dgs_tpu_torch.kernels import aggregate as kagg
 from dgs_tpu_torch.ops import aggregation as tagg
 from dgs_tpu_torch.oracle.dense import radii as tradii
 
+import cuda_emulation
 from conftest import make_gaussians
 
 torch.set_num_threads(2)
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "dgs_tpu_torch", "csrc")
+CSRC = cuda_emulation.CSRC
 WARP = kagg.WARP
-
-# The subset of the CUDA runtime the aggregation sources use, on the host:
-# a launch runs its blocks one after another on one team of threads, a
-# thread a lane; shuffles, ballots and __syncwarp are exchanges behind the
-# warp's barrier, so lanes stay in step exactly where the sources rely on
-# it.  __shared__ variables become statics, shared by the threads of the
-# one block that runs.
-_EMULATION = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cstring>
-#include <thread>
-#include <vector>
-
-#define __CUDACC__ 1
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct uint3 { unsigned x, y, z; };
-struct alignas(16) float4 { float x, y, z, w; };
-using cudaError_t = int;
-using cudaStream_t = void*;
-constexpr int cudaSuccess = 0;
-constexpr int cudaErrorInvalidValue = 1;
-inline cudaError_t cudaGetLastError() { return 0; }
-using std::max;
-using std::min;
-
-namespace emu {
-struct Warp {
-  std::barrier<> bar{32};
-  unsigned slot[32];
-};
-inline thread_local Warp* warp_;
-inline thread_local int lane_;
-inline thread_local std::barrier<>* block_;
-inline thread_local float* dyn_;
-
-template <class T>
-T exchange(T v, int src) {
-  static_assert(sizeof(T) == 4);
-  std::memcpy(&warp_->slot[lane_], &v, 4);
-  warp_->bar.arrive_and_wait();
-  T r;
-  std::memcpy(&r, &warp_->slot[src & 31], 4);
-  warp_->bar.arrive_and_wait();
-  return r;
-}
-}  // namespace emu
-
-inline thread_local uint3 threadIdx, blockIdx;
-
-template <class T>
-T __shfl_sync(unsigned, T v, int src) { return emu::exchange(v, src); }
-template <class T>
-T __shfl_up_sync(unsigned, T v, unsigned d) {
-  const int src = emu::lane_ - (int)d;
-  return emu::exchange(v, src < 0 ? emu::lane_ : src);
-}
-inline unsigned __ballot_sync(unsigned, int pred) {
-  emu::warp_->slot[emu::lane_] = pred ? (1u << emu::lane_) : 0u;
-  emu::warp_->bar.arrive_and_wait();
-  unsigned all = 0;
-  for (int l = 0; l < 32; ++l) all |= emu::warp_->slot[l];
-  emu::warp_->bar.arrive_and_wait();
-  return all;
-}
-inline void __syncwarp() { emu::warp_->bar.arrive_and_wait(); }
-inline void __syncthreads() { emu::block_->arrive_and_wait(); }
-inline int __popc(unsigned x) { return __builtin_popcount(x); }
-inline int atomicMin(int* p, int v) {
-  const int o = *p;
-  *p = std::min(o, v);
-  return o;
-}
-inline int atomicMax(int* p, int v) {
-  const int o = *p;
-  *p = std::max(o, v);
-  return o;
-}
-
-namespace emu {
-template <class K, class... A>
-void launch(K kernel, dim3 grid, dim3 block, size_t bytes, void*, A... args) {
-  std::vector<float> dyn(bytes / sizeof(float) + 1);
-  std::vector<Warp> warps(block.x / 32);
-  std::barrier<> bar(block.x);
-  std::vector<std::thread> threads;
-  for (unsigned t = 0; t < block.x; ++t)
-    threads.emplace_back([&, t] {
-      threadIdx = {t, 0, 0};
-      warp_ = &warps[t / 32];
-      lane_ = t % 32;
-      block_ = &bar;
-      dyn_ = dyn.data();
-      for (unsigned b = 0; b < grid.x; ++b) {
-        blockIdx = {b, 0, 0};
-        kernel(args...);
-        bar.arrive_and_wait();  // the block's statics are free again
-      }
-    });
-  for (auto& th : threads) th.join();
-}
-}  // namespace emu
-"""
 
 _HELPERS = r"""
 #include "agg_sweep.cuh"
@@ -212,47 +97,21 @@ extern "C" int code_contrib(int D, int nfreq, const float* Xn,
 """
 
 
-def _gxx(args):
-    return subprocess.Popen(["g++", "-std=c++20", "-shared", "-fPIC"] + args,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-
-
-def _wait(procs):
-    for p in procs:
-        out, _ = p.communicate()
-        assert p.returncode == 0, out
-
-
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """agg_forward.cu and agg_backward.cu built for the host against the
-    emulated runtime: the launch syntax becomes emu::launch and the dynamic
-    shared array a per-launch buffer; nothing else of the sources
-    changes."""
-    d = tmp_path_factory.mktemp("agg_emulated")
-    (d / "cuda_runtime.h").write_text(_EMULATION)
-    objs, procs = [], []
-    for name in ("agg_forward", "agg_backward"):
-        src = open(os.path.join(CSRC, name + ".cu")).read()
-        src = src.replace("extern __shared__ float s_dt[];",
-                          "float* s_dt = emu::dyn_;")
-        src, n = re.subn(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\(",
-                         r"emu::launch(\1, \2, ", src, flags=re.S)
-        assert n >= 1, name
-        (d / (name + ".cpp")).write_text(src)
-        objs.append(str(d / (name + ".so")))
-        procs.append(_gxx(["-O1", "-pthread", "-I", str(d), "-I", CSRC,
-                           "-o", objs[-1], str(d / (name + ".cpp"))]))
-    _wait(procs)
-    fwd, bwd = (ctypes.CDLL(o) for o in objs)
+    """agg_forward.cu, agg_backward.cu and agg_totals.cu built for the host
+    against the emulated runtime (cuda_emulation.build)."""
+    fwd, bwd, tot = cuda_emulation.build(
+        tmp_path_factory.mktemp("agg_emulated"),
+        ["agg_forward", "agg_backward", "agg_totals"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tot.dgs_agg_totals.argtypes = [p, i, p, i, i, p, i, i, f, p, p]
     fwd.dgs_agg_forward.argtypes = [p, p, i, p, i, i, p, p, i, i, i, i, i, i,
                                     f, i, i, i, p, p, p]
     for fn in (bwd.dgs_agg_backward_entries, bwd.dgs_agg_backward_centres):
         fn.argtypes = [p, p, i, p, i, i, p, p, p, p, i, i, i, i, i, i, f, i,
                        i, p, p]
-    return fwd, bwd
+    return fwd, bwd, tot
 
 
 @pytest.fixture(scope="module")
@@ -260,7 +119,8 @@ def helpers(tmp_path_factory):
     d = tmp_path_factory.mktemp("agg_sweep_helpers")
     (d / "harness.cpp").write_text(_HELPERS)
     lib = str(d / "harness.so")
-    _wait([_gxx(["-O2", "-I", CSRC, "-o", lib, str(d / "harness.cpp")])])
+    cuda_emulation.wait([cuda_emulation.gxx(
+        ["-O2", "-I", CSRC, "-o", lib, str(d / "harness.cpp")])])
     h = ctypes.CDLL(lib)
     ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
     i, f = ctypes.c_int, ctypes.c_float
@@ -326,7 +186,7 @@ def run_backward(lib, D, L, K, nfreq, period, agg, ent_fk, ctr_geo, dtf,
                  gpre, gsum, ladder, rows):
     Cp, Ep = ctr_geo.shape[0], agg.ent_geo.shape[1]
     E = (dtf.shape[1] - nfreq) // 2
-    dent = torch.full((L + K, Ep), float("nan"))
+    dent = torch.full((Ep, L + K), float("nan"))     # entry-major
     dctr = torch.full((Cp, K + 2 * E + nfreq), float("nan"))
     common = (_ptr(agg.ent_geo), _ptr(ent_fk), Ep, _ptr(ctr_geo), D + 3 + K,
               Cp)
@@ -336,7 +196,19 @@ def run_backward(lib, D, L, K, nfreq, period, agg, ent_fk, ctr_geo, dtf,
                                         rows[0], _ptr(dent), None) == 0
     assert lib.dgs_agg_backward_centres(*common, _ptr(agg.ctr_ent), *tail,
                                         rows[1], _ptr(dctr), None) == 0
-    return dent, dctr
+    return dent.T, dctr
+
+
+def run_totals(lib, D, period, agg):
+    """The totals kernel on the structure's operands."""
+    Cp, cols = agg.ctr_static.shape
+    Ep = agg.ent_geo.shape[1]
+    out = torch.full((Cp, 1), float("nan"))
+    assert lib.dgs_agg_totals(
+        _ptr(agg.ent_geo), Ep, _ptr(agg.ctr_static), cols, Cp,
+        _ptr(agg.ctr_ent), D, int(period is not None), period or 0.0,
+        _ptr(out), None) == 0
+    return out
 
 
 def assert_close(got, ref, rtol, what):
@@ -413,7 +285,7 @@ def test_emulated_kernels_match_plain(emulated, cases, name):
     warp of the case, unwrapped and with the wrap (a no-op on the
     pre-shifted entries); sentinel rows exactly zero; a second run bitwise
     equal."""
-    fwd, bwd = emulated
+    fwd, bwd, _ = emulated
     D, L, K, nfreq, ladder, rows, agg, ent_fk, ctr_geo, dtf = cases[name]
     rows_f = rows or kagg.ROWS_PER_WARP["forward"]
     rows_b = ((rows, rows) if rows else
@@ -451,12 +323,44 @@ def test_emulated_kernels_match_plain(emulated, cases, name):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("name", list(CASES) + ["d1_crowded"])
+def test_emulated_totals_match_plain(emulated, cases, name):
+    """agg_totals.cu against totals_plain (rtol 2e-4), unwrapped and with
+    the wrap: D = 1-3, open and wrapped domains, pads, culled radii, empty
+    ranges, single-centre tiles, a tile range; "d1_crowded" has centres
+    with more colliding pairs than a warp's queue holds (224 > 128) and
+    blocks whose entry range spans two staged chunks (637 > 512 entries).
+    Sentinel centres come back zero; a second run is bitwise equal."""
+    lib = emulated[2]
+    if name == "d1_crowded":
+        D = 1
+        agg = structure(5, D, 400, 1, 1, 1, sigma_range=(0.3, 0.5))[0]
+        assert most_colliding(agg) > 128
+        lo, hi = agg.ctr_ent.long()
+        live = hi > lo
+        block = torch.arange(lo.shape[0]) // kagg.BLOCK
+        assert any(int(hi[m].max() - lo[m].min()) > 512
+                   for m in (live & (block == b)
+                             for b in range(int(block[-1]) + 1))
+                   if bool(m.any()))
+    else:
+        D, agg = cases[name][0], cases[name][6]
+    dead = agg.cid == agg.pos.shape[0]
+    for period in (None, 2.0):
+        ref = kagg.totals_plain(D, period, agg.ctr_ent, agg.ent_geo,
+                                agg.ctr_static)
+        got = run_totals(lib, D, period, agg)
+        assert_close(got, ref, 2e-4, f"{name} totals")
+        assert not got[dead].any()
+        assert torch.equal(run_totals(lib, D, period, agg), got)
+
+
 def test_emulated_kernels_with_unused_code_columns(emulated):
     """A distance transform whose stride (E - 1) // D is 2 nfreq + 1 (D = 2,
     nfreq = 2, E = 11): the forward kernel and both backward kernels
     against the plain versions; the centre-major kernel leaves exactly the
     unused columns of dctr unwritten (the wrapper zeroes them)."""
-    fwd, bwd = emulated
+    fwd, bwd, _ = emulated
     D, L, K, nfreq, E = 2, 3, 4, 2, 11
     agg, ent_fk, ctr_geo, dtf = structure(40, D, 150, L, K, nfreq, cull=7,
                                           E=E)
@@ -548,6 +452,55 @@ def masked_set(agg):
     return set(zip(row.tolist(), col.tolist())), int(coll.sum())
 
 
+# The first aggregation kernels, one lane a tile-sorted row over a
+# block-wide staged range, as a model: the count that the warp sweep is
+# measured against.  Entries or centres per staged chunk of those kernels by sweep.
+LANE_CHUNK = {"forward": 128, "backward_entries": 64, "backward_centres": 128}
+
+
+def lane_per_row_steps(ranges, row, col, chunk):
+    """(sweep steps, body steps) of a lane_per_row kernel: a block of BLOCK
+    rows stages the union of its rows' ranges in chunks of ``chunk``; in
+    each chunk a lane steps through the part inside its own range, so a
+    warp takes as many steps as its busiest lane, and its k-th step runs
+    the pair body when the k-th pair of any lane is under the mask."""
+    BLOCK = kagg.BLOCK
+    n = ranges.shape[1]
+    lo, hi = ranges[0].long(), ranges[1].long()
+    live = hi > lo
+    if not bool(live.any()):
+        return 0, 0
+    block = torch.arange(n, device=lo.device) // BLOCK
+    big = 1 << 62
+    blo = torch.full((-(-n // BLOCK),), big, dtype=torch.long,
+                     device=lo.device)
+    blo = blo.scatter_reduce(0, block[live], lo[live], "amin")
+    # Each live row's chunks: its range cut at the block's chunk grid.
+    r = torch.nonzero(live).squeeze(1)
+    b0 = blo[block[r]]
+    c_first = (lo[r] - b0) // chunk
+    c_last = (hi[r] - 1 - b0) // chunk
+    reps = c_last - c_first + 1
+    rr = torch.repeat_interleave(r, reps)
+    cidx = (torch.repeat_interleave(c_first, reps)
+            + torch.arange(int(reps.sum()), device=lo.device)
+            - torch.repeat_interleave(torch.cumsum(reps, 0) - reps, reps))
+    e0 = blo[block[rr]] + cidx * chunk
+    count = (torch.minimum(hi[rr], e0 + chunk)
+             - torch.maximum(lo[rr], e0))
+    n_chunks = int(c_last.max()) + 2
+    key = (rr // WARP) * n_chunks + cidx
+    uk, inv = torch.unique(key, return_inverse=True)
+    steps = torch.zeros(uk.shape, dtype=torch.long, device=lo.device)
+    steps = steps.scatter_reduce(0, inv, count, "amax")
+    # Body steps: the distinct (warp, chunk, step) of the masked pairs.
+    bp = blo[block[row]]
+    pc = (col - bp) // chunk
+    k = col - torch.maximum(lo[row], bp + pc * chunk)
+    body = torch.unique(((row // WARP) * n_chunks + pc) * chunk + k)
+    return int(steps.sum()), int(body.numel())
+
+
 def lane_per_row_brute(ranges, masked, chunk):
     """The lane_per_row kernels step by step: each block of 128 rows
     stages the union of its rows' ranges in chunks; in a chunk every lane
@@ -621,10 +574,11 @@ SCHEDULE_CASES = {
 
 @pytest.mark.parametrize("name", list(SCHEDULE_CASES))
 def test_warp_schedule_counts(name):
-    """Both schedules' counts against brute force on structures with tiles
-    that straddle warps, single-centre tiles, culled radii, pad rows and
-    sentinels: candidate and colliding pairs as pair_counts, every masked
-    pair in one body step, the steps and lane use of each sweep."""
+    """warp_schedule's counts of the warp sweep, and the lane_per_row
+    model's, against brute force on structures with tiles that straddle
+    warps, single-centre tiles, culled radii, pad rows and sentinels:
+    candidate and colliding pairs as pair_counts, every masked pair in one
+    body step, the steps and lane use of each sweep."""
     D, P, sigma, cull, tile_range = SCHEDULE_CASES[name]
     agg = structure(7, D, P, 1, 1, 1, sigma_range=sigma, cull=cull,
                     tile_range=tile_range)[0]
@@ -633,31 +587,29 @@ def test_warp_schedule_counts(name):
     masked, n_coll = masked_set(agg)
     assert n_coll == coll and coll > 0
     flipped = {(c, r) for r, c in masked}
-    for sweep, (ranges, pairs) in {
-            "forward": (agg.ctr_ent, masked),
-            "backward_entries": (agg.ent_ctr, flipped),
-            "backward_centres": (agg.ctr_ent, masked)}.items():
-        lane = kagg.warp_schedule(D, None, agg.ctr_ent, agg.ent_ctr,
-                                  agg.ent_geo, agg.ctr_static,
-                                  "lane_per_row")[sweep]
-        sweep_steps, body = lane_per_row_brute(ranges, pairs,
-                                               kagg._LANE_CHUNK[sweep])
-        assert (lane["sweep_steps"], lane["body_steps"]) == (sweep_steps,
-                                                             body), sweep
+    row_c, col_e, _ = kagg._masked_pairs(D, None, agg.ctr_ent, agg.ent_geo,
+                                         agg.ctr_static)
+    for sweep, (ranges, pairs, row, col) in {
+            "forward": (agg.ctr_ent, masked, row_c, col_e),
+            "backward_entries": (agg.ent_ctr, flipped, col_e, row_c),
+            "backward_centres": (agg.ctr_ent, masked, row_c, col_e)}.items():
+        lane = lane_per_row_steps(ranges, row, col, LANE_CHUNK[sweep])
+        assert lane == lane_per_row_brute(ranges, pairs,
+                                          LANE_CHUNK[sweep]), sweep
+        assert -(-len(masked) // WARP) <= lane[1] <= len(masked)
         for rows in (1, 4, 32):
             warp = kagg.warp_schedule(D, None, agg.ctr_ent, agg.ent_ctr,
                                       agg.ent_geo, agg.ctr_static,
-                                      "warp_per_row", rows)[sweep]
+                                      rows)[sweep]
             _, steps, drains = warp_sweep_replica(
                 ranges, pairs, rows, 1, lambda r, c: np.ones(1, np.float32))
             assert (warp["sweep_steps"], warp["body_steps"]) == (steps,
                                                                  drains)
             assert warp["lane_use"] == coll / (WARP * drains)
-        for counts in (lane, warp):
-            assert counts["candidate_pairs"] == cand
-            assert counts["colliding_pairs"] == coll
-            assert counts["body_pairs"] == len(masked)
-            assert -(-len(masked) // WARP) <= counts["body_steps"] <= len(
+            assert warp["candidate_pairs"] == cand
+            assert warp["colliding_pairs"] == coll
+            assert warp["body_pairs"] == len(masked)
+            assert -(-len(masked) // WARP) <= warp["body_steps"] <= len(
                 masked)
 
 

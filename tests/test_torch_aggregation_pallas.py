@@ -301,6 +301,40 @@ def test_aggregate_pallas_culled_and_open_domain(rng):
     assert not got[::7].any() and not g_got["queries"][::7].any()
 
 
+def test_aggregate_pallas_grads_with_entry_major_rows(rng, monkeypatch):
+    """The six-gradient twin at D = 2 with the backward's per-entry rows
+    handed to segment_sum_rows as the CUDA kernels hand them, the transpose
+    view of an entry-major (Ep, L + K) buffer: the same outputs and
+    gradients as dgs_tpu's aggregate_pallas, and the segment-sum reads the
+    view in place."""
+    from dgs_tpu_torch.kernels import segment
+
+    D, P, L, K, nfreq = 2, 150, 5, 3, 2
+    backward, plain = tkagg.backward, segment.segment_sum_plain
+    strides = []
+
+    def entry_major(*args, **kw):
+        dent, dctr = backward(*args, **kw)
+        return dent.T.contiguous().T, dctr
+
+    def spy(rows, order, starts):
+        strides.append(rows.stride())
+        return plain(rows, order, starts)
+
+    monkeypatch.setattr(tkagg, "backward", entry_major)
+    monkeypatch.setattr(segment, "segment_sum_plain", spy)
+    means, conics, radii, params = make_inputs(rng, P, D, L, K, nfreq)
+    ja, ta = structures(means, conics, radii, D)
+    ref, g_ref = outputs_and_grads(
+        "jax", lambda *a: jagg.aggregate_pallas(
+            *a, ja, period=None, block_n=16, block_e=128), params)
+    got, g_got = outputs_and_grads(
+        "torch", lambda *a: tagg.aggregate_pallas(*a, ta), params)
+    assert_out_close(got, ref)
+    assert_grads_close(g_got, g_ref)
+    assert strides and all(st == (1, L + K) for st in strides)
+
+
 @pytest.mark.parametrize("D", [1, 2, 3])
 def test_ladder_frequencies_recurrence(rng, D):
     """ladder_frequencies against dgs_tpu's, and against the port's direct

@@ -213,6 +213,38 @@ def test_sample_tiled_multi_grads_match(rng, D, unwrapped):
     """d(sum_o <cot_o, out_o>)/d(means, values, conics) through the port
     (backward plain version + segment-sum) against jax.grad through
     dgs_tpu (Pallas backward in interpret mode), all four orders."""
+    _check_tiled_grads(rng, D, unwrapped)
+
+
+def entry_major(rows):
+    """The (F, E) transpose view of an entry-major (E, F) copy of rows: the
+    layout the CUDA backward kernels hand the segment-sum."""
+    return rows.T.contiguous().T
+
+
+def test_tiled_grads_match_with_entry_major_rows(rng, monkeypatch):
+    """The gradient twin at D = 2 with the backward's per-entry rows handed
+    to segment_sum_rows as the CUDA kernel hands them, the transpose view
+    of an (E, F) buffer: the same gradients as jax.grad through dgs_tpu,
+    and the segment-sum reads the view in place."""
+    from dgs_tpu_torch.kernels import segment
+
+    backward, plain = ttiled.tiled_backward, segment.segment_sum_plain
+    strides = []
+
+    def spy(rows, order, starts):
+        strides.append(rows.stride())
+        return plain(rows, order, starts)
+
+    monkeypatch.setattr(ttiled, "tiled_backward",
+                        lambda *a: entry_major(backward(*a)))
+    monkeypatch.setattr(segment, "segment_sum_plain", spy)
+    _check_tiled_grads(rng, 2, False)
+    F = 2 + tri_size(2) + 3
+    assert strides and all(st == (1, F) for st in strides)
+
+
+def _check_tiled_grads(rng, D, unwrapped):
     jc, tc, (jm, jv, jcov, jcon, js), (tm, tv, tcov, tcon, ts) = _setup(
         rng, 31, 37, D)
     jstate = jgrid.build(jc, jm, jcov, js)
