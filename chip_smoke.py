@@ -13,8 +13,14 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # only (see agg_times)
     python3 chip_smoke.py --segment  # the segment-sum's times on every
                                      # path's rows only (see segment_times)
+    python3 chip_smoke.py --chunked  # the chunked path's kernels' and
+                                     # steps' times only (see
+                                     # chunked_times)
 
-Several modes may be given; they run in the order given.
+Several modes may be given; they run in the order given.  The per-pair
+operation counts and the card's peak rates of the bounds are
+dgs_tpu_torch.utils.roofline's; device busy time is
+dgs_tpu_torch.utils.profiling.device_busy.
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
@@ -51,6 +57,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    the scaled wrap); pad and sentinel columns exactly zero;
                    the kernels' times and bounds at those shapes, and the
                    segment-sum on the backward's rows there.
+     parity_chunked - the chunked op (ops.sampling_chunked, planned by
+                   plan_chunked) against the tiled op over its own binning
+                   of the same inputs, outputs and gradients (the conics
+                   taken from the covariances, so that both cull alike):
+                   D in {1, 2, 3} wrapped and unwrapped, and bench.py's
+                   D = 3 flags (tile 0.2, axis radii, ellipsoid cull, all
+                   four orders) at P = 5,000 x N = 50,000; kernels 1-2 and
+                   the segment-sum against their plain versions on the
+                   chunked op's own operands; the first 512 samples of the
+                   bench-flag case against the dense masked oracle.
   4. slice       - the evaluation path at full width: GaussianSampler
                    (method "tiled") preprocess + sample_all(value,
                    derivative, laplacian) at P = 100,000 Gaussians x
@@ -78,6 +94,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    plain version there in both layouts, and on the rows of
                    a real D = 3 binning at 100,000 x 1,000,000; times of
                    the kernel, index_add_ and segment_sum_rows as a whole.
+     chunked_slice - the chunked path (the JAX package's D = 3 production
+                   method) at the full width of bench.py's D = 3 workload:
+                   P = 100,000, N = 1,000,000, D = 3, C = 4, sigma
+                   2 / P^(1/3), tile 0.2, axis radii, ellipsoid cull,
+                   planned by plan_chunked, through
+                   GaussianSampler(method="chunked") (preprocess,
+                   evaluations) and the bench loss's training step, for
+                   value + derivative + laplacian and for all four orders.
+                   Checks every diagnostic 0, the launch counts (the forward
+                   once per evaluation, the backward and the segment-sum
+                   once per step and never in an evaluation), finite outputs
+                   of the reference shapes, bitwise-repeatable gradients,
+                   both kernels against their plain versions on all samples
+                   (the step's own cotangent) and the segment-sum on the
+                   step's rows; reports entries, pairs (utils.roofline's
+                   pair_count), the plan's host time, the kernels' times
+                   beside their bounds, evaluation and step times (median
+                   and range), device busy time per step and peak memory.
   6. pigs        - PIGS training (config 4, phase A of tools/train_100k.py)
                    through dgs_tpu_torch.models.pigs.train: P = 100,000,
                    D = 2, C = 1, 262,144 collocation points, Adam lr 2e-3,
@@ -159,7 +193,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    overflow 0, a falling loss and the launches per step.
  13. profile     - where a step's time goes, for the headline training
                    step, the PIGS step, the dense training step, the
-                   aggregation step and the dynamics step: device
+                   aggregation step, the dynamics step and the chunked
+                   D = 3 step (three orders): device
                    busy time per step under torch.profiler (the union of
                    the device's activity intervals), the unprofiled step
                    time, the device's idle share and the largest device
@@ -174,7 +209,10 @@ the tiled ones kept and swept pairs and the same at the trainers' shapes;
 for the aggregation kernels candidate and colliding pairs, and for the
 forward and backward the warp sweep's body steps and lane use at the
 aggregation point; the segment-sum's row also index_add_'s time as
-library_ms, both layouts and the D = 3 cases) and, last, the result line
+library_ms, both layouts and the D = 3 cases; the tiled kernels' and
+the segment-sum's rows also the chunked D = 3 shapes by_shape, and
+launches_by_path chunked_slice and chunked_step) and, last, the result
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -201,9 +239,14 @@ from dgs_tpu_torch.kernels import tiled as ktiled
 from dgs_tpu_torch.models import dynamics, pigs
 from dgs_tpu_torch.models.field import init_field
 from dgs_tpu_torch.ops import aggregation, formulas, sampling
+from dgs_tpu_torch.ops import sampling_chunked
 from dgs_tpu_torch.oracle import dense as oracle
 from dgs_tpu_torch.sampler import GaussianSampler
 from dgs_tpu_torch.utils import native
+from dgs_tpu_torch.utils.profiling import device_busy
+from dgs_tpu_torch.utils.roofline import (MEM_BYTES_S, agg_bound,
+                                          kernel_bound, pair_count,
+                                          step_roofline)
 
 RTOL = 2e-4          # the JAX suite's kernel-vs-oracle tolerance:
 ATOL_REL = 1e-5      # atol = 1e-5 * max(1, max|ref|)
@@ -287,60 +330,6 @@ def compare_rows(got, ref, D, C, rtol=GRAD_RTOL):
     return {name: check_close(
         f"backward kernel against the plain version on {name}", got[rows],
         ref[rows], rtol) for name, rows in groups.items()}
-
-
-# The card's peaks, for the least time a kernel's work could take.  Memory
-# and fp32 rates are the H100 SXM data sheet's (3.35 TB/s; 67 TFLOP/s
-# outside the tensor cores, two operations per FMA, so 33.5e12 fp32
-# instructions/s); the special-function rate is 16 results per clock per SM
-# (NVIDIA's CUDA C++ documentation, arithmetic throughput, compute
-# capability 9.0) on 132 SMs at the 1.98 GHz boost clock.
-MEM_BYTES_S = 3.35e12
-FP32_INSTR_S = 67e12 / 2
-SFU_OPS_S = 16 * 132 * 1.98e9
-
-
-def pair_ops(D, orders, C, wrapped, backward):
-    """(fp32 instructions, special-function operations) one kept pair needs
-    at the least for the function of csrc/pair_math.cuh and the kernels'
-    accumulation loops (an FMA, a multiply or an add is one instruction;
-    the pair's geometry is counted once however many channel passes a
-    kernel makes).  This is the function's least work, not what the
-    kernels issue: the polynomials q_ij = a_i a_j - C_ij are counted once
-    and shared by the laplacian weights, the third-order weights and the
-    VJP, and the VJP's S0 is one FMA per component from the weights the
-    pair already has (sum_k h_k w_k = G S0); pair_vjp recomputes both."""
-    tri, n3 = D * (D + 1) // 2, D * (D + 1) * (D + 2) // 6
-    K = ktiled.total_unique(orders, D)
-    ops = D + (3 * D if wrapped else 0)   # X = mu - x; x/period, round, fma
-    ops += D * D + D + 1                  # a = C X; power = -1/2 a.X
-    ops += 1                              # exp(power) = ex2(power * log2 e)
-    if "laplacian" in orders or "third" in orders:
-        ops += tri                        # q_ij, one FMA each
-    # G itself; G a_i; G q_ij; G (C_ij a_l + C_il a_j - a_i q_jl)
-    weights = {"value": 0, "derivative": D, "laplacian": tri,
-               "third": 4 * n3}
-    ops += sum(weights[o] for o in orders)
-    if not backward:
-        return ops + K * C, 1             # acc[k][c] += w_k v_c
-    ops += 2 * K * C                      # h_k += g v_c; dv_c += g w_k
-    # per component: one FMA for S0, and for W one (derivative), two
-    # (laplacian) or three (third, with three more for Y)
-    vjp = {"value": 1, "derivative": 2 * D, "laplacian": 3 * tri,
-           "third": 7 * n3}
-    ops += sum(vjp[o] for o in orders)
-    return ops + D * (D + 3) + 2 * D + 1 + 5 * tri, 1   # dmu, z, dcon
-
-
-def kernel_bound(pairs, n_floats, D, orders, C, wrapped, backward):
-    """{"bound_ms", "bound_by"}: the least time the card could take for
-    ``pairs`` kept pairs and ``n_floats`` fp32 values moved (each input
-    read once, each output written once)."""
-    ops, sfu = pair_ops(D, orders, C, wrapped, backward)
-    t_ops = max(pairs * ops / FP32_INSTR_S, pairs * sfu / SFU_OPS_S)
-    t_bytes = 4 * n_floats / MEM_BYTES_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def operands(state, field_tensors, samples, cfg):
@@ -1625,50 +1614,6 @@ def phase_parity_agg_oracle(dev, P=3000):
              bitwise_repeatable=True)
 
 
-def agg_pair_ops(D, L, K, nfreq, ladder, kind):
-    """(fp32 operations per colliding pair, special-function operations
-    per colliding pair, fp32 operations per candidate pair) the function
-    needs at the least (an FMA, a multiply or an add counts one).
-    Every candidate pays the offset and the distance test; a colliding pair
-    adds the density, and for ``forward`` and ``backward`` the K-term
-    weight, the code (sin and cos shared between emb and fac: two
-    special-function results per (dim, rung), or per dim with the ladder,
-    whose higher rungs take 4 operations each; 4 FMAs per (dim, rung) for
-    emb and fac) and the accumulation.  ``backward`` is the whole function
-    of both entry points with the pair's geometry, weight and code taken
-    once: the kernels take them twice."""
-    cand = 3 * D + 3                       # X; dist2; r_i + r_j, squared, <=
-    ops = D * D + D + 1 + 1                # a = C X; power; ex2's scale
-    sfu = 1                                # ex2
-    if kind == "totals":
-        return ops + 1, sfu, cand
-    ops += K + D                           # w; Xn = X inv_norm
-    rungs = D * nfreq
-    if ladder:
-        ops += D + 4 * (rungs - D)         # base phases; the recurrence
-        sfu += 2 * D
-    else:
-        ops += rungs
-        sfu += 2 * rungs
-    ops += 4 * rungs                       # emb, fac
-    if kind == "forward":
-        return ops + 4 + L, sfu, cand      # coeff (2), cf, emb acc; L FMAs
-    ops += L                               # <g_i, feat_j>
-    ops += 2 + 3 + L + K                   # cf; dw; dfeat, dkey rows
-    ops += K + 3                           # dq; cw, cemb, cfac
-    ops += 2 + 10 * rungs                  # ddt biases; ddt (4), dfreq (6)
-    return ops, sfu, cand
-
-
-def agg_bound(kind, cand, coll, n_floats, D, L, K, nfreq, ladder):
-    ops, sfu, cand_ops = agg_pair_ops(D, L, K, nfreq, ladder, kind)
-    t_ops = max((coll * ops + cand * cand_ops) / FP32_INSTR_S,
-                coll * sfu / SFU_OPS_S)
-    t_bytes = 4 * n_floats / MEM_BYTES_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
 AGG_P = 100_000
 AGG_DIMS = (2, 8, 8, 4)      # D, L, K, nfreq of the aggregation point
 
@@ -2145,45 +2090,6 @@ def phase_parity_paths(dev):
     return numbers
 
 
-def device_profile(fn, iters):
-    """Device time per call of fn() under torch.profiler, after one
-    warm-up call: ``busy_ms`` is the union of the intervals of every device
-    activity (kernels, copies, sets; user annotations left out), so
-    overlapping or nested items count once; ``top`` lists the largest items
-    by summed device time per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans, by_name = [], {}
-    for e in prof.events():
-        if (e.device_type != DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.end - e.time_range.start)
-    if not spans:
-        raise AssertionError("the profiler recorded no device activity")
-    spans.sort()
-    busy_us, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy_us, lo, hi = busy_us + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    busy_us += hi - lo
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return busy_us / 1e3 / iters, [[name[:80], t / 1e3 / iters]
-                                   for name, t in top]
-
-
 def host_ms(fn, reps):
     """Per-call synchronised host-clock times of fn(), after one warm-up."""
     fn()
@@ -2197,19 +2103,365 @@ def host_ms(fn, reps):
     return times
 
 
-def phase_profile(dev, train_step, dense_step, agg_step, pigs_iters=10):
+CHUNKED_CFG = dict(tile_size=0.2, eig_floor=1e-12, axis_radii=True,
+                   ellip_cull=True)
+CHUNKED_P, CHUNKED_N = 100_000, 1_000_000
+
+
+def chunked_field(dev, P, N, D=3, C=4, sigma=None, seed=0):
+    """A seeded field (sigma 2 / P^(1/D) unless given: bench.py's D = 3
+    workload) and N uniform samples on [-1, 1)^D: ((means, values, covs,
+    conics), samples)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    field = init_field(g, P, D, C, sigma=sigma or 2.0 / P ** (1.0 / D))
+    samples = 2.0 * torch.rand((N, D), generator=g, device=dev) - 1.0
+    with torch.no_grad():
+        return (field.means.detach(), field.values.detach(),
+                field.covariances(), field.conics()), samples
+
+
+def chunked_loss(cfg, plan, cs, covs, samples, orders, params):
+    """The bench loss over the chunked op (bench.py:195-214): the
+    multiplicity-weighted sum of squares of the padded, sorted, unique
+    outputs over N, as a closure of ``params`` (means, values, conics);
+    returns (loss, diagnostics)."""
+    D, N = samples.shape[1], samples.shape[0]
+    mult = {o: torch.tensor(formulas.sym_multiplicity(o, D),
+                            dtype=torch.float32, device=samples.device)
+            for o in orders}
+
+    def loss_fn():
+        outs, diag = sampling_chunked.sample_chunked(
+            cfg, params[0], params[1], params[2], covs, samples, plan, cs,
+            orders, padded_outputs=True)
+        return sum(torch.einsum("ucn,u->", o * o, mult[k])
+                   for k, o in outs.items()) / N, diag
+
+    return loss_fn
+
+
+def chunked_sampler(dev, P=CHUNKED_P, N=CHUNKED_N, preprocess_reps=1):
+    """GaussianSampler(method="chunked") preprocessed on bench.py's D = 3
+    workload (chunked_field), the field and samples made once; returns the
+    sampler and the preprocess times (ms, synchronised host clock: the plan
+    and the sample side)."""
+    (means, values, covs, conics), samples = chunked_field(dev, P, N)
+    sampler = GaussianSampler(config=SamplerConfig(**CHUNKED_CFG),
+                              method="chunked")
+    pre = host_ms(lambda: sampler.preprocess(means, values, covs, conics,
+                                             samples), preprocess_reps)
+    return sampler, pre
+
+
+def chunked_step(sampler, orders):
+    """The D = 3 chunked training step over a preprocessed chunked facade's
+    own tensors, planned config, plan and sample side: each step bins the
+    Gaussians anew, runs the fused forward of ``orders`` and backward() to
+    means, values and conics.  Returns (step, loss_fn, params)."""
+    params = [t.detach().clone().requires_grad_()
+              for t in (sampler.means, sampler.values, sampler.conics)]
+    loss_fn = chunked_loss(sampler.config, sampler._chunk_plan,
+                           sampler._chunk_samples, sampler.covariances,
+                           sampler.samples, orders, params)
+
+    def step():
+        for p in params:
+            p.grad = None
+        loss, diag = loss_fn()
+        loss.backward()
+        return loss.detach(), diag
+
+    return step, loss_fn, params
+
+
+def check_segment(rows, gid, P):
+    """The segment-sum kernel against its plain version, bitwise, on
+    per-entry rows as the backward kernel hands them."""
+    g_sorted, order = torch.sort(gid, stable=True)
+    starts = torch.searchsorted(
+        g_sorted, torch.arange(P + 1, dtype=g_sorted.dtype,
+                               device=gid.device), out_int32=True)
+    got = segment.segment_sum(rows, order, starts)
+    ref = segment.segment_sum_plain(rows.contiguous(), order, starts)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("segment_sum kernel and plain version differ "
+                             "on the chunked path's rows")
+
+
+def chunked_kernels(ev, ct, plain=True):
+    """Kernels 1-2 (and the segment-sum) on the operands of one chunked
+    evaluation (``ev`` from tiled_evaluations) and the cotangent ``ct``:
+    each against its plain version (``plain``), pad and sentinel columns
+    exactly 0; returns ({"forward": errs, "backward": errs}, the forward's
+    output, the backward's rows, the operands' sizes, plain seconds)."""
+    orders, period, D, C = ev["orders"], ev["period"], ev["D"], ev["C"]
+    geom, smp, state = ev["geom"], ev["smp"], ev["state"]
+    lo, n = ktiled.entry_ranges(state, smp.shape[1])
+    s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+    got = ktiled.tiled_forward(orders, period, D, C, geom, smp, lo, n)
+    got_b = ktiled.tiled_backward(orders, period, D, C, geom, smp, ct,
+                                  s_lo, s_n)
+    check_segment(got_b, ev["gid"], ev["P"])
+    errs, plain_s = {}, {}
+    if plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ktiled.tiled_forward_plain(orders, period, D, C, geom, smp, lo,
+                                         n)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref_b = ktiled.tiled_backward_plain(orders, period, D, C, geom, smp,
+                                            ct, s_lo, s_n)
+        torch.cuda.synchronize()
+        plain_s = {"forward": t1 - t0, "backward": time.perf_counter() - t1}
+        errs = {"forward": compare(got, ref, orders, D, C),
+                "backward": compare_rows(got_b, ref_b, D, C)}
+        del ref, ref_b
+    check_dead_rows("forward", got, smp[D] < 0)
+    check_dead_rows("backward", got_b, dead_entries(geom, state))
+    moved = {"forward": sum(t.numel() for t in (geom, smp, lo, n, got)),
+             "backward": sum(t.numel() for t in (geom, smp, ct, s_lo, s_n,
+                                                 got_b))}
+    return errs, got, got_b, moved, plain_s
+
+
+def chunked_operands(dev, seed, D, P, N, C, sigma, cfg_kw):
+    """A seeded chunked case, planned: its tensors with conics computed
+    from the covariances (binning.conics_from_cov, the conics the tiled
+    build culls with, so that the two paths cull alike), the planned
+    config, the plan and the sample side."""
+    (means, values, covs, _), samples = chunked_field(
+        dev, P, N, D=D, C=C, sigma=sigma, seed=seed)
+    conics = binning.conics_from_cov(covs, D)
+    cfg, plan = sampling_chunked.plan_chunked(
+        SamplerConfig(**cfg_kw).with_dims(D), means, covs, samples)
+    cs = sampling_chunked.chunk_samples(cfg, samples, plan, cfg.block_n)
+    return (means, values, covs, conics), samples, cfg, plan, cs
+
+
+def phase_parity_chunked(dev, P=5000, N=50_000):
+    """The chunked op on the card against the tiled op on the same inputs
+    (outputs and gradients), kernels 1-2 and the segment-sum against their
+    plain versions on the chunked op's own operands, and the first 512
+    samples of the D = 3 bench-flag case against the dense masked
+    oracle."""
+    cases = [(D, unwrapped, dict(tile_size=0.1275, eig_floor=1e-12), 0.03)
+             for D in (1, 2, 3) for unwrapped in (False, True)]
+    # bench.py's D = 3 flags and footprints (sigma of the full-width field).
+    cases.append((3, True, CHUNKED_CFG, 2.0 / CHUNKED_P ** (1.0 / 3.0)))
+    for i, (D, unwrapped, cfg_kw, sigma) in enumerate(cases):
+        (means, values, covs, conics), samples, cfg, plan, cs = \
+            chunked_operands(dev, 60 + i, D, P, N, 4, sigma, cfg_kw)
+        if unwrapped and not cfg.unwrapped_kernels:
+            raise AssertionError(f"D={D}: the plan does not certify the "
+                                 "unwrapped kernels for this case")
+        cfg = dataclasses.replace(cfg, unwrapped_kernels=unwrapped)
+        orders = ORDERS if D < 3 or cfg_kw is CHUNKED_CFG else SLICE_ORDERS
+        params = [t.clone().requires_grad_() for t in (means, values, conics)]
+        outs, diag = sampling_chunked.sample_chunked(
+            cfg, params[0], params[1], params[2], covs, samples, plan, cs,
+            orders)
+        diag = {k: int(v) for k, v in diag.items() if k != "perm"}
+        if any(diag.values()):
+            raise AssertionError(f"chunked diagnostics not zero: {diag}")
+        loss = sum((o * o).sum() for o in outs.values())
+        (ev,) = tiled_evaluations(loss)
+        grads = torch.autograd.grad(loss, params)
+
+        # The tiled op over its own binning of the same Gaussians, with the
+        # plan's candidate cap and room for every entry.
+        tcfg = dataclasses.replace(
+            cfg, max_tiles_per_gaussian=plan.rect,
+            entry_capacity_factor=plan.entries / P + 1.0)
+        state = binning.build(tcfg, means, covs, samples)
+        tparams = [t.clone().requires_grad_() for t in (means, values,
+                                                        conics)]
+        touts = sampling.sample_tiled_multi(
+            orders, tcfg, *tparams, samples, state, unwrapped=unwrapped)
+        tgrads = torch.autograd.grad(sum((o * o).sum() for o in touts),
+                                     tparams)
+        err = {o: check_close(f"chunked vs tiled D={D} {o}", outs[o].detach(),
+                              t.detach(), RTOL)[0]
+               for o, t in zip(orders, touts)}
+        for name, a, b in zip(("means", "values", "conics"), grads, tgrads):
+            err[f"d{name}"] = check_close(f"chunked vs tiled D={D} d{name}",
+                                          a, b, GRAD_RTOL)[0]
+
+        K = ktiled.total_unique(orders, D)
+        gen = torch.Generator(device=dev).manual_seed(70 + i)
+        ct = torch.randn((K * 4, ev["smp"].shape[1]), generator=gen,
+                         device=dev)
+        kerr = chunked_kernels(ev, ct)[0]
+        fields = dict(D=D, unwrapped=unwrapped, P=P, N=N, C=4,
+                      orders=list(orders), tile=cfg.tile_size,
+                      axis_radii=cfg.axis_radii, ellip_cull=cfg.ellip_cull,
+                      rect=plan.rect, entries_planned=plan.entries,
+                      entries=pair_counts(ev["state"])[1],
+                      pairs=pair_counts(ev["state"])[0],
+                      max_abs_err_vs_tiled=err,
+                      kernel_err=err_fields(kerr["forward"]),
+                      kernel_bwd_err=err_fields(kerr["backward"]))
+        if cfg_kw is CHUNKED_CFG:
+            # An independent reference: the dense oracle under the chunked
+            # binning's pair mask, on the first 512 samples.
+            n_ref = 512
+            mask = binning.pair_mask_dense(cfg, ev["state"], samples[:n_ref],
+                                           P)
+            fields["oracle_max_abs_err"] = {
+                o: check_close(
+                    f"chunked vs oracle D={D} {o}", outs[o][:n_ref].detach(),
+                    oracle.evaluate(o, means, values, conics, samples[:n_ref],
+                                    period=cfg.period, pair_mask=mask),
+                    RTOL)[0] for o in orders}
+            fields["oracle_samples"] = n_ref
+        emit("parity_chunked", **fields)
+
+
+def chunked_numbers(dev, orders, sampler, evals=10, steps=10, plain=True):
+    """One order set of the chunked slice over a preprocessed chunked
+    facade: evaluations through it, training steps over its own tensors and
+    plan (chunked_step), the kernels against their plain versions on the
+    step's own operands, times, bounds, device busy time and peak memory."""
+    step, loss_fn, params = chunked_step(sampler, orders)
+    cfg, plan, samples = sampler.config, sampler._chunk_plan, sampler.samples
+    D, C, N = 3, 4, samples.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    e2e = host_ms(lambda: sampler.sample_all(orders), evals)
+    eval_launches = expect_launches(f"{evals + 1} chunked evaluations",
+                                    tiled_forward=evals + 1)
+    outs = sampler.sample_all(orders)
+    want = {"value": [N, C], "derivative": [N, D, C],
+            "laplacian": [N, D, D, C], "third": [N, D, D, D, C]}
+    shapes = {o: list(outs[o].shape) for o in orders}
+    if shapes != {o: want[o] for o in orders}:
+        raise AssertionError(f"output shapes {shapes}")
+    for o in orders:
+        if not bool(torch.isfinite(outs[o]).all()):
+            raise AssertionError(f"non-finite {o} output")
+    del outs
+
+    reset_launches()
+    step_times = host_ms(step, steps)
+    step_launches = expect_launches(
+        f"{steps + 1} chunked training steps", tiled_forward=steps + 1,
+        tiled_backward=steps + 1, segment_sum=steps + 1)
+    loss, diag = step()
+    loss = float(loss)
+    grads = [p.grad.clone() for p in params]
+    diag = {k: int(v) for k, v in diag.items() if k != "perm"}
+    if any(diag.values()):
+        raise AssertionError(f"chunked diagnostics not zero: {diag}")
+    for name, gr, p in zip(("means", "values", "conics"), grads, params):
+        if gr.shape != p.shape or not bool(torch.isfinite(gr).all()):
+            raise AssertionError(f"d{name}: non-finite or misshapen")
+    step()
+    torch.cuda.synchronize()
+    repeat = [bool(torch.equal(a, p.grad)) for a, p in zip(grads, params)]
+    if not all(repeat):
+        raise AssertionError(f"gradients differ between two runs: {repeat}")
+    peak = torch.cuda.max_memory_allocated()
+    busy, top = device_busy(step, 5)
+
+    # The kernels on the step's own operands and cotangent (d loss / d
+    # packed outputs = 2 / N * multiplicity * packed).
+    (ev,) = tiled_evaluations(loss_fn()[0])
+    state = ev["state"]
+    with torch.no_grad():
+        lo, n = ktiled.entry_ranges(state, ev["smp"].shape[1])
+        packed = ktiled.tiled_forward(orders, ev["period"], D, C, ev["geom"],
+                                      ev["smp"], lo, n)
+        w = torch.cat([torch.tensor(formulas.sym_multiplicity(o, D),
+                                    dtype=torch.float32, device=dev
+                                    ).repeat_interleave(C) for o in orders])
+        ct = (2.0 / N) * w[:, None] * packed
+        del packed
+        errs, got, got_b, moved, plain_s = chunked_kernels(ev, ct, plain)
+    pairs = pair_count(state.ent_tile.cpu(), state.ent_start.shape[0] - 2,
+                       state.s_tile.cpu())
+    if pairs != pair_counts(state)[0]:
+        raise AssertionError("pair_count disagrees with the tile ranges")
+    entries = pair_counts(state)[1]
+    period, geom, smp = ev["period"], ev["geom"], ev["smp"]
+    s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+    kernels = {}
+    for side, kernel, call in (
+            ("forward", "tiled_forward", lambda: ktiled.tiled_forward(
+                orders, period, D, C, geom, smp, lo, n)),
+            ("backward", "tiled_backward", lambda: ktiled.tiled_backward(
+                orders, period, D, C, geom, smp, ct, s_lo, s_n))):
+        ms = cuda_ms(call)
+        bound = kernel_bound(pairs, moved[side], D, orders, C,
+                             period is not None, side == "backward")
+        kernels[kernel] = {
+            "ms": ms, **bound, "share": bound["bound_ms"] / ms,
+            "plain_ms": 1e3 * plain_s[side] if plain else None,
+            "max_abs_err": (max(e[0] for e in errs[side].values())
+                            if plain else None),
+            "kept_pairs": pairs, "swept_pairs": swept_pairs(state, side),
+            **instantiation(kernel, orders, D, C, period)}
+    seg = segment_numbers(got_b, ev["gid"], ev["P"], ev["slots"])
+    fields = dict(
+        orders=list(orders), P=sampler.means.shape[0], N=N, D=D, C=C,
+        tile=cfg.tile_size, axis_radii=cfg.axis_radii,
+        ellip_cull=cfg.ellip_cull, unwrapped_kernels=cfg.unwrapped_kernels,
+        rect=plan.rect, entries_planned=plan.entries, entries=entries,
+        pairs=pairs, diagnostics=diag, output_shapes=shapes,
+        launches={"evaluations": eval_launches, "steps": step_launches},
+        grads_bitwise_repeatable=True, loss=loss,
+        err={s: err_fields(e) for s, e in errs.items()},
+        kernels=kernels, segment_sum=seg,
+        e2e_ms_median=statistics.median(e2e), e2e_ms_min=min(e2e),
+        e2e_ms_max=max(e2e), e2e_ms=e2e,
+        step_ms_median=statistics.median(step_times),
+        step_ms_min=min(step_times), step_ms_max=max(step_times),
+        step_ms=step_times, device_busy_ms_per_step=busy,
+        idle_share=max(0.0, 1.0 - busy / statistics.median(step_times)),
+        top=top, peak_bytes=peak,
+        roofline=step_roofline(orders, D, C, pairs, N, entries))
+    return fields, eval_launches, step_launches, step
+
+
+def phase_chunked_slice(dev, P=CHUNKED_P, N=CHUNKED_N):
+    """The chunked path at the full width of bench.py's D = 3 workload
+    through GaussianSampler(method="chunked"), value + derivative +
+    laplacian and then all four orders: preprocess, evaluations, training
+    steps (chunked_numbers), one field, plan and sample side for all.
+    Returns the launches, the numbers by order count and the 3-order
+    training step (for phase_profile)."""
+    sampler, pre = chunked_sampler(dev, P, N, preprocess_reps=3)
+    out, launches = {}, {"chunked_slice": {}, "chunked_step": {}}
+    for orders in (SLICE_ORDERS, ORDERS):
+        fields, ev_l, st_l, step = chunked_numbers(dev, orders, sampler)
+        emit("chunked_slice", preprocess_ms_median=statistics.median(pre),
+             preprocess_ms=pre, **fields)
+        out[len(orders)] = fields
+        for path, got in (("chunked_slice", ev_l), ("chunked_step", st_l)):
+            for k, v in got.items():
+                launches[path][k] = launches[path].get(k, 0) + v
+        if orders == SLICE_ORDERS:
+            slice_step = step
+    return launches, out, slice_step
+
+
+def phase_profile(dev, train_step, dense_step, agg_step, chunked_train_step,
+                  pigs_iters=10):
     """Where a step's time goes: device busy time per step under the
     profiler against the unprofiled step time (median, synchronised host
     clock), for the headline training step, the PIGS config 4 step, the
-    dense training step, the aggregation step and the dynamics config 4
-    step."""
+    dense training step, the aggregation step, the dynamics config 4 step
+    and the D = 3 chunked training step (value + derivative +
+    laplacian)."""
     for path, fn, iters in (("train_step", train_step, 5),
                             ("pigs", pigs_step(dev), pigs_iters),
                             ("dense_step", dense_step, 3),
                             ("agg_step", agg_step, 5),
-                            ("dynamics", dynamics_step(dev), pigs_iters)):
+                            ("dynamics", dynamics_step(dev), pigs_iters),
+                            ("chunked_step", chunked_train_step, 5)):
         times = host_ms(fn, 2 * iters)
-        busy, top = device_profile(fn, iters)
+        busy, top = device_busy(fn, iters)
         step_ms = statistics.median(times)
         emit("profile", path=path, step_ms_median=step_ms, step_ms=times,
              device_busy_ms_per_step=busy,
@@ -2270,6 +2522,23 @@ def tiled_times(dev, reps=10, steps=30):
         times = host_ms(fn, steps)
         emit("tiled_steps", path=path, step_ms_median=statistics.median(times),
              step_ms_min=min(times), step_ms_max=max(times))
+    emit("spin", **_spin)
+
+
+def chunked_times(dev, steps=30):
+    """The chunked path's times alone (python3 chip_smoke.py --chunked): at
+    the full width of bench.py's D = 3 workload, for value + derivative +
+    laplacian and for all four orders, ``steps`` evaluations through the
+    facade and ``steps`` training steps (synchronised host clock), device
+    busy time per step, and kernels 1-2 and the segment-sum through their
+    wrappers on a step's operands, beside their bounds (chunked_numbers
+    without the plain versions).  Two trees are compared by running this
+    in each of them in turns, as --tiled."""
+    sampler, pre = chunked_sampler(dev)
+    for orders in (SLICE_ORDERS, ORDERS):
+        fields = chunked_numbers(dev, orders, sampler, evals=steps,
+                                 steps=steps, plain=False)[0]
+        emit("chunked_times", preprocess_ms=pre, **fields)
     emit("spin", **_spin)
 
 
@@ -2455,7 +2724,7 @@ def agg_times(dev, reps=10, steps=30):
     of ``reps``), bound, share, registers, resident blocks and waves; the
     backward's split between its two kernels (device time under the
     profiler).  Steps: ``steps`` synchronised host-clock times each and
-    device busy ms (device_profile).  Two trees are compared by running
+    device busy ms (device_busy).  Two trees are compared by running
     this script's --agg in each of them on one card, in turns (first,
     second, second, first)."""
     rows_tree = kagg.ROWS_PER_WARP
@@ -2481,7 +2750,7 @@ def agg_times(dev, reps=10, steps=30):
 
         def split():
             """The backward's device ms per call by kernel."""
-            _, top = device_profile(bwd, reps)
+            _, top = device_busy(bwd, reps)
             return {k: sum(t for n, t in top if f"agg_backward_{k}" in n)
                     for k in ("entries", "centres")}
 
@@ -2525,7 +2794,7 @@ def agg_times(dev, reps=10, steps=30):
     for path, fn in (("agg_step", agg_step),
                      ("dynamics", dynamics_step(dev))):
         times = host_ms(fn, steps)
-        busy, top = device_profile(fn, 10)
+        busy, top = device_busy(fn, 10)
         emit("agg_steps", path=path, step_ms_median=statistics.median(times),
              step_ms_min=min(times), step_ms_max=max(times),
              device_busy_ms_per_step=busy, top=top)
@@ -2539,7 +2808,8 @@ def main():
     dev = torch.device("cuda", 0)
     build = phase_build()
     modes = {"--tiled": tiled_times, "--dense": dense_times,
-             "--agg": agg_times, "--segment": segment_times}
+             "--agg": agg_times, "--segment": segment_times,
+             "--chunked": chunked_times}
     if sys.argv[1:]:
         for mode in sys.argv[1:]:
             modes[mode](dev)
@@ -2558,9 +2828,14 @@ def main():
     phase_parity_agg_oracle(dev)
     seg_dynamics = phase_parity_dynamics(dev)
     by_shape = phase_parity_paths(dev)
+    phase_parity_chunked(dev)
     slice_launches, k_fwd = phase_slice(dev)
     train_launches, k_bwd, k_seg, train_step = phase_train_step(dev)
     k_seg["d3_r8"], k_seg["d3_real"] = phase_segment(dev)
+    chunked_launches, chunked, chunked_train_step = phase_chunked_slice(dev)
+    for n_orders, fields in chunked.items():
+        by_shape[f"chunked_d3_{n_orders}_orders"] = {
+            **fields["kernels"], "segment_sum": fields["segment_sum"]}
     k_seg["by_shape"] = {"dynamics_agg": seg_dynamics, **{
         p: v["segment_sum"] for p, v in by_shape.items()}}
     pigs_launches = phase_pigs(dev)
@@ -2570,13 +2845,14 @@ def main():
     (agg_build_launches, agg_launches, agg_step_launches, k_agg,
      agg_step) = phase_agg_slice(dev)
     dynamics_launches = phase_dynamics(dev)
-    phase_profile(dev, train_step, dense_step, agg_step)
+    phase_profile(dev, train_step, dense_step, agg_step, chunked_train_step)
     paths = {"slice": slice_launches, "train_step": train_launches,
              "pigs": pigs_launches, "dense_slice": dense_eval_launches,
              "dense_step": dense_step_launches,
              "pigs_dense": pigs_dense_launches,
              "agg_structure": agg_build_launches, "agg_slice": agg_launches,
-             "agg_step": agg_step_launches, "dynamics": dynamics_launches}
+             "agg_step": agg_step_launches, "dynamics": dynamics_launches,
+             **chunked_launches}
     # name: (source, the TPU kernel it replaces, its main path, numbers)
     kernels = {
         "tiled_forward": ("tiled_forward.cu", "dgs_tpu/kernels/tiled.py:727",

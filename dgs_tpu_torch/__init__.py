@@ -1,14 +1,16 @@
 """PyTorch + CUDA port of the dgs_tpu Gaussian sampling engine.
 
-The tile-binned path, the all-pairs (dense) path and the neighbour
-aggregation, evaluation and training: ``GaussianSampler`` (methods "tiled",
-"pallas" and "dense", ``preprocess_aggregate`` / ``aggregate_neighbors``),
-the functional ``sample_binned``, ``sample`` / ``sample_all`` and the
-module-level forms below, the PIGS trainer (``models.pigs``) and the
+The tile-binned path (and its chunked form, the D = 3 production method),
+the all-pairs (dense) path and the neighbour aggregation, evaluation and
+training: ``GaussianSampler`` (methods "tiled", "chunked", "pallas" and
+"dense", ``preprocess_aggregate`` / ``aggregate_neighbors``), the functional
+``sample_binned``, ``ops.sampling_chunked``, ``sample`` / ``sample_all`` and
+the module-level forms below, the PIGS trainer (``models.pigs``) and the
 dynamics trainer (``models.dynamics``), with the tiled and the dense forward
 and backward passes and the aggregation's totals, forward and backward as
-hand-written Hopper CUDA kernels.  Imports torch and numpy only; the JAX package ``dgs_tpu`` is the
-reference this port is tested against.
+hand-written Hopper CUDA kernels; ``utils`` holds the checkpoint, metrics
+log, profiling, roofline and debug helpers.  Imports torch and numpy only;
+the JAX package ``dgs_tpu`` is the reference this port is tested against.
 """
 
 from .config import SamplerConfig, ORDERS, tri_size, tri_index  # noqa: F401

@@ -266,32 +266,62 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
     under the planner's compact-support certificate).  ``state`` must come
     from binning.build with this ``cfg`` (the periodic image shift and the
     backward's slot bound R^D read it).  Gradients flow to (means, values,
-    conics)."""
+    conics).  ops.sampling_chunked runs the same forward and output
+    assembly over a binning of its own."""
+    N, D = samples.shape
+    C = values.shape[1]
+    if padded_outputs and not sorted_outputs:
+        raise ValueError("padded_outputs requires sorted_outputs")
+    orders = tuple(orders)
+    packed_t = tiled_packed(orders, cfg, means, values, conics, samples,
+                            state, None if unwrapped else cfg.period)
+    pos = None if sorted_outputs else sample_columns(state.s_perm)
+    return tiled_outputs(packed_t, orders, D, C, N, pos,
+                         unique_outputs=unique_outputs,
+                         padded_outputs=padded_outputs)
+
+
+def tiled_packed(orders: Tuple[str, ...], cfg, means, values, conics,
+                 samples, state, kernel_period: Optional[float]):
+    """The tiled forward kernel's packed (K*C, Np) outputs over ``state``
+    (tile-sorted columns, zero pad columns), differentiable in (means,
+    values, conics) through _TiledForward.  ``samples`` gives only N and
+    the device (the coordinates come from state.s_sorted); the backward's
+    slot bound is cfg.max_tiles_per_gaussian ** D."""
     from ..kernels import tiled as ktiled
 
     if os.environ.get("DGS_ABLATE"):
         raise NotImplementedError(
             "DGS_ABLATE is a TPU kernel-ablation hook of dgs_tpu; "
             "dgs_tpu_torch does not port it")
-    N, D = samples.shape
-    C = values.shape[1]
-    if padded_outputs and not sorted_outputs:
-        raise ValueError("padded_outputs requires sorted_outputs")
-    orders = tuple(orders)
-    kernel_period = None if unwrapped else cfg.period
-
     smp, _, Np = ktiled.prepare_samples(state, samples, ktiled.BLOCK_N)
     ent_lo, ent_n = ktiled.entry_ranges(state, Np)
-    packed_t = _TiledForward.apply(means, values, conics, orders, cfg,
-                                   kernel_period, state, smp, ent_lo, ent_n)
+    return _TiledForward.apply(means, values, conics, tuple(orders), cfg,
+                               kernel_period, state, smp, ent_lo, ent_n)
 
+
+def sample_columns(s_perm) -> torch.Tensor:
+    """(N,) int64 column of each sample in the tile-sorted layout: the
+    inverse of ``s_perm`` (sorted row r belongs to sample s_perm[r])."""
+    N = s_perm.shape[0]
+    pos = torch.empty(N, dtype=torch.long, device=s_perm.device)
+    pos[s_perm.long()] = torch.arange(N, device=s_perm.device)
+    return pos
+
+
+def tiled_outputs(packed_t, orders: Tuple[str, ...], D: int, C: int,
+                  N: int, pos, *, unique_outputs: bool = False,
+                  padded_outputs: bool = False):
+    """One output per order from the tiled forward's packed (K*C, Np)
+    tile-sorted outputs.  ``padded_outputs``: each order's raw
+    (n_unique, C, Np) rows.  Otherwise rows come back (N, ...) in sample
+    order when ``pos`` (sample_columns) is given, in tile-sorted order when
+    it is None; ``unique_outputs`` keeps (N, n_unique, C) canonical
+    components, else the symmetric mirror gives the reference shapes."""
     if not padded_outputs:
         out = packed_t[:, :N].T            # (N, K*C)
-        if not sorted_outputs:
-            # Un-sort: sorted row r belongs to sample s_perm[r].
-            inv = torch.empty(N, dtype=torch.long, device=samples.device)
-            inv[state.s_perm.long()] = torch.arange(N, device=samples.device)
-            out = out[inv]
+        if pos is not None:
+            out = out[pos]
 
     outs, k0 = [], 0
     for order in orders:

@@ -9,10 +9,15 @@ any other method string (the plain torch all-pairs path, as
 binning and every sample meets every Gaussian.  Outputs are
 differentiable w.r.t. the ``means``, ``values`` and ``conics`` handed to
 ``preprocess`` (the reference's autograd contract;
-covariances and samples only shape the binning).  ``preprocess_aggregate``
-and ``aggregate_neighbors`` are the neighbour-aggregation subsystem over the
-same Gaussians.  The chunked method is a later slice of the port and raises
-``NotImplementedError`` naming its ROADMAP item.
+covariances and samples only shape the binning).  With ``method="chunked"``
+(the JAX package's production method at D = 3) ``preprocess`` plans the
+capacities (``ops.sampling_chunked.plan_chunked``: the candidate-tile cap,
+the entry capacity, the wrap-free certificate) from the config it was
+given, also when it runs again, and bins the samples once, and every
+evaluation bins the Gaussians anew under that plan; in debug
+mode a parameter drift past the plan raises a named ``ValueError``.
+``preprocess_aggregate`` and ``aggregate_neighbors`` are the
+neighbour-aggregation subsystem over the same Gaussians.
 """
 
 from __future__ import annotations
@@ -23,23 +28,19 @@ import torch
 
 from .binning import grid as binning
 from .config import SamplerConfig, tri_size
-from .ops import aggregation, sampling
+from .ops import aggregation, sampling, sampling_chunked
 from .oracle.dense import radii as compute_radii
 from .utils.debug import check_finite, snapshot_call
 
-# "tiled" and "pallas" have paths of their own; every other string runs
-# the plain all-pairs path (method "dense"), as in dgs_tpu.
-_NOT_PORTED = {"chunked": "ROADMAP.md item 1.2 (the chunked path)"}
-
 
 class GaussianSampler:
+    """The methods "tiled", "chunked" and "pallas" have paths of their own;
+    every other method string runs the plain all-pairs path (method
+    "dense"), as in dgs_tpu."""
+
     def __init__(self, debug: bool = False,
                  config: SamplerConfig = SamplerConfig(),
                  method: str = "tiled"):
-        if method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"GaussianSampler(method={method!r}) is not ported to "
-                f"dgs_tpu_torch yet: {_NOT_PORTED[method]}")
         self.debug = debug
         self.config = config
         self.method = method
@@ -77,11 +78,28 @@ class GaussianSampler:
         """Build and store the acceleration structure."""
         P, D = means.shape
         self._validate(means, values, covariances, conics, samples)
-        cfg = self.config.with_dims(D)
+        base = self.config
+        if self.method == "chunked" and base is getattr(self, "_planned",
+                                                        None):
+            # Plan again from what the last plan started from: planning
+            # from its output would keep the wrap-free certificate for
+            # footprints that have since outgrown it (dgs_tpu's facade
+            # does).
+            base = self._plan_base
+        cfg = base.with_dims(D)
         self.config = cfg
         self.means, self.values, self.conics = means, values, conics
         self.covariances, self.samples = covariances, samples
 
+        if self.method == "chunked":
+            self._plan_base = cfg
+            cfg, plan = sampling_chunked.plan_chunked(
+                cfg, means, covariances, samples)
+            self.config = self._planned = cfg
+            self._chunk_plan = plan
+            self._chunk_samples = snapshot_call(
+                self.debug, "preprocess", sampling_chunked.chunk_samples,
+                cfg, samples, plan, cfg.block_n)
         if self.method != "tiled":
             self.state = None
             self.radii = compute_radii(covariances.detach(), D,
@@ -115,6 +133,20 @@ class GaussianSampler:
 
     def _run(self, orders) -> Dict[str, torch.Tensor]:
         cfg = self.config
+        if self.method == "chunked":
+            outs, diag = snapshot_call(
+                self.debug, "sample", sampling_chunked.sample_chunked,
+                cfg, self.means, self.values, self.conics, self.covariances,
+                self.samples, self._chunk_plan, self._chunk_samples,
+                tuple(orders))
+            if self.debug:
+                bad = {k: int(v) for k, v in diag.items()
+                       if k != "perm" and int(v)}
+                if bad:
+                    raise ValueError(
+                        f"chunked sampling overflow {bad}; re-run preprocess "
+                        "(parameters drifted past the planned capacities)")
+            return outs
         if self.method != "tiled":
             return sampling.sample_all(
                 self.means, self.values, self.conics, self.samples,

@@ -3,11 +3,14 @@
 ``snapshot_call`` copies a call's tensor inputs to the host before the call
 and, if the call raises, saves them to ``snapshot_<name>.npz`` for the bug
 report; ``check_finite`` raises a named error on NaN/Inf inputs.
+``checked`` / ``throw`` localise the first non-finite value of a training
+step, as dgs_tpu's checkify wrappers do (``dgs_tpu/utils/debug.py``), with
+autograd's anomaly mode in place of checkify.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -47,3 +50,62 @@ def check_finite(name: str, tensors: dict) -> None:
         if (isinstance(t, torch.Tensor) and t.is_floating_point()
                 and not bool(torch.isfinite(t).all())):
             raise FloatingPointError(f"non-finite values in {name}['{key}']")
+
+
+class CheckError:
+    """The outcome of a ``checked`` call: ``message`` names the first
+    non-finite value, or is None; ``throw()`` raises it as a
+    FloatingPointError."""
+
+    def __init__(self, message: Optional[str] = None):
+        self.message = message
+
+    def get(self) -> Optional[str]:
+        return self.message
+
+    def throw(self) -> None:
+        if self.message is not None:
+            raise FloatingPointError(self.message)
+
+
+def _tensors(tree, path=""):
+    """(path, tensor) of every tensor in nested tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, f"{path}[{k!r}]")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, f"{path}[{i}]")
+
+
+def checked(fn):
+    """``fn`` wrapped to return ``(err, out)``: it runs under
+    ``torch.autograd.detect_anomaly(check_nan=True)``, so a backward inside
+    it that produces a NaN stops at the autograd function that made it
+    (``out`` is then None), and its tensor outputs are scanned for NaN and
+    Inf.  ``err.throw()`` (or ``throw(err)``) raises a FloatingPointError
+    naming the first non-finite value, and does nothing when there is none.
+    Anomaly mode costs a check per autograd function: a debug path, not the
+    production step."""
+
+    def run(*args, **kwargs):
+        try:
+            with torch.autograd.detect_anomaly(check_nan=True):
+                out = fn(*args, **kwargs)
+        except RuntimeError as e:
+            if "nan values" not in str(e):
+                raise
+            return CheckError(f"non-finite values in the backward: {e}"), None
+        for path, t in _tensors(out):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                return CheckError(f"non-finite values in output{path}"), out
+        return CheckError(), out
+
+    return run
+
+
+def throw(err: CheckError) -> None:
+    """Raise the error of a ``checked`` call, if any (one host sync)."""
+    err.throw()

@@ -24,6 +24,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 EMULATION = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstring>
 #include <thread>
@@ -110,14 +111,17 @@ inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline void __syncwarp() { emu::warp_->bar.arrive_and_wait(); }
 inline void __syncthreads() { emu::block_->arrive_and_wait(); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// Atomic as on the card: the lanes are threads that race for *p.
 inline int atomicMin(int* p, int v) {
-  const int o = *p;
-  *p = std::min(o, v);
+  std::atomic_ref<int> a(*p);
+  int o = a.load();
+  while (v < o && !a.compare_exchange_weak(o, v)) {}
   return o;
 }
 inline int atomicMax(int* p, int v) {
-  const int o = *p;
-  *p = std::max(o, v);
+  std::atomic_ref<int> a(*p);
+  int o = a.load();
+  while (v > o && !a.compare_exchange_weak(o, v)) {}
   return o;
 }
 

@@ -76,7 +76,10 @@ def test_import_leaves_jax_out():
             "dgs_tpu_torch.kernels.dense, dgs_tpu_torch.kernels.tiled, "
             "dgs_tpu_torch.ops.sampling, dgs_tpu_torch.oracle.dense, "
             "dgs_tpu_torch.ops.aggregation, dgs_tpu_torch.kernels.aggregate, "
-            "dgs_tpu_torch.models.dynamics, chip_smoke; "
+            "dgs_tpu_torch.models.dynamics, dgs_tpu_torch.ops.sampling_chunked, "
+            "dgs_tpu_torch.utils.checkpoint, dgs_tpu_torch.utils.debug, "
+            "dgs_tpu_torch.utils.metrics, dgs_tpu_torch.utils.profiling, "
+            "dgs_tpu_torch.utils.roofline, chip_smoke; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'dgs_tpu.'))"
             " or m == 'dgs_tpu']; "

@@ -1,6 +1,8 @@
 """The port's GaussianSampler facade and PIGS evaluation end to end against
 dgs_tpu's, and the facade's named errors."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,9 +118,126 @@ def test_debug_errors(rng):
     assert int(s.state.overflow) > 0
 
 
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.2"):
-        TSampler(method="chunked")
+def test_unported_paths_raise(rng, monkeypatch):
+    """The chunked method is ported (the facade constructs it); what the
+    port still does not run raises on it: dgs_tpu's TPU-only kernel modes
+    and its kernel-ablation hook."""
+    assert TSampler(method="chunked").method == "chunked"
+    with pytest.raises(NotImplementedError, match="separable_kernels"):
+        TConfig(separable_kernels=True)
+    arrays = [torch.from_numpy(a) for a in _data(rng, P=30, N=60, D=3)]
+    s = TSampler(method="chunked", config=TConfig(tile_size=0.25))
+    s.preprocess(*arrays)
+    monkeypatch.setenv("DGS_ABLATE", "fdots")
+    with pytest.raises(NotImplementedError, match="DGS_ABLATE"):
+        s.sample_gaussians()
+
+
+def _chunked_pair(arrays, kw, debug=False, requires_grad=False):
+    """dgs_tpu's and the port's GaussianSampler(method="chunked"), both
+    preprocessed on the same arrays; the port's (means, values, conics)
+    leaves."""
+    m, v, cov, c, s = arrays
+    js = JSampler(debug=debug, method="chunked", config=JConfig(**kw))
+    js.preprocess(*map(jnp.asarray, arrays))
+    leaves = [torch.from_numpy(a).requires_grad_(requires_grad)
+              for a in (m, v, c)]
+    ts = TSampler(debug=debug, method="chunked", config=TConfig(**kw))
+    ts.preprocess(leaves[0], leaves[1], torch.from_numpy(cov), leaves[2],
+                  torch.from_numpy(s))
+    return js, ts, leaves
+
+
+CHUNKED_KW = dict(tile_size=0.2, axis_radii=True, ellip_cull=True,
+                  eig_floor=1e-12, block_n=128, block_p=128)
+
+
+def test_chunked_facade_matches_jax_facade(rng):
+    """GaussianSampler(method="chunked") at bench.py's D = 3 flags: the
+    planned config, the four sample_gaussians* and sample_all against
+    dgs_tpu's facade, outputs and gradients w.r.t. the means, values and
+    conics handed to preprocess."""
+    arrays = _data(rng, P=60, N=200, D=3, C=2, sigma_range=(0.03, 0.1))
+    js, ts, leaves = _chunked_pair(arrays, CHUNKED_KW, debug=True,
+                                   requires_grad=True)
+    assert ts.config.unwrapped_kernels == js.config.unwrapped_kernels
+    assert ts.state is None and js.state is None
+    np.testing.assert_allclose(ts.radii.detach().numpy(),
+                               np.asarray(js.radii), rtol=1e-6)
+    calls = ("sample_gaussians", "sample_gaussians_derivative",
+             "sample_gaussians_laplacian",
+             "sample_gaussians_third_derivative", "sample_all")
+
+    def run(sampler, call):
+        out = getattr(sampler, call)()
+        return list(out.values()) if isinstance(out, dict) else [out]
+
+    concrete = tuple(map(jnp.asarray, (arrays[0], arrays[1], arrays[3])))
+
+    def jloss(jm, jv, jc, call):
+        js.means, js.values, js.conics = jm, jv, jc
+        return sum(jnp.sum(o * o) for o in run(js, call))
+
+    for call in calls:
+        js.means, js.values, js.conics = concrete
+        for g, r in zip(run(ts, call), run(js, call)):
+            assert g.shape == r.shape, call
+            assert_close(g.detach(), r, call)
+        js.debug = False      # the JAX debug check reads concrete values
+        ref = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)), static_argnums=3)(
+            *concrete, call)
+        js.debug = True
+        got = torch.autograd.grad(sum((o * o).sum() for o in run(ts, call)),
+                                  leaves)
+        for g, r, name in zip(got, ref, ("means", "values", "conics")):
+            assert_grad_close(g, r, f"chunked {call} dL/d{name}")
+
+
+def test_chunked_facade_debug_raises_on_drift(rng):
+    """Parameters that drift past the plan after preprocess (footprints
+    twice as wide: covariances x4, conics / 4, assigned to the sampler)
+    raise the named overflow ValueError in debug mode in both packages;
+    without debug the port runs and reports nothing."""
+    arrays = _data(rng, P=60, N=200, D=3, C=2, sigma_range=(0.03, 0.1))
+    js, ts, _ = _chunked_pair(arrays, CHUNKED_KW, debug=True)
+    ts.sample_all()
+    js.covariances, js.conics = 4.0 * js.covariances, js.conics / 4.0
+    ts.covariances, ts.conics = 4.0 * ts.covariances, ts.conics / 4.0
+    for sampler in (js, ts):
+        with pytest.raises(ValueError,
+                           match="chunked sampling overflow.*re-run "
+                                 "preprocess") as err:
+            sampler.sample_gaussians()
+        assert "entry_overflow" in str(err.value)
+    ts.debug = False
+    assert ts.sample_gaussians().shape == (200, 2)
+
+
+def test_chunked_preprocess_again_rechecks_the_wrap(rng):
+    """preprocess run again after the footprints outgrew period / 2 - tile
+    plans from the config the sampler was given, not from the first plan's
+    wrap-free one: the certificate drops, and the outputs equal those of a
+    sampler preprocessed on the wide arrays alone and the wrapped tiled
+    facade's."""
+    m, v, cov, c, s = _data(rng, P=40, N=300, D=2, C=2,
+                            sigma_range=(0.03, 0.05))
+    cfg = TConfig(tile_size=0.2, eig_floor=1e-12)
+    ts = TSampler(method="chunked", config=cfg)
+    ts.preprocess(*map(torch.from_numpy, (m, v, cov, c, s)))
+    assert ts.config.unwrapped_kernels
+    wide = tuple(map(torch.from_numpy, (m, v, 64.0 * cov, c / 64.0, s)))
+    ts.preprocess(*wide)
+    assert not ts.config.unwrapped_kernels
+    fresh = TSampler(method="chunked", config=cfg)
+    fresh.preprocess(*wide)
+    tiled = TSampler(config=dataclasses.replace(
+        cfg, max_tiles_per_gaussian=ts._chunk_plan.rect,
+        entry_capacity_factor=ts._chunk_plan.entries / 40 + 1.0))
+    tiled.preprocess(*wide)
+    got, again, ref = ts.sample_all(), fresh.sample_all(), tiled.sample_all()
+    for o in ORDERS:
+        assert torch.equal(got[o], again[o]), o
+        assert_close(got[o], ref[o], o)
 
 
 @pytest.mark.parametrize("method", ["brute", "dense"])
