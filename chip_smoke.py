@@ -16,6 +16,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --chunked  # the chunked path's kernels' and
                                      # steps' times only (see
                                      # chunked_times)
+    python3 chip_smoke.py --sharded  # the two sharded phases only (see
+                                     # sharded_times)
 
 Several modes may be given; they run in the order given.  The per-pair
 operation counts and the card's peak rates of the bounds are
@@ -191,7 +193,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    rollout 2, 65,536 evaluation points, kernel aggregation,
                    tiled evaluation, frequency ladder, 60 steps.  Checks
                    overflow 0, a falling loss and the launches per step.
- 13. profile     - where a step's time goes, for the headline training
+ 13. sharded     - the sharded paths of dgs_tpu_torch/parallel/mesh.py on
+                   one NCCL rank in this process, mesh (1, 1):
+                   plan_sharded_config equal to the headline's plan,
+                   sharded_sample_all at the headline (tiled, three
+                   orders), three replicated and three model-sharded PIGS
+                   steps of config 4, sharded_aggregate (forward and
+                   backward) at the aggregation point over one tile-range
+                   shard; each bitwise equal to its unsharded path
+                   (sample_binned, pigs.train_step's losses and parameters,
+                   aggregate_pallas's output and six gradients), the launch
+                   counts of the whole run; then each path's time beside
+                   the unsharded one's, one NCCL all-reduce's time at the
+                   sizes the paths reduce, and peak memory.
+     sharded_two_ranks - two processes spawned on the one card, joined
+                   under gloo (NCCL takes one rank a device; gloo stages
+                   CUDA tensors through host memory, its times are not
+                   NCCL's), mesh (1, 2): the headline evaluation (the
+                   config from plan_sharded_config), the
+                   model-sharded PIGS step's gradients (not twice the
+                   unsharded ones) and sharded_aggregate over two tile
+                   ranges, against the unsharded paths on each rank; the
+                   kernel library is built here first and the ranks load
+                   it.
+ 14. profile     - where a step's time goes, for the headline training
                    step, the PIGS step, the dense training step, the
                    aggregation step, the dynamics step and the chunked
                    D = 3 step (three orders): device
@@ -211,7 +236,8 @@ forward and backward the warp sweep's body steps and lane use at the
 aggregation point; the segment-sum's row also index_add_'s time as
 library_ms, both layouts and the D = 3 cases; the tiled kernels' and
 the segment-sum's rows also the chunked D = 3 shapes by_shape, and
-launches_by_path chunked_slice and chunked_step) and, last, the result
+launches_by_path chunked_slice and chunked_step, sharded and
+sharded_two_ranks (the two ranks' launches summed)) and, last, the result
 line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no JAX and nothing of the JAX package.
@@ -221,13 +247,17 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from dgs_tpu_torch.binning import grid as binning
 from dgs_tpu_torch.config import ORDERS, SamplerConfig
@@ -237,10 +267,11 @@ from dgs_tpu_torch.kernels import dense as kdense
 from dgs_tpu_torch.kernels import segment
 from dgs_tpu_torch.kernels import tiled as ktiled
 from dgs_tpu_torch.models import dynamics, pigs
-from dgs_tpu_torch.models.field import init_field
+from dgs_tpu_torch.models.field import GaussianField, init_field
 from dgs_tpu_torch.ops import aggregation, formulas, sampling
 from dgs_tpu_torch.ops import sampling_chunked
 from dgs_tpu_torch.oracle import dense as oracle
+from dgs_tpu_torch.parallel import mesh as pm
 from dgs_tpu_torch.sampler import GaussianSampler
 from dgs_tpu_torch.utils import native
 from dgs_tpu_torch.utils.profiling import device_busy
@@ -288,12 +319,12 @@ def expect_launches(what, **want):
     return got
 
 
-def check_close(what, got, ref, rtol):
+def check_close(what, got, ref, rtol, atol_rel=ATOL_REL):
     """(max abs err, max abs err / max|ref|) of got against ref, raising
-    when a value is outside rtol * |ref| + ATOL_REL * max(1, max|ref|)."""
+    when a value is outside rtol * |ref| + atol_rel * max(1, max|ref|)."""
     scale = max(1.0, float(ref.abs().max()))
     diff = (got - ref).abs()
-    bad = diff > ATOL_REL * scale + rtol * ref.abs()
+    bad = diff > atol_rel * scale + rtol * ref.abs()
     if bool(bad.any()):
         raise AssertionError(
             f"{what}: {int(bad.sum())} values outside the tolerance, max "
@@ -2801,6 +2832,349 @@ def agg_times(dev, reps=10, steps=30):
     emit("spin", **_spin)
 
 
+# ---------------------------------------------------------------------------
+# The sharded paths (dgs_tpu_torch/parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+SHARD_PIGS_STEPS = 3
+
+
+def clone_field(field):
+    with torch.no_grad():
+        return GaussianField(*(p.detach().clone() for p in (
+            field.means, field.log_scales, field.rotations, field.values)))
+
+
+def pigs_draws(gen, dev, n):
+    """``n`` steps' (collocation, data points) of config 4, drawn as
+    pigs.make_train_step draws them."""
+    draws = []
+    for _ in range(n):
+        col = 2.0 * torch.rand((PIGS_COLLOCATION, 2), generator=gen,
+                               device=dev) - 1.0
+        dx = 2.0 * torch.rand((PIGS_COLLOCATION // 4, 2), generator=gen,
+                              device=dev) - 1.0
+        draws.append((col, dx))
+    return draws
+
+
+def agg_grads_of(fn, params):
+    """(output, the six gradients) of sum(out^2) through
+    fn(features, transform, queries, keys, frequencies, distance_transform)
+    on fresh leaves of ``params``."""
+    leaves = [params[k].clone().requires_grad_() for k in AGG_GROUPS]
+    out = fn(*leaves)
+    (out * out).sum().backward()
+    return out.detach(), [p.grad for p in leaves]
+
+
+def agg_shard_inputs(sampler):
+    """(cfg, means, conics, radii) of the aggregation point's facade."""
+    return (sampler.config, sampler.means.detach(), sampler.conics.detach(),
+            sampler.radii)
+
+
+def bitwise(what, got, ref):
+    if not torch.equal(got, ref):
+        raise AssertionError(
+            f"{what}: not bitwise equal, max abs diff "
+            f"{float((got - ref).abs().max())}")
+
+
+def phase_sharded(dev):
+    """sharded: the paths of parallel/mesh.py on one NCCL rank in this
+    process (mesh (1, 1) on "cuda"): sharded_sample_all at the headline
+    (tiled, three orders), SHARD_PIGS_STEPS replicated and model-sharded
+    PIGS steps of config 4 and sharded_aggregate at the aggregation point,
+    each held bitwise against its unsharded path on the same inputs
+    (sample_binned, pigs.train_step, aggregate_pallas); then their times,
+    one NCCL all-reduce's time at the sizes the paths reduce, and peak
+    memory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            return sharded_one_rank(dev)
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_one_rank(dev):
+    mesh = pm.make_mesh((1, 1), "cuda")
+    # Inputs and the unsharded references first: their launches are not
+    # the sharded path's.
+    (means, values, covs, conics), samples, cfg, _ = headline(
+        dev, 100_000, 1_000_000)
+    gauss = (means, values, conics, covs)
+    # At one rank the per-shard plan is the whole cloud's.
+    cfg_sh = pm.plan_sharded_config(SamplerConfig(**HEADLINE), mesh, means,
+                                    covs, samples)
+    if cfg_sh != cfg:
+        raise AssertionError(f"plan_sharded_config at one rank: {cfg_sh} "
+                             f"!= {cfg}")
+    ref_outs, _ = sampling.sample_binned(cfg, means, values, conics, covs,
+                                         samples, SLICE_ORDERS)
+    pcfg, field0, gen, u_star, f_rhs = pigs_setup(dev)
+    draws = pigs_draws(gen, dev, SHARD_PIGS_STEPS)
+    ref_field = clone_field(field0)
+    ref_opt = torch.optim.Adam(ref_field.parameters(), lr=PIGS_LR, eps=1e-8)
+    ref_losses = [pigs.train_step(pcfg, ref_field, ref_opt, c, x, u_star(x),
+                                  f_rhs)["loss"] for c, x in draws]
+    sampler, params, _ = agg_point(dev)
+    sampler.preprocess_aggregate(method="pallas")
+    ref_agg = agg_grads_of(sampler.aggregate_neighbors, params)
+
+    rep_field = clone_field(field0)
+    rep_opt = torch.optim.Adam(rep_field.parameters(), lr=PIGS_LR, eps=1e-8)
+    rep_step = pm.make_sharded_pigs_step(pcfg, mesh, f_rhs, u_star)
+    mod_step, shard_field = pm.make_model_sharded_pigs_step(
+        pcfg, mesh, f_rhs, u_star)
+    mod_field = shard_field(field0)
+    mod_opt = torch.optim.Adam(mod_field.parameters(), lr=PIGS_LR, eps=1e-8)
+
+    reset_launches()
+    outs, diag = pm.sharded_sample_all(cfg, mesh, *gauss, samples,
+                                       SLICE_ORDERS)
+    rep_metrics = [rep_step(rep_field, rep_opt, c, x) for c, x in draws]
+    mod_metrics = [mod_step(mod_field, mod_opt, c, x) for c, x in draws]
+    _, _, agg = pm.build_sharded_aggregation(
+        *agg_shard_inputs(sampler), 1, 0)
+    sh_agg = agg_grads_of(
+        lambda *leaves: pm.sharded_aggregate(mesh, *leaves, agg), params)
+    torch.cuda.synchronize()
+    k = SHARD_PIGS_STEPS
+    launches = expect_launches(
+        "the sharded paths at one rank", tiled_forward=1 + 4 * k,
+        tiled_backward=4 * k, segment_sum=4 * k + 1, agg_totals=1,
+        agg_forward=1, agg_backward=2)
+
+    over = {k: int(diag[k]) for k in pigs.DIAGNOSTICS if int(diag[k])}
+    if over or int(agg.overflow):
+        raise AssertionError(f"sharded overflow {over}, aggregation "
+                             f"{int(agg.overflow)}")
+    for order in SLICE_ORDERS:
+        bitwise(f"sharded_sample_all {order}", outs[order], ref_outs[order])
+    for i, (ref, rep, mod) in enumerate(zip(ref_losses, rep_metrics,
+                                            mod_metrics)):
+        bitwise(f"replicated PIGS loss, step {i}", rep["loss"], ref)
+        bitwise(f"model-sharded PIGS loss, step {i}", mod["loss"], ref)
+        for name in pigs.DIAGNOSTICS:
+            if int(rep[name]) or int(mod[name]):
+                raise AssertionError(f"PIGS step {i}: {name}")
+    for name, p in ref_field.named_parameters():
+        bitwise(f"replicated PIGS {name}", getattr(rep_field, name), p)
+        bitwise(f"model-sharded PIGS {name}", getattr(mod_field, name), p)
+    bitwise("sharded_aggregate output", sh_agg[0], ref_agg[0])
+    for name, g, r in zip(AGG_GROUPS, sh_agg[1], ref_agg[1]):
+        bitwise(f"sharded_aggregate d{name}", g, r)
+    n_eval = sum(o.numel() for o in outs.values())
+    del ref_outs, outs
+
+    # Times: each sharded path beside its unsharded one, and the bare
+    # all-reduce at the sizes the paths hand NCCL (device time, and the
+    # synchronised host time of one call).
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    def sharded_eval():
+        pm.sharded_sample_all(cfg, mesh, *gauss, samples, SLICE_ORDERS)
+
+    def eval_():
+        sampling.sample_binned(cfg, means, values, conics, covs, samples,
+                               SLICE_ORDERS)
+
+    c0, x0 = draws[0]
+    times = {
+        "eval": host_ms(eval_, 5), "sharded_eval": host_ms(sharded_eval, 5),
+        "pigs_step": host_ms(lambda: pigs.train_step(
+            pcfg, ref_field, ref_opt, c0, x0, u_star(x0), f_rhs), 5),
+        "sharded_pigs_step": host_ms(
+            lambda: rep_step(rep_field, rep_opt, c0, x0), 5),
+        "model_sharded_pigs_step": host_ms(
+            lambda: mod_step(mod_field, mod_opt, c0, x0), 5),
+        "agg_step": host_ms(
+            lambda: agg_grads_of(sampler.aggregate_neighbors, params), 5),
+        "sharded_agg_step": host_ms(lambda: agg_grads_of(
+            lambda *leaves: pm.sharded_aggregate(mesh, *leaves, agg),
+            params), 5)}
+    n_pigs = PIGS_COLLOCATION * 4          # value + 3 unique Hessian terms
+    n_grads = sum(p.numel() for p in ref_field.parameters())
+    allreduce_ms = {}
+    for what, n in (("eval_outputs", n_eval), ("pigs_outputs", n_pigs),
+                    ("pigs_grads", n_grads),
+                    ("agg_outputs", ref_agg[0].numel())):
+        buf = torch.zeros(n, device=dev)
+        allreduce_ms[what] = {
+            "floats": n, "ms": cuda_ms(lambda: dist.all_reduce(buf)),
+            "host_ms": statistics.median(host_ms(
+                lambda: dist.all_reduce(buf), 10))}
+    busy = {}
+    for what, fn in (("eval", eval_), ("sharded_eval", sharded_eval)):
+        ms, top = device_busy(fn, 5)
+        busy[what] = {"device_busy_ms": ms, "top": top}
+    emit("sharded", backend="nccl", mesh=[1, 1], P=100_000, N=1_000_000,
+         orders=SLICE_ORDERS, pigs_steps=k, agg_P=AGG_P,
+         bitwise_equal_to_unsharded=True, launches=launches,
+         losses=[float(x) for x in ref_losses],
+         ms_median={k: statistics.median(v) for k, v in times.items()},
+         ms=times, allreduce_ms=allreduce_ms, device_busy=busy,
+         peak_bytes={"eval": peak(eval_), "sharded_eval": peak(sharded_eval)})
+    return launches
+
+
+def sharded_two_ranks_worker(rank, store, out_dir):
+    """One of the two ranks of phase_sharded_two_ranks, on card 0 under
+    gloo; writes its results to out_dir/rank<rank>.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2)
+    try:
+        res = sharded_two_ranks(dev)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def sharded_two_ranks(dev):
+    mesh = pm.make_mesh((1, 2), "cuda")
+    m = mesh.get_local_rank("model")
+    # gloo's all-reduce takes CUDA tensors (staged through host memory).
+    probe = torch.full((4,), float(m + 1), device=dev)
+    dist.all_reduce(probe)
+    if probe.tolist() != [3.0] * 4:
+        raise AssertionError(f"gloo all-reduce of CUDA tensors: {probe}")
+
+    # The unsharded references first (not counted).
+    (means, values, covs, conics), samples, cfg, _ = headline(
+        dev, 100_000, 1_000_000)
+    ref_outs, _ = sampling.sample_binned(cfg, means, values, conics, covs,
+                                         samples, SLICE_ORDERS)
+    # Every rank runs one config, which covers both shards' binnings.
+    cfg_sh = pm.plan_sharded_config(SamplerConfig(**HEADLINE), mesh, means,
+                                    covs, samples)
+    pcfg, field, gen, u_star, f_rhs = pigs_setup(dev)
+    ((col, dx),) = pigs_draws(gen, dev, 1)
+    ref_field = clone_field(field)
+    ref_loss, _ = pigs.pigs_loss(pcfg, ref_field, col, dx, u_star(dx), f_rhs)
+    ref_loss.backward()
+    sampler, params, _ = agg_point(dev)
+    sampler.preprocess_aggregate(method="pallas")
+    ref_agg = agg_grads_of(sampler.aggregate_neighbors, params)
+    step, shard_field = pm.make_model_sharded_pigs_step(pcfg, mesh, f_rhs,
+                                                        u_star)
+    shard = shard_field(field)
+    opt = torch.optim.SGD(shard.parameters(), lr=PIGS_LR)
+
+    reset_launches()
+    outs, diag = pm.sharded_sample_all(cfg_sh, mesh, means, values, conics,
+                                       covs, samples, SLICE_ORDERS)
+    metrics = step(shard, opt, col, dx)
+    _, _, agg = pm.build_sharded_aggregation(
+        *agg_shard_inputs(sampler), 2, m)
+    sh_agg = agg_grads_of(
+        lambda *leaves: pm.sharded_aggregate(mesh, *leaves, agg), params)
+    torch.cuda.synchronize()
+    launches = expect_launches(
+        "the sharded paths on two ranks", tiled_forward=3, tiled_backward=2,
+        segment_sum=3, agg_totals=1, agg_forward=1, agg_backward=2)
+
+    over = {k: int(diag[k]) for k in pigs.DIAGNOSTICS if int(diag[k])}
+    over.update({f"pigs_{k}": int(metrics[k]) for k in pigs.DIAGNOSTICS
+                 if int(metrics[k])})
+    if over or int(agg.overflow):
+        raise AssertionError(f"rank {m}: overflow {over}, aggregation "
+                             f"{int(agg.overflow)}")
+    errs = {f"eval_{o}": check_close(f"sharded_sample_all {o}", outs[o],
+                                     ref_outs[o], RTOL)
+            for o in SLICE_ORDERS}
+    errs["pigs_loss"] = check_close("model-sharded PIGS loss",
+                                    metrics["loss"], ref_loss.detach(), RTOL)
+    scale = {}
+    for name, p in shard.named_parameters():
+        ref = pm.shard_rows(getattr(ref_field, name).grad, 2, m)
+        errs[f"pigs_d{name}"] = check_close(
+            f"model-sharded PIGS d{name}", p.grad, ref, GRAD_RTOL)
+        scale[name] = float(p.grad.abs().sum() / ref.abs().sum())
+    errs["agg_out"] = check_close("sharded_aggregate output", sh_agg[0],
+                                  ref_agg[0], RTOL)
+    for name, g, r in zip(AGG_GROUPS, sh_agg[1], ref_agg[1]):
+        errs[f"agg_d{name}"] = check_close(
+            f"sharded_aggregate d{name}", g, r, 3e-4, atol_rel=1e-4)
+
+    n_eval = sum(o.numel() for o in outs.values())
+    del ref_outs, outs
+    buf = torch.zeros(n_eval, device=dev)
+    times = {
+        "sharded_eval": host_ms(lambda: pm.sharded_sample_all(
+            cfg_sh, mesh, means, values, conics, covs, samples,
+            SLICE_ORDERS), 3),
+        "model_sharded_pigs_step": host_ms(
+            lambda: step(shard, opt, col, dx), 3),
+        "sharded_agg_step": host_ms(lambda: agg_grads_of(
+            lambda *leaves: pm.sharded_aggregate(mesh, *leaves, agg),
+            params), 3),
+        "allreduce_eval_outputs": host_ms(
+            lambda: dist.all_reduce(buf, group=mesh.get_group("model")), 3)}
+    return {"rank": dist.get_rank(), "model": m, "launches": launches,
+            "cfg": {"max_tiles_per_gaussian": cfg_sh.max_tiles_per_gaussian,
+                    "entry_capacity_factor": cfg_sh.entry_capacity_factor,
+                    "unwrapped_kernels": cfg_sh.unwrapped_kernels},
+            "agg_range_entries": int((agg.ent_gid < AGG_P).sum()),
+            "grad_scale_vs_unsharded": scale, "err": err_fields(errs),
+            "ms_median": {k: statistics.median(v) for k, v in times.items()},
+            "ms": times, "allreduce_floats": n_eval}
+
+
+def phase_sharded_two_ranks(dev, timeout=900):
+    """sharded_two_ranks: two processes on the one card, joined under gloo
+    (NCCL takes one rank a device), mesh (1, 2): the headline evaluation,
+    the model-sharded PIGS step's gradients and sharded_aggregate over two
+    tile ranges, held against the unsharded paths on each rank (outputs
+    rtol 2e-4, PIGS gradients 2e-3, aggregation gradients 3e-4 with atol
+    1e-4 max|g|).  The kernel library is built in this process first; the
+    ranks load it.  A rank that fails fails the phase."""
+    _build.load()
+    native._load()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            sharded_two_ranks_worker, args=(os.path.join(tmp, "store"), tmp),
+            nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"sharded_two_ranks ran past "
+                                       f"{timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name in KERNELS}
+    emit("sharded_two_ranks", backend="gloo", mesh=[1, 2],
+         gloo_takes_cuda_tensors=True, launches=launches, ranks=ranks)
+    return launches
+
+
+def sharded_times(dev):
+    """--sharded: the two sharded phases alone."""
+    phase_sharded(dev)
+    phase_sharded_two_ranks(dev)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2809,7 +3183,7 @@ def main():
     build = phase_build()
     modes = {"--tiled": tiled_times, "--dense": dense_times,
              "--agg": agg_times, "--segment": segment_times,
-             "--chunked": chunked_times}
+             "--chunked": chunked_times, "--sharded": sharded_times}
     if sys.argv[1:]:
         for mode in sys.argv[1:]:
             modes[mode](dev)
@@ -2845,6 +3219,8 @@ def main():
     (agg_build_launches, agg_launches, agg_step_launches, k_agg,
      agg_step) = phase_agg_slice(dev)
     dynamics_launches = phase_dynamics(dev)
+    sharded_launches = phase_sharded(dev)
+    two_rank_launches = phase_sharded_two_ranks(dev)
     phase_profile(dev, train_step, dense_step, agg_step, chunked_train_step)
     paths = {"slice": slice_launches, "train_step": train_launches,
              "pigs": pigs_launches, "dense_slice": dense_eval_launches,
@@ -2852,7 +3228,8 @@ def main():
              "pigs_dense": pigs_dense_launches,
              "agg_structure": agg_build_launches, "agg_slice": agg_launches,
              "agg_step": agg_step_launches, "dynamics": dynamics_launches,
-             **chunked_launches}
+             "sharded": sharded_launches,
+             "sharded_two_ranks": two_rank_launches, **chunked_launches}
     # name: (source, the TPU kernel it replaces, its main path, numbers)
     kernels = {
         "tiled_forward": ("tiled_forward.cu", "dgs_tpu/kernels/tiled.py:727",

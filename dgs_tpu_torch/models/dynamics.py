@@ -97,6 +97,17 @@ def advection_diffusion_solution(D: int, kappa: float = 0.05,
     return u_star
 
 
+def step_frequencies(params: DynamicsParams, D: int, ladder: bool):
+    """The frequencies an aggregation call takes: params.frequencies, or
+    with ``ladder`` the rungs base * (1..nfreq) of its (1,) learnable base
+    (nfreq from the distance transform's length at dimension D)."""
+    if not ladder:
+        return params.frequencies
+    nfreq = (params.distance_transform.shape[0] // 2 - 1) // D // 2
+    return params.frequencies[0] * torch.arange(
+        1, nfreq + 1, dtype=torch.float32, device=params.frequencies.device)
+
+
 def rollout_step(params: DynamicsParams, values, nbr, *,
                  ladder: bool = False):
     """values <- values + aggregate(values)  (the residual dynamics update).
@@ -108,16 +119,10 @@ def rollout_step(params: DynamicsParams, values, nbr, *,
     gradients onto the base and the kernels can replace most per-pair
     sin/cos with the angle-addition recurrence."""
     is_binning = isinstance(nbr, aggregation.AggBinning)
-    freqs = params.frequencies
-    if ladder:
-        D = (nbr.ctr_static.shape[1] - 3 if is_binning
-             else nbr.dists.shape[-1])
-        E = params.distance_transform.shape[0] // 2
-        nfreq = (E - 1) // D // 2
-        freqs = params.frequencies[0] * torch.arange(
-            1, nfreq + 1, dtype=torch.float32, device=freqs.device)
-    args = (values, params.transform, params.queries, params.keys, freqs,
-            params.distance_transform, nbr)
+    D = nbr.ctr_static.shape[1] - 3 if is_binning else nbr.dists.shape[-1]
+    args = (values, params.transform, params.queries, params.keys,
+            step_frequencies(params, D, ladder), params.distance_transform,
+            nbr)
     if is_binning:
         return values + aggregation.aggregate_pallas(
             *args, ladder_frequencies=ladder)

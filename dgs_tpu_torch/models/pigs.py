@@ -194,7 +194,13 @@ def auto_config(cfg: SamplerConfig, field: GaussianField, probe,
     with torch.no_grad():
         plan = native.plan_capacities(cfg, field.means, field.covariances(),
                                       probe)
-    cfg = native.config_from_plan(cfg, plan, P)
+    return drift_headroom(native.config_from_plan(cfg, plan, P))
+
+
+def drift_headroom(cfg: SamplerConfig) -> SamplerConfig:
+    """auto_config's headroom on a planned config, for training steps that
+    move the Gaussians (parallel.mesh.plan_sharded_config's plan under the
+    model-sharded step)."""
     return dataclasses.replace(
         cfg,
         max_tiles_per_gaussian=cfg.max_tiles_per_gaussian + 1,

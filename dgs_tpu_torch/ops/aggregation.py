@@ -420,6 +420,34 @@ def plan_pallas(cfg: SamplerConfig, means, radii, *, block_n: int = 32,
     return cfg, AggPlan(rect=R, entries=max(-(-n_entries // 128) * 128, 128))
 
 
+def plan_pallas_sharded(cfg: SamplerConfig, means, radii, n_shards: int,
+                        *, block_n: int = 32, block_e: int = 128,
+                        auto_tile: bool = True):
+    """Plan for tile-range model-parallel aggregation shards: (cfg', plan,
+    ranges), with ``ranges`` ``n_shards`` contiguous tile ranges (t0, t1)
+    for preprocess_pallas(tile_range=...), balanced by the tiles' entries
+    counted in chunks of ``block_e`` (the TPU layout's entry chunk, kept so
+    that the ranges are dgs_tpu's exactly).  ``plan`` is plan_pallas's
+    global plan: a shard's structure indexes the global compact entry list,
+    so its entry capacity stays the global one.  ``block_n`` is not read
+    (see plan_pallas)."""
+    means, radii = means.detach(), radii.detach()
+    P, D = means.shape
+    cfg, plan = plan_pallas(cfg, means, radii, auto_tile=auto_tile)
+    _, rho = _collision_geometry(radii)
+    start = binning.duplicate_entries(
+        cfg, means, rho, plan.rect, P * plan.rect ** D)[2].cpu().numpy()
+    T = binning.num_tiles(cfg, D)
+    chunks = -(-(start[1:T + 1] - start[:T]) // block_e)
+    cum = np.cumsum(chunks)
+    total = max(int(cum[-1]), 1)
+    bounds = ([0] + [int(np.searchsorted(cum, total * s / n_shards))
+                     for s in range(1, n_shards)] + [T])
+    ranges = tuple((bounds[i], max(bounds[i + 1], bounds[i]))
+                   for i in range(n_shards))
+    return cfg, plan, ranges
+
+
 def _pad_rows(x: torch.Tensor, n: int, value) -> torch.Tensor:
     if x.shape[0] == n:
         return x
