@@ -18,6 +18,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # chunked_times)
     python3 chip_smoke.py --sharded  # the two sharded phases only (see
                                      # sharded_times)
+    python3 chip_smoke.py --tools    # the measuring tools' phase only (see
+                                     # phase_tools)
 
 Several modes may be given; they run in the order given.  The per-pair
 operation counts and the card's peak rates of the bounds are
@@ -222,8 +224,23 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    D = 3 step (three orders): device
                    busy time per step under torch.profiler (the union of
                    the device's activity intervals), the unprofiled step
-                   time, the device's idle share and the largest device
-                   items.
+                   time, the device's idle share, the device items
+                   launched a step and the largest of them.
+ 15. tools       - every measuring tool of dgs_tpu_torch/tools through its
+                   run() at its full-width defaults: bench at D = 2 and
+                   D = 3, and with BENCH_METHOD=pallas (the dense kernels)
+                   at dense config 2; profile_step at D = 2 and at the
+                   D = 3 chunked bench workload, profile_bench, train_100k
+                   at spec (300 PIGS steps, then 60 dynamics steps, with
+                   its checks), bench_aggregate, profile_aggregate (step),
+                   profile_dynamics (each half profiled), sweep_tile and
+                   sweep_chunked over their D = 2 tile lists at 3 steps.
+                   One line a record; checks the card's name and power
+                   limit on every record, every diagnostic 0, profiles
+                   (by kernel and by the port's function that launched
+                   it) that are not empty and name the path's kernels, and
+                   that each run launched the kernels of its path
+                   (launches_by_path tool_*); the phase's seconds.
 
 Then the kernels line (per kernel: launches on its main path and by path,
 its time, its plain version's time, the least time the card could take
@@ -2394,7 +2411,7 @@ def chunked_numbers(dev, orders, sampler, evals=10, steps=10, plain=True):
     if not all(repeat):
         raise AssertionError(f"gradients differ between two runs: {repeat}")
     peak = torch.cuda.max_memory_allocated()
-    busy, top = device_busy(step, 5)
+    busy, top, _ = device_busy(step, 5)
 
     # The kernels on the step's own operands and cotangent (d loss / d
     # packed outputs = 2 / N * multiplicity * packed).
@@ -2492,10 +2509,10 @@ def phase_profile(dev, train_step, dense_step, agg_step, chunked_train_step,
                             ("dynamics", dynamics_step(dev), pigs_iters),
                             ("chunked_step", chunked_train_step, 5)):
         times = host_ms(fn, 2 * iters)
-        busy, top = device_busy(fn, iters)
+        busy, top, items = device_busy(fn, iters)
         step_ms = statistics.median(times)
         emit("profile", path=path, step_ms_median=step_ms, step_ms=times,
-             device_busy_ms_per_step=busy,
+             device_busy_ms_per_step=busy, device_items_per_step=items,
              idle_share=max(0.0, 1.0 - busy / step_ms), top=top)
 
 
@@ -2781,7 +2798,7 @@ def agg_times(dev, reps=10, steps=30):
 
         def split():
             """The backward's device ms per call by kernel."""
-            _, top = device_busy(bwd, reps)
+            _, top, _ = device_busy(bwd, reps)
             return {k: sum(t for n, t in top if f"agg_backward_{k}" in n)
                     for k in ("entries", "centres")}
 
@@ -2825,7 +2842,7 @@ def agg_times(dev, reps=10, steps=30):
     for path, fn in (("agg_step", agg_step),
                      ("dynamics", dynamics_step(dev))):
         times = host_ms(fn, steps)
-        busy, top = device_busy(fn, 10)
+        busy, top, _ = device_busy(fn, 10)
         emit("agg_steps", path=path, step_ms_median=statistics.median(times),
              step_ms_min=min(times), step_ms_max=max(times),
              device_busy_ms_per_step=busy, top=top)
@@ -3015,7 +3032,7 @@ def sharded_one_rank(dev):
                 lambda: dist.all_reduce(buf), 10))}
     busy = {}
     for what, fn in (("eval", eval_), ("sharded_eval", sharded_eval)):
-        ms, top = device_busy(fn, 5)
+        ms, top, _ = device_busy(fn, 5)
         busy[what] = {"device_busy_ms": ms, "top": top}
     emit("sharded", backend="nccl", mesh=[1, 1], P=100_000, N=1_000_000,
          orders=SLICE_ORDERS, pigs_steps=k, agg_P=AGG_P,
@@ -3175,6 +3192,88 @@ def sharded_times(dev):
     phase_sharded_two_ranks(dev)
 
 
+# Each tool run: (key in launches_by_path, tool module name, settings
+# environment, kernels its path launches, kernels its profile must name).
+TILED = ("tiled_forward", "tiled_backward", "segment_sum")
+AGG = ("agg_forward", "agg_backward", "segment_sum")
+ALL_PROF = {"PROF_TOP": "100000"}
+TOOL_RUNS = (
+    ("tool_bench_d2", "bench", {}, TILED, ()),
+    ("tool_bench_d3", "bench", {"BENCH_D": "3"}, TILED, ()),
+    # bench.py's all-pairs method at dense config 2's width.
+    ("tool_bench_pallas", "bench",
+     {"BENCH_METHOD": "pallas", "BENCH_D": "3", "BENCH_P": "10000",
+      "BENCH_N": "100000", "BENCH_ORDERS": ",".join(ORDERS)},
+     ("dense_forward", "dense_backward"), ()),
+    ("tool_profile_step_d2", "profile_step", ALL_PROF, TILED, TILED),
+    ("tool_profile_step_d3", "profile_step",
+     {"BENCH_D": "3", "BENCH_METHOD": "chunked", "BENCH_TILE": "0.2",
+      "BENCH_ELLIP": "1", **ALL_PROF}, TILED, TILED),
+    ("tool_profile_bench", "profile_bench", {}, TILED, ()),
+    ("tool_train_100k", "train_100k", {}, TILED + AGG + ("agg_totals",), ()),
+    ("tool_bench_aggregate", "bench_aggregate", {}, AGG + ("agg_totals",),
+     ()),
+    ("tool_profile_aggregate", "profile_aggregate", ALL_PROF,
+     AGG + ("agg_totals",), AGG),
+    ("tool_profile_dynamics_rollout", "profile_dynamics",
+     {"DYN_PROFILE": "rollout", **ALL_PROF}, TILED + AGG + ("agg_totals",),
+     AGG),
+    ("tool_profile_dynamics_eval", "profile_dynamics",
+     {"DYN_PROFILE": "eval", **ALL_PROF}, TILED + AGG + ("agg_totals",),
+     TILED),
+    ("tool_sweep_tile", "sweep_tile", {"SWEEP_STEPS": "3"}, TILED, ()),
+    ("tool_sweep_chunked", "sweep_chunked", {"SWEEP_STEPS": "3"}, TILED,
+     ()),
+)
+
+
+def phase_tools(dev):
+    """The measuring tools at their full-width defaults, each through its
+    run(settings) as ``python -m dgs_tpu_torch.tools.<name>`` runs it (the
+    settings from the environment given here, not this process's).
+    Returns the launches by run."""
+    import importlib
+
+    name = torch.cuda.get_device_name(dev)
+    launches, seconds = {}, {}
+    t_phase = time.perf_counter()
+    for key, tool, env, kernels, named in TOOL_RUNS:
+        mod = importlib.import_module(f"dgs_tpu_torch.tools.{tool}")
+        reset_launches()
+        t0 = time.perf_counter()
+        records = mod.run(mod.settings(env))
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        launches[key] = read_launches()
+        for r in records:
+            emit("tools", run=key, **r)
+        if tool == "train_100k":
+            mod.check(records)
+        missing = [k for k in kernels if launches[key][k] < 1]
+        if missing:
+            raise AssertionError(f"{key} launched none of {missing}")
+        for r in records:
+            if r["device"] != name or not r["power_limit"]:
+                raise AssertionError(f"{key}: record without the card: {r}")
+            if "skip" in r:
+                raise AssertionError(f"{key} skipped a tile: {r}")
+            for k, v in r.get("detail", r).items():
+                if "overflow" in k and (any(v.values()) if isinstance(
+                        v, dict) else v):
+                    raise AssertionError(f"{key}: {k} = {v}")
+        if named:
+            ops = [r["name"] for r in records if "name" in r]
+            if not ops or not any("scope" in r for r in records):
+                raise AssertionError(f"{key}: the profile is empty")
+            absent = [k for k in named
+                      if not any(f"{k}_" in op for op in ops)]
+            if absent:
+                raise AssertionError(f"{key}: {absent} not in its profile")
+    emit("tools_summary", seconds=time.perf_counter() - t_phase,
+         seconds_by_run=seconds)
+    return launches
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3183,7 +3282,8 @@ def main():
     build = phase_build()
     modes = {"--tiled": tiled_times, "--dense": dense_times,
              "--agg": agg_times, "--segment": segment_times,
-             "--chunked": chunked_times, "--sharded": sharded_times}
+             "--chunked": chunked_times, "--sharded": sharded_times,
+             "--tools": phase_tools}
     if sys.argv[1:]:
         for mode in sys.argv[1:]:
             modes[mode](dev)
@@ -3222,6 +3322,7 @@ def main():
     sharded_launches = phase_sharded(dev)
     two_rank_launches = phase_sharded_two_ranks(dev)
     phase_profile(dev, train_step, dense_step, agg_step, chunked_train_step)
+    tool_launches = phase_tools(dev)
     paths = {"slice": slice_launches, "train_step": train_launches,
              "pigs": pigs_launches, "dense_slice": dense_eval_launches,
              "dense_step": dense_step_launches,
@@ -3229,7 +3330,8 @@ def main():
              "agg_structure": agg_build_launches, "agg_slice": agg_launches,
              "agg_step": agg_step_launches, "dynamics": dynamics_launches,
              "sharded": sharded_launches,
-             "sharded_two_ranks": two_rank_launches, **chunked_launches}
+             "sharded_two_ranks": two_rank_launches, **chunked_launches,
+             **tool_launches}
     # name: (source, the TPU kernel it replaces, its main path, numbers)
     kernels = {
         "tiled_forward": ("tiled_forward.cu", "dgs_tpu/kernels/tiled.py:727",

@@ -134,13 +134,20 @@ def test_scaling_bench_under_torchrun():
 
 
 def test_new_modules_leave_jax_out():
-    """The sharded paths, the example, the scaling tool and the tests'
+    """The sharded paths, the example, the measuring tools and the tests'
     rank-side module import no JAX and nothing of dgs_tpu (spawned ranks
     import them afresh)."""
+    tools = sorted(p.stem for p in (ROOT / "dgs_tpu_torch" / "tools").glob(
+        "*.py") if p.stem != "__init__")
+    assert {"_common", "bench", "profile_step", "profile_bench",
+            "train_100k", "bench_aggregate", "profile_aggregate",
+            "profile_dynamics", "sweep_tile", "sweep_chunked",
+            "scaling_bench"} <= set(tools)
     code = ("import sys; sys.path.insert(0, 'tests'); "
             "import dgs_tpu_torch.parallel.mesh, "
             "dgs_tpu_torch.examples.train_pigs, "
-            "dgs_tpu_torch.tools.scaling_bench, torch_dist_worker; "
+            + "".join(f"dgs_tpu_torch.tools.{t}, " for t in tools) +
+            "torch_dist_worker; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'dgs_tpu.'))"
             " or m == 'dgs_tpu']; "

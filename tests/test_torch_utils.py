@@ -167,11 +167,52 @@ def test_device_op_times_on_a_synthetic_trace(tmp_path):
         profiling.device_op_times(str(tmp_path / "none"))
 
 
+def test_device_scope_times_on_a_synthetic_trace(tmp_path):
+    """Device time by the port's innermost function around the launching
+    op; autograd's backward ops by their forward op's function (the same
+    sequence number); none outside the package."""
+    pkg = "dgs_tpu_torch/binning/grid.py(175): duplicate_entries"
+    ev = [
+        {"ph": "X", "cat": "python_function", "name": "bench.py(1): <module>",
+         "ts": 0, "dur": 1000, "tid": 1, "args": {}},
+        {"ph": "X", "cat": "python_function", "name": "/x/" + pkg,
+         "ts": 10, "dur": 100, "tid": 1, "args": {}},
+        # An op before the node's creation records its sequence number too.
+        {"ph": "X", "cat": "cpu_op", "name": "aten::empty", "ts": 2,
+         "dur": 3, "tid": 1, "args": {"Sequence number": 7}},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 20,
+         "dur": 10, "tid": 1,
+         "args": {"External id": 1, "Sequence number": 7}},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 200,
+         "dur": 10, "tid": 1, "args": {"External id": 2}},
+        {"ph": "X", "cat": "cpu_op",
+         "name": "autograd::engine::evaluate_function: MulBackward0",
+         "ts": 300, "dur": 50, "tid": 2, "args": {"Sequence number": 7}},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 310,
+         "dur": 5, "tid": 2, "args": {"External id": 3,
+                                      "Sequence number": 7}},
+        {"ph": "X", "cat": "kernel", "name": "mul_kernel", "ts": 40,
+         "dur": 30, "args": {"External id": 1}},
+        {"ph": "X", "cat": "kernel", "name": "add_kernel", "ts": 220,
+         "dur": 20, "args": {"External id": 2}},
+        {"ph": "X", "cat": "kernel", "name": "mul_kernel", "ts": 330,
+         "dur": 10, "args": {"External id": 3}},
+    ]
+    with gzip.open(tmp_path / "trace_1.json.gz", "wt") as f:
+        json.dump({"traceEvents": ev}, f)
+    assert profiling.device_scope_times(str(tmp_path), steps=2) == [
+        {"scope": pkg, "ms_per_step": 0.015, "items": 1},
+        {"scope": "", "ms_per_step": 0.01, "items": 1},
+        {"scope": "backward of " + pkg, "ms_per_step": 0.005, "items": 1},
+    ]
+
+
 def test_trace_writes_a_readable_trace(tmp_path):
     with profiling.trace(str(tmp_path)):
         with profiling.named_scope("square"):
             torch.arange(64.0).pow(2).sum()
     assert isinstance(profiling.device_op_times(str(tmp_path)), list)
+    assert isinstance(profiling.device_scope_times(str(tmp_path)), list)
 
 
 @pytest.mark.parametrize("spans,want", [
