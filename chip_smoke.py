@@ -20,6 +20,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # sharded_times)
     python3 chip_smoke.py --tools    # the measuring tools' phase only (see
                                      # phase_tools)
+    python3 chip_smoke.py --modes    # the kernel modes' two phases only
+                                     # (parity_modes, modes_slice)
 
 Several modes may be given; they run in the order given.  The per-pair
 operation counts and the card's peak rates of the bounds are
@@ -71,6 +73,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    the segment-sum against their plain versions on the
                    chunked op's own operands; the first 512 samples of the
                    bench-flag case against the dense masked oracle.
+     parity_modes - the kernel modes of kernels 1-2 (the separable forward,
+                   csrc/tiled_forward_sep.cu; the moment-form backward,
+                   csrc/tiled_backward_moments.cu) against their plain
+                   versions on wrap-free tile-local operands: D in {1, 2, 3}
+                   x C in {1, 4, 6}, all four orders, full-cover footprints
+                   (open box), tiles without samples or entries, C = 2; the
+                   forward at 3 TF32 passes within the fp32 gate, at 1 pass
+                   (outside the gate) against the 3-pass result under
+                   ONE_PASS_SANITY; the backward (all orders, value only,
+                   laplacian + value) within rtol 2e-3, its rows folded by
+                   moment_combine against the classic backward on the same
+                   operands (atol MOMENT_ATOL_REL); pad and sentinel
+                   columns exactly zero.  Then
+                   the op in each mode (separable, moments, both) against
+                   the dense masked oracle: outputs, and gradients twice
+                   and bitwise equal, with the kernels each mode launched.
   4. slice       - the evaluation path at full width: GaussianSampler
                    (method "tiled") preprocess + sample_all(value,
                    derivative, laplacian) at P = 100,000 Gaussians x
@@ -116,6 +134,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    pair_count), the plan's host time, the kernels' times
                    beside their bounds, evaluation and step times (median
                    and range), device busy time per step and peak memory.
+     modes_slice - the kernel modes on the D = 3 chunked bench step at full
+                   width (tools.bench at BENCH_D=3: 100,000 x 1,000,000,
+                   tile 0.2, axis radii, ellipsoid cull, three orders, the
+                   bench loss and its -1e-12 g step): the classic step, (a)
+                   BENCH_FASTMATH=1 (both modes by the automatic default,
+                   the separable contraction at 1 TF32 pass) and (b)
+                   BENCH_SEP=1 BENCH_MOMENTS=1 (3 passes): host median and
+                   range of 10 warm steps, the launches of those steps,
+                   device busy ms, peak bytes, bitwise-repeatable
+                   gradients, diagnostics 0; each step's kernels by CUDA
+                   events on its own operands and cotangent (classic
+                   kernels 1-2 beside the two mode kernels, with bounds,
+                   the mode kernels' plain versions on (b)); (b)'s loss and
+                   gradients against the classic step's within the gate,
+                   (a)'s difference and its 1-pass forward against 3 passes
+                   reported; then the D = 2 headline step under
+                   BENCH_SEP=1 BENCH_MOMENTS=1 against the classic D = 2
+                   step (the D = 2 instantiations).
   6. pigs        - PIGS training (config 4, phase A of tools/train_100k.py)
                    through dgs_tpu_torch.models.pigs.train: P = 100,000,
                    D = 2, C = 1, 262,144 collocation points, Adam lr 2e-3,
@@ -290,11 +326,12 @@ from dgs_tpu_torch.ops import sampling_chunked
 from dgs_tpu_torch.oracle import dense as oracle
 from dgs_tpu_torch.parallel import mesh as pm
 from dgs_tpu_torch.sampler import GaussianSampler
+from dgs_tpu_torch.tools import bench
 from dgs_tpu_torch.utils import native
 from dgs_tpu_torch.utils.profiling import device_busy
 from dgs_tpu_torch.utils.roofline import (MEM_BYTES_S, agg_bound,
-                                          kernel_bound, pair_count,
-                                          step_roofline)
+                                          kernel_bound, mode_bound,
+                                          pair_count, step_roofline)
 
 RTOL = 2e-4          # the JAX suite's kernel-vs-oracle tolerance:
 ATOL_REL = 1e-5      # atol = 1e-5 * max(1, max|ref|)
@@ -310,6 +347,8 @@ def emit(phase, **fields):
 
 KERNELS = {"tiled_forward": ktiled.tiled_forward,
            "tiled_backward": ktiled.tiled_backward,
+           "tiled_forward_sep": ktiled.tiled_forward_sep,
+           "tiled_backward_moments": ktiled.tiled_backward_moments,
            "dense_forward": kdense.dense_forward,
            "dense_backward": kdense.dense_backward,
            "agg_totals": kagg.totals,
@@ -368,7 +407,7 @@ def compare(got, ref, orders, D, C):
     return errs
 
 
-def compare_rows(got, ref, D, C, rtol=GRAD_RTOL):
+def compare_rows(got, ref, D, C, rtol=GRAD_RTOL, atol_rel=ATOL_REL):
     """Per row group (means, conics, values) of the tiled backward's packed
     (D + tri + C, Ep) rows: max abs error and max abs error / max|ref|,
     raising when a group is outside the tolerance."""
@@ -377,7 +416,7 @@ def compare_rows(got, ref, D, C, rtol=GRAD_RTOL):
               "values": slice(D + tri, D + tri + C)}
     return {name: check_close(
         f"backward kernel against the plain version on {name}", got[rows],
-        ref[rows], rtol) for name, rows in groups.items()}
+        ref[rows], rtol, atol_rel) for name, rows in groups.items()}
 
 
 def operands(state, field_tensors, samples, cfg):
@@ -468,9 +507,10 @@ def phase_build():
     for entry, used in re.findall(
             r"Compiling entry function '(\S+)'[\s\S]*?Used (\d+) registers",
             log):
-        for name in KERNELS:
-            if name in entry:
-                by_kernel[name] = max(by_kernel[name], int(used))
+        names = [name for name in KERNELS if name in entry]
+        if names:   # the longest: tiled_forward_sep is not tiled_forward
+            name = max(names, key=len)
+            by_kernel[name] = max(by_kernel[name], int(used))
     spilling = {re.sub(r"^_ZN\S*?\d+(?=[a-z_]+_kernelI)", "", entry)[:60]:
                 int(b) for entry, b in re.findall(
                     r"Compiling entry function '(\S+)'[\s\S]*?"
@@ -484,14 +524,10 @@ def phase_build():
     return build
 
 
-def small_case(dev, seed, D, unwrapped, sigma, C, holes=False, P_small=5000,
-               N_small=50000):
-    """A seeded small field binned at tile 0.1275 (16 tiles per axis, so
-    blocks straddle two tiles at D = 1 and tens at D = 3; every block's
-    range starts at an arbitrary offset): (cfg, state, geom, smp, period, P,
-    N, generator).  ``holes`` keeps the samples in the half x < 0 and the
-    means in the half y < 0 (D = 2): tiles with entries and no samples,
-    tiles with samples and no entries, tiles with neither."""
+def small_field(dev, seed, D, sigma, C, holes=False, P_small=5000,
+                N_small=50000):
+    """small_case's seeded field and samples: ((means, values, covs,
+    conics), samples, generator)."""
     P, N = (P_small if sigma < 0.5 else 200), N_small
     g = torch.Generator(device=dev).manual_seed(seed)
     field = init_field(g, P, D, C, sigma=sigma)
@@ -502,6 +538,20 @@ def small_case(dev, seed, D, unwrapped, sigma, C, holes=False, P_small=5000,
             field.means[:, -1] = -field.means[:, -1].abs()
         means, values = field.means.detach(), field.values.detach()
         covs, conics = field.covariances(), field.conics()
+    return (means, values, covs, conics), samples, g
+
+
+def small_case(dev, seed, D, unwrapped, sigma, C, holes=False, P_small=5000,
+               N_small=50000):
+    """A seeded small field binned at tile 0.1275 (16 tiles per axis, so
+    blocks straddle two tiles at D = 1 and tens at D = 3; every block's
+    range starts at an arbitrary offset): (cfg, state, geom, smp, period, P,
+    N, generator).  ``holes`` keeps the samples in the half x < 0 and the
+    means in the half y < 0 (D = 2): tiles with entries and no samples,
+    tiles with samples and no entries, tiles with neither."""
+    (means, values, covs, conics), samples, g = small_field(
+        dev, seed, D, sigma, C, holes, P_small, N_small)
+    P, N = means.shape[0], samples.shape[0]
     cfg, plan = planned_config(
         SamplerConfig(tile_size=0.1275, eig_floor=1e-12).with_dims(D),
         means, covs, samples)
@@ -2025,8 +2075,10 @@ def pigs_step(dev):
 def tiled_evaluations(t):
     """The tiled evaluations in the autograd graph under ``t``, each as the
     operands its two kernels were (and will be) launched with: a list of
-    dicts (orders, period, D, C, geom, smp, state, and the entries' gid, P
-    and slots for the segment-sum)."""
+    dicts (orders, period, D, C, geom, smp, state, the entries' gid, P and
+    slots for the segment-sum, and the kernel modes: separable, moments,
+    passes; under a mode geom is tile-local and smp the monomial
+    operand)."""
     seen, stack, found = set(), [t.grad_fn], []
     while stack:
         fn = stack.pop()
@@ -2038,7 +2090,8 @@ def tiled_evaluations(t):
             found.append(dict(orders=fn.orders, period=fn.kernel_period,
                               D=fn.D, C=fn.C, geom=geom.detach(), smp=smp,
                               state=fn.state, gid=gid, P=fn.P,
-                              slots=fn.slots))
+                              slots=fn.slots, separable=fn.separable,
+                              moments=fn.moments, passes=fn.passes))
         stack.extend(f for f, _ in fn.next_functions)
     return found
 
@@ -3274,6 +3327,469 @@ def phase_tools(dev):
     return launches
 
 
+# ------------------------------------------------------------ kernel modes
+
+# The JAX suite's tolerance for the moment-form backward against the
+# per-pair one (test_binning_tiled.py:386-410: rtol 2e-3, atol 2e-4 max|ref|):
+# two algorithms.  moment_combine forms the gradients from differences of
+# moments summed over every sample in an entry's tile, so the error grows
+# with the samples a tile: up to 7.8e-5 of max|ref| at D = 1 here (3,125
+# samples a tile) and 4.8e-5 on the D = 2 headline (about 625), where the
+# general atol of 1e-5 fails; a forward of one TF32 pass moves the
+# gradients by more than this limit (the control in phase_modes_slice).
+MOMENT_ATOL_REL = 2e-4
+ONE_PASS_SANITY = 2e-2   # max|err| / max|ref| of the 1-pass forward against
+                         # the 3-pass one: a sanity bound, not a tolerance
+FIELD_PARAMS = ("means", "log_scales", "rotations", "values")
+MODE_RUNS = (("classic", {}), ("fastmath", {"BENCH_FASTMATH": "1"}),
+             ("sep_moments", {"BENCH_SEP": "1", "BENCH_MOMENTS": "1"}))
+
+
+def mode_case(dev, seed, D, sigma, C, holes=False, open_domain=False):
+    """small_field's field binned wrap-free (the modes need tile-local
+    operands): unwrapped under the planner's certificate on the periodic
+    domain, or on the open box [-1, 1]^D for footprints wider than the
+    certificate allows.  Returns (state, geom, mono, P, N, generator) with
+    geom and mono in the separable layout."""
+    (means, values, covs, conics), samples, g = small_field(
+        dev, seed, D, sigma, C, holes)
+    kw = dict(tile_size=0.1275, eig_floor=1e-12)
+    if open_domain:
+        kw.update(period=None, lower=(-1.0,) * D, upper_bounds=(1.0,) * D)
+    cfg, plan = planned_config(SamplerConfig(**kw).with_dims(D), means,
+                               covs, samples)
+    if not open_domain:
+        if not plan["safe_unwrapped"]:
+            raise AssertionError(f"D={D}: planner does not certify the "
+                                 "unwrapped kernels for this case")
+        cfg = dataclasses.replace(cfg, unwrapped_kernels=True)
+    state = binning.build(cfg, means, covs, samples)
+    assert int(state.overflow) == 0 and int(state.entry_overflow) == 0
+    geom = ktiled.prepare_entries(state, means, values, conics,
+                                  ktiled.BLOCK_E, cfg=cfg, separable=True)[2]
+    mono = ktiled.prepare_samples(state, samples, ktiled.BLOCK_N, cfg=cfg,
+                                  separable=True)[0]
+    return state, geom, mono, means.shape[0], samples.shape[0], g
+
+
+def one_pass_error(one, three, orders, D, C):
+    """max|1 pass - 3 passes| / max|3 passes| per order and over all."""
+    out, k0 = {}, 0
+    for order in orders:
+        rows = slice(k0 * C, (k0 + formulas.n_unique(order, D)) * C)
+        out[order] = float((one[rows] - three[rows]).abs().max()) / max(
+            float(three[rows].abs().max()), 1e-30)
+        k0 += formulas.n_unique(order, D)
+    out["all"] = float((one - three).abs().max()) / max(
+        float(three.abs().max()), 1e-30)
+    return out
+
+
+def moment_errs(got, ref, orders, D):
+    n_rows = ktiled.moment_layout(orders, D)[3]
+    return {"moments": check_close(
+        "moment backward against the plain version on the moment rows",
+        got[:n_rows], ref[:n_rows], GRAD_RTOL),
+        "values": check_close(
+        "moment backward against the plain version on the value rows",
+        got[n_rows:], ref[n_rows:], GRAD_RTOL)}
+
+
+def phase_parity_modes(dev):
+    """The two mode kernels against their plain versions on the same
+    operands (3 passes within the fp32 gate; the 1-pass separable forward,
+    outside the gate, against the 3-pass one under ONE_PASS_SANITY), the
+    moment rows folded by moment_combine against the classic backward on
+    the same tile-local operands, dead columns exactly zero; then the
+    op's outputs and gradients in each mode against the dense masked
+    oracle (gradients twice, bitwise equal), with the kernels each mode
+    launched."""
+    t_phase = time.perf_counter()
+    cases = [(D, 0.03, C, False, False) for D in (1, 2, 3) for C in (1, 4, 6)]
+    cases += [(2, 0.6, 4, False, True),     # full-cover footprints, open box
+              (2, 0.03, 4, True, False)]    # tiles without samples / entries
+    worst = 0.0
+    for i, (D, sigma, C, holes, open_domain) in enumerate(cases):
+        state, geom, mono, P, N, g = mode_case(dev, 80 + i, D, sigma, C,
+                                               holes, open_domain)
+        lo, n = ktiled.entry_ranges(state, mono.shape[1])
+        got = ktiled.tiled_forward_sep(ORDERS, D, C, geom, mono, lo, n,
+                                       passes=3)
+        one = ktiled.tiled_forward_sep(ORDERS, D, C, geom, mono, lo, n,
+                                       passes=1)
+        ref = ktiled.tiled_forward_sep_plain(ORDERS, D, C, geom, mono, lo, n)
+        torch.cuda.synchronize()
+        errs = compare(got, ref, ORDERS, D, C)
+        pads = check_dead_rows("separable forward", got, mono[-1] < 0)
+        check_dead_rows("separable forward, 1 pass", one, mono[-1] < 0)
+        one_err = one_pass_error(one, got, ORDERS, D, C)
+        worst = max(worst, one_err["all"])
+        if one_err["all"] > ONE_PASS_SANITY:
+            raise AssertionError(f"1-pass separable forward D={D} C={C}: "
+                                 f"{one_err} above {ONE_PASS_SANITY}")
+        s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+        bwd = {}
+        # Partial order sets (no W rows; the PIGS collocation set) at D = 2.
+        for orders in ((ORDERS, ("value",), ("laplacian", "value"))
+                       if D == 2 and not holes and not open_domain
+                       else (ORDERS,)):
+            K = ktiled.total_unique(orders, D)
+            ct = torch.randn((K * C, mono.shape[1]), generator=g, device=dev)
+            rows = ktiled.tiled_backward_moments(orders, D, C, geom, mono,
+                                                 ct, s_lo, s_n)
+            ref_rows = ktiled.tiled_backward_moments_plain(
+                orders, D, C, geom, mono, ct, s_lo, s_n)
+            classic = ktiled.tiled_backward(
+                orders, None, D, C, ktiled.base_rows(geom, D, C),
+                ktiled.local_samples(mono, D), ct, s_lo, s_n)
+            torch.cuda.synchronize()
+            dead = check_dead_rows("moment backward", rows,
+                                   dead_entries(geom, state))
+            bwd[",".join(orders)] = {
+                "err": err_fields(moment_errs(rows, ref_rows, orders, D)),
+                "combined_vs_classic_err": err_fields(compare_rows(
+                    ktiled.moment_combine(orders, D, C, rows, geom),
+                    classic, D, C, atol_rel=MOMENT_ATOL_REL)),
+                "sentinel_columns_zero": dead}
+        emit("parity_modes", D=D, sigma=sigma, C=C, P=P, N=N, holes=holes,
+             open_domain=open_domain,
+             entries=int((~dead_entries(geom, state)).sum()),
+             pad_columns_zero=pads, **tile_facts(state),
+             separable_err=err_fields(errs),
+             one_pass_vs_three_pass=one_err,
+             one_pass_label="outside the fp32 gate", backward=bwd)
+
+    for D in (1, 2, 3):
+        gen = torch.Generator(device=dev).manual_seed(50 + D)
+        field = init_field(gen, 300, D, 3, sigma=0.05)
+        samples = 2.0 * torch.rand((2000, D), generator=gen, device=dev) - 1.0
+        with torch.no_grad():
+            m, v = field.means.detach(), field.values.detach()
+            cov, con = field.covariances(), field.conics()
+        cfg, plan = planned_config(
+            SamplerConfig(tile_size=0.25).with_dims(D), m, cov, samples)
+        if not plan["safe_unwrapped"]:
+            raise AssertionError(f"D={D}: no wrap-free certificate")
+        state = binning.build(cfg, m, cov, samples)
+        mask = binning.pair_mask_dense(cfg, state, samples, 300)
+
+        def loss_oracle(m_, v_, c_):
+            return sum((oracle.evaluate(o, m_, v_, c_, samples,
+                                        period=cfg.period,
+                                        pair_mask=mask) ** 2).sum()
+                       for o in ORDERS)
+
+        def grads(loss):
+            args = [a.clone().requires_grad_() for a in (m, v, con)]
+            return torch.autograd.grad(loss(*args), args)
+
+        ref = grads(loss_oracle)
+        refs = [oracle.evaluate(o, m, v, con, samples, period=cfg.period,
+                                pair_mask=mask) for o in ORDERS]
+        for sep, mom in ((True, False), (False, True), (True, True)):
+            def loss_modes(m_, v_, c_, sep=sep, mom=mom):
+                outs = sampling.sample_tiled_multi(
+                    ORDERS, cfg, m_, v_, c_, samples, state, unwrapped=True,
+                    separable=sep, moments=mom)
+                return sum((o ** 2).sum() for o in outs)
+
+            reset_launches()
+            got = grads(loss_modes)
+            launched = expect_launches(
+                f"D={D} separable={sep} moments={mom}",
+                **{"tiled_forward_sep" if sep else "tiled_forward": 1,
+                   "tiled_backward_moments" if mom else "tiled_backward": 1,
+                   "segment_sum": 1})
+            again = grads(loss_modes)
+            outs = sampling.sample_tiled_multi(
+                ORDERS, cfg, m, v, con, samples, state, unwrapped=True,
+                separable=sep, moments=mom)
+            err = {o: check_close(f"modes vs oracle D={D} {o}", a, r,
+                                  RTOL)[0]
+                   for o, a, r in zip(ORDERS, outs, refs)}
+            for name, a, b, r in zip(("means", "values", "conics"), got,
+                                     again, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"modes D={D} d{name}: two runs "
+                                         "differ")
+                err[f"d{name}"] = check_close(
+                    f"mode grads vs oracle D={D} d{name}", a, r,
+                    GRAD_RTOL)[0]
+            emit("parity_modes_oracle", D=D, P=300, N=2000, separable=sep,
+                 moments=mom, launches=launched, max_abs_err=err,
+                 bitwise_repeatable=True)
+    emit("parity_modes_summary", one_pass_worst=worst,
+         seconds=time.perf_counter() - t_phase)
+    return worst
+
+
+def modes_workload(dev, env, D=3):
+    """tools.bench's workload for settings from ``env`` (BENCH_D=D on the
+    card, the bench defaults otherwise): (settings, planned workload)."""
+    s = bench.settings({"BENCH_D": str(D), **env})
+    field, samples = bench.field_and_samples(s["P"], s["N"], s["D"], s["C"],
+                                             s["sigma"], dev)
+    return s, bench.plan(bench.config(s), s["method"], field, samples,
+                         s["orders"])
+
+
+def loss_and_grads(w):
+    """bench.loss of the workload and its gradients to the field's
+    parameters (no step taken)."""
+    params = list(w.field.parameters())
+    value, diag = bench.loss(w)
+    grads = torch.autograd.grad(value, params)
+    diag = {k: int(x) for k, x in diag.items()}
+    if any(diag.values()):
+        raise AssertionError(f"diagnostics not zero: {diag}")
+    return float(value), [g.detach() for g in grads], diag
+
+
+def mode_step(dev, name, w, expect, steps=10):
+    """One workload's training step (tools.bench.train_step) timed on the
+    synchronised host clock (median and range of ``steps`` warm steps),
+    the launches of those steps (counts set to 0 just before, read just
+    after), device busy ms, peak bytes, bitwise-repeatable gradients, and
+    the workload's evaluation operands for the kernels' times."""
+    t0 = time.perf_counter()
+    loss, grads, diag = loss_and_grads(w)
+    again = loss_and_grads(w)[1]
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{name}: gradients differ between two runs")
+    value, _ = bench.loss(w)
+    (ev,) = tiled_evaluations(value)
+    del value
+    step = bench.train_step(w)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = host_ms(step, steps)
+    launches = read_launches()
+    # The modes the step ran, read from the kernels it launched.
+    sep, mom = expect
+    ran = {"tiled_forward_sep": sep, "tiled_forward": not sep,
+           "tiled_backward_moments": mom, "tiled_backward": not mom}
+    if any(bool(launches[k]) != on for k, on in ran.items()):
+        raise AssertionError(f"{name}: launched {launches}, expected modes "
+                             f"(separable, moments) = {expect}")
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    busy, top, items = device_busy(step, 5)
+    fields = dict(
+        seconds={"steps": t1 - t0, "profile": time.perf_counter() - t1},
+        run=name, separable=expect[0], moments=expect[1],
+        passes=ktiled.dot_passes(w.cfg), D=w.samples.shape[1],
+        P=w.field.P, N=w.samples.shape[0], method=w.method,
+        orders=list(w.orders), tile=w.cfg.tile_size,
+        unwrapped_kernels=w.cfg.unwrapped_kernels, diagnostics=diag,
+        loss=loss, step_ms_median=statistics.median(times),
+        step_ms_min=min(times), step_ms_max=max(times), step_ms=times,
+        steps=steps, launches=launches,
+        launches_per_step={k: v / (steps + 1) for k, v in launches.items()},
+        device_busy_ms_per_step=busy, device_items_per_step=items,
+        idle_share=max(0.0, 1.0 - busy / statistics.median(times)),
+        top=top, peak_bytes=peak, grads_bitwise_repeatable=True)
+    return fields, grads, ev, launches
+
+
+def mode_kernel_numbers(ev, sides, plain=True):
+    """The kernels of one evaluation's operands (from tiled_evaluations) on
+    the step's own cotangent (d loss / d packed outputs): CUDA-event ms
+    (median of 10), the bound, and for the mode kernels the plain version's
+    ms and the kernel's max abs error against it.  ``sides`` names the
+    kernels to time: the classic pair or the mode pair."""
+    orders, D, C = ev["orders"], ev["D"], ev["C"]
+    geom, smp, state = ev["geom"], ev["smp"], ev["state"]
+    N = state.s_perm.shape[0]
+    lo, n = ktiled.entry_ranges(state, smp.shape[1])
+    s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+    pairs = pair_counts(state)[0]
+    w = torch.cat([torch.tensor(formulas.sym_multiplicity(o, D),
+                                dtype=torch.float32, device=geom.device
+                                ).repeat_interleave(C) for o in orders])
+    with torch.no_grad():
+        if ev["separable"]:
+            packed = ktiled.tiled_forward_sep(orders, D, C, geom, smp, lo, n,
+                                              passes=ev["passes"])
+        elif ev["moments"]:
+            packed = ktiled.tiled_forward(
+                orders, None, D, C, ktiled.base_rows(geom, D, C),
+                ktiled.local_samples(smp, D), lo, n)
+        else:
+            packed = ktiled.tiled_forward(orders, ev["period"], D, C, geom,
+                                          smp, lo, n)
+        ct = (2.0 / N) * w[:, None] * packed
+    out = {}
+    for kernel in sides:
+        # Floats moved: each input the kernel reads once, its output once.
+        Ep = geom.shape[1]
+        base = 1 + D + D * (D + 1) // 2 + C
+        if kernel == "tiled_forward":
+            call = lambda: ktiled.tiled_forward(orders, ev["period"], D, C,
+                                                geom, smp, lo, n)
+            floats = sum(t.numel() for t in (geom, smp, lo, n, packed))
+        elif kernel == "tiled_backward":
+            call = lambda: ktiled.tiled_backward(orders, ev["period"], D, C,
+                                                 geom, smp, ct, s_lo, s_n)
+            floats = sum(t.numel() for t in (geom, smp, ct, s_lo, s_n)) + \
+                (base - 1) * Ep
+        elif kernel == "tiled_forward_sep":
+            call = lambda: ktiled.tiled_forward_sep(
+                orders, D, C, geom, smp, lo, n, passes=ev["passes"])
+            plain_call = lambda: ktiled.tiled_forward_sep_plain(
+                orders, D, C, geom, smp, lo, n)
+            floats = sum(t.numel() for t in (geom, smp, lo, n, packed))
+        else:
+            call = lambda: ktiled.tiled_backward_moments(
+                orders, D, C, geom, smp, ct, s_lo, s_n)
+            plain_call = lambda: ktiled.tiled_backward_moments_plain(
+                orders, D, C, geom, smp, ct, s_lo, s_n)
+            n_rows = ktiled.moment_layout(orders, D)[3]
+            floats = base * Ep + sum(t.numel() for t in (
+                smp, ct, s_lo, s_n)) + (n_rows + C) * Ep
+        ms = cuda_ms(call)
+        if kernel in ("tiled_forward", "tiled_backward"):
+            bound = kernel_bound(pairs, floats, D, orders, C,
+                                 ev["period"] is not None,
+                                 kernel == "tiled_backward")
+        else:
+            kind = ("separable" if kernel == "tiled_forward_sep"
+                    else "moments")
+            bound = mode_bound(pairs, floats, D, orders, C, kind,
+                               ev["passes"] if kind == "separable" else 3)
+        out[kernel] = {"ms": ms, **bound, "share": bound["bound_ms"] / ms,
+                       "kept_pairs": pairs}
+        if kernel in ("tiled_forward_sep", "tiled_backward_moments") and \
+                plain:
+            got = call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = plain_call()
+            torch.cuda.synchronize()
+            out[kernel]["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            if kernel == "tiled_forward_sep":
+                errs = compare(got, ref, orders, D, C)
+            else:
+                errs = moment_errs(got, ref, orders, D)
+            out[kernel]["max_abs_err"] = max(e[0] for e in errs.values())
+            out[kernel]["err"] = err_fields(errs)
+            del got, ref
+    return out
+
+
+def grads_close(what, got, ref):
+    """A mode step's gradients against the classic step's: the moment-form
+    backward against the per-pair one, at the JAX suite's tolerance for
+    that comparison (MOMENT_ATOL_REL)."""
+    return {name: check_close(f"{what} d{name}", a, b, GRAD_RTOL,
+                              MOMENT_ATOL_REL)
+            for name, a, b in zip(FIELD_PARAMS, got, ref)}
+
+
+def phase_modes_slice(dev, steps=10):
+    """The kernel modes on their path at full width: the D = 3 chunked
+    bench step (tools.bench at BENCH_D=3: 100k x 1M, tile 0.2, axis radii,
+    ellipsoid cull, three orders) in the classic kernels, (a) under
+    BENCH_FASTMATH=1 (the automatic default turns both modes on, the
+    separable contraction at 1 pass) and (b) under BENCH_SEP=1
+    BENCH_MOMENTS=1 (3 passes, inside the fp32 gate): steps, launches,
+    busy ms, peak bytes; each kernel's CUDA-event time on its step's own
+    operands beside classic kernels 1-2; (b) against the classic step's
+    loss and gradients within the gate, (a)'s difference reported.  Then
+    the D = 2 headline step with BENCH_SEP=1 BENCH_MOMENTS=1 against the
+    classic D = 2 step.  Returns (launches by path, kernel numbers)."""
+    runs, launches, kernels = {}, {}, {}
+    t_phase = time.perf_counter()
+    for name, env in MODE_RUNS:
+        t0 = time.perf_counter()
+        s, w = modes_workload(dev, env)
+        t_plan = time.perf_counter() - t0
+        expect = (False, False) if name == "classic" else (True, True)
+        fields, grads, ev, launched = mode_step(dev, name, w, expect, steps)
+        sides = (("tiled_forward", "tiled_backward") if name == "classic"
+                 else ("tiled_forward_sep", "tiled_backward_moments"))
+        t0 = time.perf_counter()
+        k = mode_kernel_numbers(ev, sides, plain=name == "sep_moments")
+        fields["seconds"].update(plan=t_plan,
+                                 kernels=time.perf_counter() - t0)
+        if name == "fastmath":
+            # The 1-pass forward against the 3-pass one on (a)'s operands.
+            lo, n = ktiled.entry_ranges(ev["state"], ev["smp"].shape[1])
+            one = ktiled.tiled_forward_sep(ev["orders"], 3, ev["C"],
+                                           ev["geom"], ev["smp"], lo, n, 1)
+            ref = ktiled.tiled_forward_sep(ev["orders"], 3, ev["C"],
+                                           ev["geom"], ev["smp"], lo, n, 3)
+            fields["one_pass_vs_three_pass"] = one_pass_error(
+                one, ref, ev["orders"], 3, ev["C"])
+            del one, ref
+        runs[name] = (fields, grads)
+        launches[f"modes_{name}"] = launched
+        fields["kernels"] = k
+        kernels[name] = k
+        del ev, w
+        torch.cuda.empty_cache()
+        if name == "classic":
+            emit("modes_slice", **fields)
+    base_loss, base_grads = runs["classic"][0]["loss"], runs["classic"][1]
+    for name in ("fastmath", "sep_moments"):
+        fields, grads = runs[name]
+        rel = abs(fields["loss"] - base_loss) / abs(base_loss)
+        if name == "sep_moments":
+            check_close("sep+moments loss vs classic",
+                        torch.tensor([fields["loss"]]),
+                        torch.tensor([base_loss]), RTOL)
+            fields["vs_classic"] = {"loss_rel": rel, **err_fields(
+                grads_close("sep+moments vs classic", grads, base_grads))}
+        else:
+            fields["vs_classic"] = {"loss_rel": rel, **{
+                n_: {"max_abs": float((a - b).abs().max()), "rel": float(
+                    (a - b).abs().max() / b.abs().max())}
+                for n_, a, b in zip(FIELD_PARAMS, grads, base_grads)},
+                "label": "outside the fp32 gate"}
+            # Control: the gate that (b) passes must see a 1-pass forward.
+            worst = max(fields["vs_classic"][n_]["rel"]
+                        for n_ in FIELD_PARAMS)
+            if worst <= MOMENT_ATOL_REL:
+                raise AssertionError(
+                    f"fast-math gradients within {worst} of max|ref| of the "
+                    f"classic step's: MOMENT_ATOL_REL {MOMENT_ATOL_REL} "
+                    "would not tell a 1-pass forward from 3 passes")
+            fields["vs_classic"]["exceeds_moment_atol"] = worst
+        emit("modes_slice", **fields)
+
+    # The D = 2 headline step in both modes (its D = 2 instantiations).
+    _, w2c = modes_workload(dev, {}, D=2)
+    loss2, grads2, _ = loss_and_grads(w2c)
+    del w2c
+    _, w2 = modes_workload(dev, {"BENCH_SEP": "1", "BENCH_MOMENTS": "1"},
+                           D=2)
+    fields, grads, ev, launched = mode_step(dev, "d2_sep_moments", w2,
+                                            (True, True), steps)
+    k2 = mode_kernel_numbers(ev, ("tiled_forward_sep",
+                                  "tiled_backward_moments"), plain=False)
+    check_close("D=2 sep+moments loss vs classic",
+                torch.tensor([fields["loss"]]), torch.tensor([loss2]), RTOL)
+    fields["vs_classic"] = {"loss_rel": abs(fields["loss"] - loss2) / abs(
+        loss2), **err_fields(grads_close("D=2 sep+moments vs classic",
+                                         grads, grads2))}
+    fields["kernels"] = k2
+    launches["modes_d2_sep_moments"] = launched
+    fields["phase_seconds"] = time.perf_counter() - t_phase
+    emit("modes_slice", **fields)
+    del ev, w2
+    torch.cuda.empty_cache()
+    return launches, kernels
+
+
+def modes_times(dev):
+    """python3 chip_smoke.py --modes: the two mode phases alone."""
+    worst = phase_parity_modes(dev)
+    launches, kernels = phase_modes_slice(dev)
+    emit("modes_summary", one_pass_worst=worst, launches=launches,
+         kernels=kernels)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3283,7 +3799,7 @@ def main():
     modes = {"--tiled": tiled_times, "--dense": dense_times,
              "--agg": agg_times, "--segment": segment_times,
              "--chunked": chunked_times, "--sharded": sharded_times,
-             "--tools": phase_tools}
+             "--tools": phase_tools, "--modes": modes_times}
     if sys.argv[1:]:
         for mode in sys.argv[1:]:
             modes[mode](dev)
@@ -3292,6 +3808,11 @@ def main():
                   if k.startswith("agg_")}
     if agg_spills:
         raise AssertionError(f"aggregation kernels spill: {agg_spills}")
+    mode_spills = {k: b for k, b in build["spilling_kernels"].items()
+                   if k.startswith(("tiled_forward_sep",
+                                    "tiled_backward_moments"))}
+    if mode_spills:
+        raise AssertionError(f"mode kernels spill: {mode_spills}")
     # The many-line parity phases first, the measured paths after them, so
     # that the end of the output holds every number of the kernels line.
     phase_parity(dev)
@@ -3303,10 +3824,12 @@ def main():
     seg_dynamics = phase_parity_dynamics(dev)
     by_shape = phase_parity_paths(dev)
     phase_parity_chunked(dev)
+    phase_parity_modes(dev)
     slice_launches, k_fwd = phase_slice(dev)
     train_launches, k_bwd, k_seg, train_step = phase_train_step(dev)
     k_seg["d3_r8"], k_seg["d3_real"] = phase_segment(dev)
     chunked_launches, chunked, chunked_train_step = phase_chunked_slice(dev)
+    modes_launches, k_modes = phase_modes_slice(dev)
     for n_orders, fields in chunked.items():
         by_shape[f"chunked_d3_{n_orders}_orders"] = {
             **fields["kernels"], "segment_sum": fields["segment_sum"]}
@@ -3331,7 +3854,7 @@ def main():
              "agg_step": agg_step_launches, "dynamics": dynamics_launches,
              "sharded": sharded_launches,
              "sharded_two_ranks": two_rank_launches, **chunked_launches,
-             **tool_launches}
+             **modes_launches, **tool_launches}
     # name: (source, the TPU kernel it replaces, its main path, numbers)
     kernels = {
         "tiled_forward": ("tiled_forward.cu", "dgs_tpu/kernels/tiled.py:727",
@@ -3351,6 +3874,16 @@ def main():
         "agg_backward": ("agg_backward.cu",
                          "dgs_tpu/kernels/aggregate.py:485", "agg_step",
                          k_agg["backward"]),
+        # Kernels 1-2's separable and moment branches, on the D = 3
+        # chunked bench step under BENCH_SEP=1 BENCH_MOMENTS=1 (3 passes).
+        "tiled_forward_sep": ("tiled_forward_sep.cu",
+                              "dgs_tpu/kernels/tiled.py:535",
+                              "modes_sep_moments",
+                              k_modes["sep_moments"]["tiled_forward_sep"]),
+        "tiled_backward_moments": (
+            "tiled_backward_moments.cu", "dgs_tpu/kernels/tiled.py:1212",
+            "modes_sep_moments",
+            k_modes["sep_moments"]["tiled_backward_moments"]),
         # Not a TPU kernel: the reference's segment-sum is an XLA op.
         "segment_sum": ("segment_sum.cu", "dgs_tpu/ops/sampling.py:409",
                         "train_step", k_seg),
@@ -3367,10 +3900,10 @@ def main():
                                         for p, v in by_shape.items()}
     emit("card_and_build", nvidia_smi=smi, spin=_spin, **build)
     # No single PyTorch call computes any of the seven TPU kernels' functions
-    # (a fused multi-order Gaussian-mixture evaluation or its VJP; a masked,
-    # density-normalised attention with a sinusoidal offset code, or its six
-    # gradients), so their library_ms is null; the segment-sum's is
-    # index_add_'s.
+    # (a fused multi-order Gaussian-mixture evaluation or its VJP, in any of
+    # their modes; a masked, density-normalised attention with a sinusoidal
+    # offset code, or its six gradients), so their library_ms is null; the
+    # segment-sum's is index_add_'s.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dgs_tpu_torch/csrc/{source}", "replaces": replaces,

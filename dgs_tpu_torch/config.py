@@ -2,11 +2,12 @@
 
 Field for field the same frozen dataclass as ``dgs_tpu.config`` (same names,
 same defaults, same periodic tile snap), so one configuration drives both
-packages.  The fields that select TPU-only kernel modes (the MXU/VPU
-trade-offs of the Pallas kernels and the span-packed work list) are kept for
-that reason but must stay unset: the port has no such kernels, and running
-the classic math under a flag that asks for another kernel would be a silent
-substitution.
+packages.  The kernel modes that the port has kernels for (the separable
+forward, the moment-form backward and ``fast_math_dots``, which turns both on
+at wrap-free D >= 3) are read as dgs_tpu reads them.  The folded modes and
+``h_matmul`` are kept for the shared field list but must stay unset: the port
+has no such kernels yet, and running the classic math under a flag that asks
+for another kernel would be a silent substitution.
 """
 
 from __future__ import annotations
@@ -28,11 +29,10 @@ def tri_index(D: int, i: int, j: int) -> int:
     return u * D - u * (u - 1) // 2 + (v - u)
 
 
-# Flags that select kernel modes written for the TPU's matrix unit or its
-# scalar memory; the port raises on any of them rather than run the classic
-# kernel in their place.
-TPU_ONLY_FLAGS = ("separable_kernels", "moment_backward", "folded_values",
-                  "folded_dvals", "folded_vjp", "h_matmul", "fast_math_dots")
+# Flags that select kernel modes of dgs_tpu that the port has not ported;
+# the port raises on any of them rather than run the classic kernel in their
+# place.
+TPU_ONLY_FLAGS = ("folded_values", "folded_dvals", "folded_vjp", "h_matmul")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +42,28 @@ class SamplerConfig:
 
     The port reads: ``period``, ``lower``, ``upper_bounds``, ``tile_size``,
     ``radius_sigma``, ``eig_floor``, ``max_tiles_per_gaussian``,
-    ``entry_capacity_factor``, ``unwrapped_kernels``, ``axis_radii`` and
-    ``ellip_cull``.  The block sizes and work-list capacities size the TPU
-    kernels' grids and work lists; the port's kernel walks each sample
-    block's entry range itself and needs neither.
+    ``entry_capacity_factor``, ``unwrapped_kernels``, ``axis_radii``,
+    ``ellip_cull``, ``separable_kernels``, ``moment_backward`` and
+    ``fast_math_dots`` (ops.sampling.kernel_modes resolves the last three as
+    dgs_tpu does; ``fast_math_dots`` also runs the separable forward's
+    contraction at one TF32 pass instead of three).  On the H100 these
+    modes are measured slower than the classic kernels: the D = 3 chunked
+    bench step is busy 33.4-33.7 ms under ``fast_math_dots`` and 34.0-34.3
+    ms under ``separable_kernels`` with ``moment_backward``, against
+    22.4-22.7 ms classic (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+    5), and the one-pass forward moves the gradients by up to 0.43% of
+    their largest value.
+    ``fast_math_dots`` keeps dgs_tpu's automatic default all the same: at
+    wrap-free D >= 3 it turns both modes on.
+
+    Accepted, not read: the block sizes (``block_n``, ``block_p``,
+    ``block_n_bwd``, ``block_p_bwd``), the work-list capacities
+    (``work_items_*``, ``work_blocks_*``) and the spans (``work_span_fwd``,
+    ``work_span_bwd``, any positive value).  They size and pack the TPU
+    kernels' grids and work lists, which change only how the TPU schedules
+    the same pairs; the port's kernels walk each block's range themselves
+    and need none of them.  ``folded_values``, ``folded_dvals``,
+    ``folded_vjp`` and ``h_matmul`` must stay unset (TPU_ONLY_FLAGS).
     """
 
     period: Optional[float] = 2.0
@@ -79,13 +97,14 @@ class SamplerConfig:
 
     def __post_init__(self):
         on = [f for f in TPU_ONLY_FLAGS if getattr(self, f)]
-        if self.work_span_fwd != 1 or self.work_span_bwd != 1:
-            on.append("work_span_fwd/work_span_bwd")
         if on:
             raise NotImplementedError(
-                f"SamplerConfig sets {', '.join(on)}: TPU-only kernel modes "
-                "of dgs_tpu that dgs_tpu_torch does not port (ROADMAP.md "
-                "'Not ported, by decision'); leave them unset")
+                f"SamplerConfig sets {', '.join(on)}: kernel modes of "
+                "dgs_tpu that dgs_tpu_torch does not port yet (ROADMAP.md); "
+                "leave them unset")
+        for f in ("work_span_fwd", "work_span_bwd"):
+            if getattr(self, f) < 1:
+                raise ValueError(f"SamplerConfig.{f} must be positive")
         # Periodic domains need the tile grid to cover the period exactly
         # (an overhang band silently drops pairs at the seam): snap the tile
         # to period / ceil(period / tile).

@@ -1,0 +1,149 @@
+// Warp-level TF32 tensor-core contraction with fp32 accumulation, for the
+// kernel modes of the tiled kernels (tiled_forward_sep.cu,
+// tiled_backward_moments.cu): mma.sync.aligned.m16n8k8 on sm_90a.
+//
+// Precision.  A TF32 operand keeps 10 explicit mantissa bits.  One pass
+// multiplies the operands rounded to TF32 (hi * hi): about 3 decimal digits,
+// the counterpart of dgs_tpu's Precision.DEFAULT (one bf16 MXU pass), used
+// only under the fast-math knob.  Three passes split each fp32 operand into
+// hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact in fp32) and sum
+// lo * hi + hi * lo + hi * hi, dropping only lo * lo (2^-22 relative) and
+// the rounding of lo: fp32-class, the counterpart of Precision.HIGHEST.
+// The rounding is round to nearest, ties away from zero (cvt.rna.tf32.f32),
+// never truncation.
+//
+// Fragments of m16n8k8 (row.col), lane = 4 g + t (g = lane / 4, t = lane % 4):
+//   A (16 x 8, row-major)  a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}
+//   B (8 x 8, column)      b = {B[t][g], B[t+4][g]}
+//   C (16 x 8)             c = {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}
+//
+// The split arithmetic is __host__ __device__, so that the CPU tests build it
+// with g++ and hold it against numpy (tests/test_torch_tf32_split.py).  Built
+// for the host under the emulated CUDA runtime of tests/cuda_emulation.py
+// (which defines __CUDACC__ but neither __CUDA_ARCH__ nor __NVCC__),
+// mma_tf32 computes the same fragment product from the lanes' registers with
+// shuffles, so that the CPU tests can run the kernels that use it.
+#pragma once
+
+#include <stdint.h>
+#include <string.h>
+
+#include "pair_math.cuh"
+
+namespace dgs {
+
+// x rounded to TF32: round to nearest, ties away from zero, on the 13
+// mantissa bits TF32 drops (cvt.rna.tf32.f32); infinities and NaNs pass.
+DGS_HD float tf32_round(float x) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+#else
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) {
+    u += 0x1000u;          // half of the dropped bits, on the magnitude
+    u &= 0xffffe000u;
+  }
+  memcpy(&x, &u, 4);
+  return x;
+#endif
+}
+
+// The 3-pass split: hi = tf32(x), lo = tf32(x - hi).
+DGS_HD void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);
+}
+
+// An operand ready for PASSES passes: hi (1 pass) or hi and lo (3 passes).
+template <int PASSES>
+struct Tf32 {
+  float hi, lo;
+};
+
+template <int PASSES>
+DGS_HD Tf32<PASSES> tf32_operand(float x) {
+  Tf32<PASSES> r;
+  if (PASSES == 3) {
+    tf32_split(x, r.hi, r.lo);
+  } else {
+    r.hi = tf32_round(x);
+    r.lo = 0.0f;
+  }
+  return r;
+}
+
+// The sum of products of one fp32 dot of depth n, computed as the
+// tensor-core contraction does per product: lo * hi + hi * lo + hi * hi
+// (3 passes) or hi * hi (1 pass), accumulated in fp32 in that order.  A
+// model of the kernels' arithmetic for the CPU tests (the tensor core's own
+// summation order within one mma differs).
+template <int PASSES>
+DGS_HD float tf32_dot(const float* a, const float* b, int n) {
+  float acc = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const Tf32<PASSES> x = tf32_operand<PASSES>(a[i]);
+    const Tf32<PASSES> y = tf32_operand<PASSES>(b[i]);
+    if (PASSES == 3) {
+      acc += x.lo * y.hi;
+      acc += x.hi * y.lo;
+    }
+    acc += x.hi * y.hi;
+  }
+  return acc;
+}
+
+#if defined(__CUDACC__)
+// c += A * B of one m16n8k8 tile, operands already rounded to TF32.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const float (&a)[4],
+                                         const float (&b)[2]) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])),
+        "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
+#elif !defined(__NVCC__)
+  // The same product from the lanes' fragments (every lane takes part).
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float arow[2][8], bcol[2][8];
+  for (int k = 0; k < 8; ++k) {
+    for (int h = 0; h < 2; ++h) {
+      // A[g + 8h][k] lives in lane 4 g + k % 4, register h + 2 (k / 4).
+      arow[h][k] = __shfl_sync(0xffffffffu, a[h + 2 * (k / 4)],
+                               4 * g + k % 4);
+      // B[k][2t + h] lives in lane 4 (2t + h) + k % 4, register k / 4.
+      bcol[h][k] = __shfl_sync(0xffffffffu, b[k / 4],
+                               4 * (2 * t + h) + k % 4);
+    }
+  }
+  for (int r = 0; r < 2; ++r)
+    for (int h = 0; h < 2; ++h) {
+      float s = c[2 * r + h];
+      for (int k = 0; k < 8; ++k) s += arow[r][k] * bcol[h][k];
+      c[2 * r + h] = s;
+    }
+#endif
+}
+
+// c += A * B in PASSES passes from split operands: the small terms first,
+// then hi * hi.
+template <int PASSES>
+__device__ __forceinline__ void mma_passes(float (&c)[4],
+                                           const float (&a_hi)[4],
+                                           const float (&a_lo)[4],
+                                           const float (&b_hi)[2],
+                                           const float (&b_lo)[2]) {
+  if (PASSES == 3) {
+    mma_tf32(c, a_lo, b_hi);
+    mma_tf32(c, a_hi, b_lo);
+  }
+  mma_tf32(c, a_hi, b_hi);
+}
+#endif
+
+}  // namespace dgs

@@ -76,6 +76,16 @@ def load() -> ctypes.CDLL:
             i, i, i, i, p, p,
         ]
         lib.dgs_tiled_backward.restype = i
+        lib.dgs_tiled_forward_sep.argtypes = [
+            p, i, i, p, i, p, p, i, i, i, i, i, i, i, i, p, p,
+        ]
+        lib.dgs_tiled_forward_sep.restype = i
+        lib.dgs_tiled_backward_moments.argtypes = [
+            p, i, i, p, i, p, p, p, i, i, i, i, i, i, i, p, p,
+        ]
+        lib.dgs_tiled_backward_moments.restype = i
+        lib.dgs_tiled_backward_moments_rows.argtypes = [i, i]
+        lib.dgs_tiled_backward_moments_rows.restype = i
         lib.dgs_dense_forward.argtypes = [
             p, i, i, p, i, i, i, i, i, i, ctypes.c_float, p, p,
         ]

@@ -25,6 +25,20 @@ No work list is built and no work capacity can overflow.
 The kernels run over the value channels in passes of 1, 2 or 4 (chosen from
 C), and wrap the torus by a multiplication where the period is a power of
 two (bitwise equal to the division), else by the division.
+
+The kernel modes of dgs_tpu's kernels 1-2 that need wrap-free, tile-local
+operands (``prepare_entries`` / ``prepare_samples`` with ``separable``):
+the entry means become tile-local, ``separable_extend`` appends the rows
+[u, b = C mu_l, the D a-coefficient groups], and the sample operand becomes
+the monomial matrix [1, x_l, -w/2 x_i x_j, tile] (``sample_monomials``,
+tile row last).  ``tiled_forward_sep`` (``csrc/tiled_forward_sep.cu``)
+evaluates power and a = C X as TF32 tensor-core contractions of those rows
+(3 passes, or 1 under ``fast_math_dots``: ``dot_passes``);
+``tiled_backward_moments`` (``csrc/tiled_backward_moments.cu``) contracts
+the per-pair VJP accumulators against the monomials into the rows of
+``moment_layout``, which ``moment_combine`` folds into the per-entry
+gradient rows.  A mode's other half is the classic kernel on the tile-local
+operands (``base_rows`` / ``local_samples``), wrap-free.
 """
 
 from __future__ import annotations
@@ -48,6 +62,35 @@ BLOCK_E = 32
 
 ORDER_BITS = {"value": 1, "derivative": 2, "laplacian": 4, "third": 8}
 
+# PSD-mask tolerance of the separable forward's contracted power
+# (dgs_tpu/kernels/tiled.py PSD_TOL): absorbs the contraction's roundoff, so
+# that the forward keeps the pairs that the backward's per-pair form keeps.
+# Where the contracted power still exceeds it, the forward recomputes that
+# pair's power per pair before applying it (tiled_forward_sep_plain).
+PSD_TOL = 1e-5
+
+
+def sep_rows(D: int) -> int:
+    """Rows that separable_extend appends to the geom operand: u (1),
+    b = C mu_l (D), and D a-coefficient groups [b_d, -c_d0..-c_dD-1]."""
+    return 1 + D + D * (1 + D)
+
+
+def mono_rows(D: int) -> int:
+    """Rows of the per-sample monomial matrix: [1, x_l (D),
+    -w_t/2 x_i x_j (tri)] with off-diagonal weight 2 (the tile row rides
+    after them)."""
+    return 1 + D + tri_size(D)
+
+
+def dot_passes(cfg) -> int:
+    """TF32 tensor-core passes of the separable forward's contraction: 3
+    (hi*hi + hi*lo + lo*hi, fp32-class, the counterpart of dgs_tpu's
+    Precision.HIGHEST) unless the documented fast-math knob
+    ``fast_math_dots`` asks for 1 (hi*hi, the counterpart of
+    Precision.DEFAULT: outside the fp32 gate)."""
+    return 1 if getattr(cfg, "fast_math_dots", False) else 3
+
 
 def total_unique(orders, D: int) -> int:
     """Unique (canonical) components across the fused orders."""
@@ -68,10 +111,13 @@ def sample_tile_row(tile) -> torch.Tensor:
 
 
 def prepare_entries(state: binning.BinningState, means, values, conics,
-                    block_e: int, cfg=None):
+                    block_e: int, cfg=None, separable: bool = False):
     """Entry-ordered packed parameters, padded to a multiple of ``block_e``.
 
-    Returns (gid (Ep,), tile (1, Ep), geom (1 + D + tri + C, Ep), Ep).
+    Returns (gid (Ep,), tile (1, Ep), geom (1 + D + tri + C, Ep), Ep); with
+    ``separable`` (the kernel modes: wrap-free configs only) the means are
+    tile-local and geom carries separable_extend's sep_rows(D) rows after
+    the values.
     On a periodic domain each entry's mean is shifted to the periodic image
     its tile sees (mu' = mu - period * k, k from image_shift), so X = mu' - x
     is the minimum-image displacement for every pair the binning makes:
@@ -99,20 +145,82 @@ def prepare_entries(state: binning.BinningState, means, values, conics,
         k = binning.image_shift(cfg.with_dims(D), tile, ent[:, D + tri + C:])
         ent = torch.cat([ent[:, :D] + (-period * k.to(ent.dtype)),
                          ent[:, D:D + tri + C]], dim=1)
+    if separable:
+        ent = separable_extend(cfg.with_dims(D), ent, tile, D)
     geom = torch.cat([entry_tile_row(tile), ent.T], dim=0).contiguous()
     return gid, tile, geom, Ep
 
 
-def prepare_samples(state: binning.BinningState, samples, block_n: int):
-    """Padded tile-sorted samples: returns (smp (D + 1, Np), s_tile (1, Np),
-    Np), where the last row of smp is the f32 sample tile row."""
+def prepare_samples(state: binning.BinningState, samples, block_n: int,
+                    cfg=None, separable: bool = False):
+    """Padded tile-sorted samples: returns (smp, s_tile (1, Np), Np).  smp
+    is (D + 1, Np), the coordinates then the f32 sample tile row, or with
+    ``separable`` the monomial operand (mono_rows(D) + 1, Np):
+    sample_monomials' rows, then the tile row.  ``state`` needs only
+    s_sorted and s_tile (a SampleBinning will do)."""
     N, D = samples.shape
     Np = _round_up(N, block_n)
     s_sorted = _pad_axis(state.s_sorted, 1, Np)
     pad = torch.arange(Np, device=samples.device)[None, :] >= N
     s_tile = torch.where(pad, 2 ** 30 + 1, _pad_axis(state.s_tile, 1, Np))
-    smp = torch.cat([s_sorted, sample_tile_row(s_tile)], dim=0).contiguous()
+    head = (sample_monomials(cfg.with_dims(D), s_sorted, s_tile, D)
+            if separable else s_sorted)
+    smp = torch.cat([head, sample_tile_row(s_tile)], dim=0).contiguous()
     return smp, s_tile, Np
+
+
+def separable_extend(cfg, ent, tile, D: int):
+    """Tile-local separable rows: the mean columns of ``ent`` (columns
+    [means, conics, ...rest]) become mu_l = mu' - tile centre, and the
+    columns [u, b, acoef] are appended, so that
+      power = u + b.x_l - 1/2 x_l^T C x_l = [u, b, c] . [1, x_l, q(x_l)]
+      a_d   = b_d - (C x_l)_d            = [b_d, -c_d*] . [1, x_l]
+    against sample_monomials' rows.  Exact only where X needs no torus
+    wrap (unwrapped or open configs: the callers gate on that)."""
+    from ..config import tri_index
+
+    tri = tri_size(D)
+    centers = binning.tile_centers(cfg, tile.reshape(-1), D)   # (Ep, D)
+    mu_l = ent[:, :D] - centers
+    conr = [ent[:, D + t] for t in range(tri)]
+    b = [sum(conr[tri_index(D, d, m)] * mu_l[:, m] for m in range(D))
+         for d in range(D)]
+    u = -0.5 * sum(b[d] * mu_l[:, d] for d in range(D))
+    acoef = []
+    for d in range(D):
+        acoef.append(b[d])
+        acoef.extend(-conr[tri_index(D, d, m)] for m in range(D))
+    extra = torch.stack([u] + b + acoef, dim=1)
+    return torch.cat([mu_l, ent[:, D:], extra], dim=1)
+
+
+def sample_monomials(cfg, s_coords, s_tile, D: int):
+    """The per-sample monomial matrix (mono_rows(D), Np):
+    [1, x_l, -w_t/2 x_l,i x_l,j] in tile-local coordinates (w_t = 1 on the
+    diagonal, 2 off it); the x rows of columns with an out-of-grid
+    (sentinel or pad) tile are zero, so every product stays finite."""
+    T = binning.num_tiles(cfg, D)
+    Np = s_coords.shape[1]
+    centers = binning.tile_centers(cfg, s_tile.reshape(-1), D)  # (Np, D)
+    valid = (s_tile.reshape(-1) < T)[None, :]
+    xl = torch.where(valid, s_coords - centers.T, 0.0)          # (D, Np)
+    q = [(-0.5 if i == j else -1.0) * (xl[i] * xl[j])
+         for i in range(D) for j in range(i, D)]
+    return torch.cat([torch.ones((1, Np), dtype=torch.float32,
+                                 device=s_coords.device), xl,
+                      torch.stack(q, dim=0)], dim=0)
+
+
+def base_rows(geom, D: int, C: int):
+    """The [tile, mean, conic, value] rows of a separable-extended geom (a
+    contiguous view): the classic kernels' entry operand."""
+    return geom[:1 + D + tri_size(D) + C]
+
+
+def local_samples(mono, D: int):
+    """(D + 1, Np) [x_l, tile] from the monomial operand: the classic
+    kernels' sample operand in tile-local coordinates."""
+    return torch.cat([mono[1:1 + D], mono[-1:]], dim=0)
 
 
 def entry_ranges(state: binning.BinningState, Np: int):
@@ -370,3 +478,373 @@ def _tiled_backward_cuda(orders, period, D, C, geom, smp, ct, s_lo, s_n):
             f"tiled_backward: CUDA launch failed (cudaError {err})")
     tiled_backward.launches += 1
     return out.T
+
+
+# ---------------------------------------------------------------------------
+# Kernel modes: the separable forward and the moment-form backward
+# ---------------------------------------------------------------------------
+
+
+def _matmul_fp32(a, b):
+    """a @ b in full fp32 on every device (TF32 off for the call on CUDA)."""
+    if not a.is_cuda:
+        return a @ b
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _check_operands(kernel, checks):
+    for name, t, dtype, shape, device in checks:
+        if (t.device != device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {dtype} tensor of "
+                f"shape {shape} on {device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+
+
+def _sep_power_rows(g, D: int, C: int):
+    """The separable forward's contraction operands of an entry block g
+    (geom columns): (power rows (mono_rows, E) = [u, b, c], [a_d rows
+    (1 + D, E) = [b_d, -c_d*] for each d])."""
+    tri = tri_size(D)
+    MP = 1 + D
+    NP0 = 1 + D + tri + C
+    power = torch.cat([g[NP0:NP0 + MP], g[1 + D:1 + D + tri]], dim=0)
+    acoef = [g[NP0 + MP * (1 + d):NP0 + MP * (2 + d)] for d in range(D)]
+    return power, acoef
+
+
+def tiled_forward_sep_plain(orders, D: int, C: int, geom, mono, ent_lo, ent_n,
+                            chunk_blocks: int = 128) -> torch.Tensor:
+    """The plain torch version of the separable forward: power and a = C X
+    of every (entry, sample) pair as fp32 matrix products (torch.matmul,
+    TF32 off) of the entry rows against the monomial rows; where that power
+    exceeds PSD_TOL it is recomputed per pair (-1/2 X^T C X with
+    X = mu_l - x_l), as the kernel does; then power > PSD_TOL -> 0, the
+    same-tile mask, and the classic components and value contraction: the
+    same (K*C, Np) output as tiled_forward."""
+    tri = tri_size(D)
+    MR, MP = mono_rows(D), 1 + D
+    K = total_unique(orders, D)
+    Np = mono.shape[1]
+    out = torch.zeros((K * C, Np), dtype=torch.float32, device=mono.device)
+    lo, hi, n = ent_lo.tolist(), (ent_lo + ent_n).tolist(), ent_n.tolist()
+    for b0 in range(0, len(lo), chunk_blocks):
+        blocks = [b for b in range(b0, min(b0 + chunk_blocks, len(lo)))
+                  if n[b] > 0]
+        if not blocks:
+            continue
+        e0 = min(lo[b] for b in blocks)
+        e1 = max(hi[b] for b in blocks)
+        s0, s1 = b0 * BLOCK_N, min((b0 + chunk_blocks) * BLOCK_N, Np)
+        g = geom[:, e0:e1]
+        x = mono[:, s0:s1]
+        prow, acoef = _sep_power_rows(g, D, C)
+        power = _matmul_fp32(x[:MR].T, prow)                    # (S, Ec)
+        a = [_matmul_fp32(x[:MP].T, acoef[d]) for d in range(D)]
+        con = [g[1 + D + t][None, :] for t in range(tri)]
+        # Above PSD_TOL the contracted power is replaced by the per-pair one.
+        Xs = [g[1 + d][None, :] - x[1 + d][:, None] for d in range(D)]
+        pair = -0.5 * sum(r * X for r, X in zip(
+            formulas.conic_apply(Xs, con, D), Xs))
+        power = torch.where(power > PSD_TOL, pair, power)
+        G = torch.where(power > PSD_TOL, 0.0,
+                        torch.exp(torch.clamp(power, max=0.0)))
+        G = G * (g[0][None, :] == x[MR][:, None]).to(G.dtype)
+        vals = g[1 + D + tri:1 + D + tri + C].T                 # (Ec, C)
+        rows = [_matmul_fp32(w, vals) for order in orders
+                for w in formulas.components_unique(order, [None] * D, con,
+                                                    G, a)]
+        out[:, s0:s1] = torch.cat(rows, dim=1).T
+    return out
+
+
+def tiled_forward_sep(orders: Tuple[str, ...], D: int, C: int, geom, mono,
+                      ent_lo, ent_n, passes: int = 3) -> torch.Tensor:
+    """The separable forward (dgs_tpu's kernel 1, separable branch): packed
+    (K*C, Np) fp32 outputs in tile-sorted sample order, as tiled_forward,
+    from the separable-extended geom (prepare_entries with ``separable``)
+    and the monomial operand (prepare_samples with ``separable``).  Pairs
+    are wrap-free by construction.  ``passes`` (dot_passes) is the TF32
+    passes of the kernel's power / a contraction: 3 (fp32-class) or 1
+    (fast-math).  CUDA tensors launch csrc/tiled_forward_sep.cu (counted in
+    ``tiled_forward_sep.launches``); CPU tensors run
+    tiled_forward_sep_plain, which is exact fp32 whatever ``passes``."""
+    _order_rows(orders, D)
+    if passes not in (1, 3):
+        raise ValueError(f"tiled_forward_sep: passes must be 1 or 3, got "
+                         f"{passes}")
+    if geom.device.type == "cpu":
+        return tiled_forward_sep_plain(orders, D, C, geom, mono, ent_lo,
+                                       ent_n)
+    if geom.device.type != "cuda":
+        raise ValueError(
+            f"tiled_forward_sep: no kernel for device {geom.device}")
+    from . import _build
+
+    tri = tri_size(D)
+    Np = mono.shape[1]
+    NB = Np // BLOCK_N
+    _check_operands("tiled_forward_sep", (
+        ("geom", geom, torch.float32,
+         (1 + D + tri + C + sep_rows(D), geom.shape[1]), geom.device),
+        ("mono", mono, torch.float32, (mono_rows(D) + 1, NB * BLOCK_N),
+         geom.device),
+        ("ent_lo", ent_lo, torch.int32, (NB,), geom.device),
+        ("ent_n", ent_n, torch.int32, (NB,), geom.device)))
+    if not 1 <= D <= 3:
+        raise ValueError(f"tiled_forward_sep: unsupported D={D}")
+    mask, rows = _order_rows(orders, D)
+    K = total_unique(orders, D)
+    lib = _build.load()
+    out = torch.empty((K * C, Np), dtype=torch.float32, device=geom.device)
+    with torch.cuda.device(geom.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dgs_tiled_forward_sep(
+            geom.data_ptr(), geom.shape[1], C, mono.data_ptr(), Np,
+            ent_lo.data_ptr(), ent_n.data_ptr(), NB, D, mask, passes,
+            rows["value"], rows["derivative"], rows["laplacian"],
+            rows["third"], out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"tiled_forward_sep: CUDA launch failed (cudaError {err})")
+    tiled_forward_sep.launches += 1
+    return out
+
+
+tiled_forward_sep.launches = 0
+
+
+def moment_layout(orders, D: int):
+    """Static layout of the moment-form backward's rows: (has_w, has_hl,
+    has_y, n_rows).  The kernel emits
+      [M_S0 (1 + D + tri rows)] +
+      [M_W_l (1 + D rows) for each l]   (with any of derivative, laplacian,
+                                         third) +
+      [M_hl_t (1 row) for each t]       (with the laplacian) +
+      [M_Y_t (1 row) for each t]        (with the third order),
+    then the C value-gradient rows; moment_combine folds them with the
+    per-entry geometry into the (D + tri) parameter-gradient rows."""
+    tri = tri_size(D)
+    has_w = any(o in ("derivative", "laplacian", "third") for o in orders)
+    has_hl = "laplacian" in orders
+    has_y = "third" in orders
+    n = ((1 + D + tri) + (D * (1 + D) if has_w else 0)
+         + (tri if has_hl else 0) + (tri if has_y else 0))
+    return has_w, has_hl, has_y, n
+
+
+def tiled_backward_moments_plain(orders, D: int, C: int, geom, mono, ct,
+                                 s_lo, s_n,
+                                 chunk_blocks: int = 32) -> torch.Tensor:
+    """The plain torch version of the moment-form backward: per pair G, a
+    and the fused VJP accumulators (formulas.fused_pair_accumulators) from
+    X = mu_l - x_l, then their G-weighted sums contracted against the
+    sample monomials (torch.matmul, TF32 off) into moment_layout's rows,
+    plus the C value-gradient rows: (n_rows + C, Ep), contiguous."""
+    tri = tri_size(D)
+    MP = 1 + D
+    MR = mono_rows(D)
+    Ep = geom.shape[1]
+    has_w, has_hl, has_y, n_rows = moment_layout(orders, D)
+    out = torch.zeros((n_rows + C, Ep), dtype=torch.float32,
+                      device=geom.device)
+    lo, hi, n = s_lo.tolist(), (s_lo + s_n).tolist(), s_n.tolist()
+    for b0 in range(0, len(lo), chunk_blocks):
+        blocks = [b for b in range(b0, min(b0 + chunk_blocks, len(lo)))
+                  if n[b] > 0]
+        if not blocks:
+            continue
+        s0 = min(lo[b] for b in blocks)
+        s1 = max(hi[b] for b in blocks)
+        e0, e1 = b0 * BLOCK_E, min((b0 + chunk_blocks) * BLOCK_E, Ep)
+        g = geom[:, e0:e1]
+        x = mono[:, s0:s1]
+        Xs = [g[1 + d][None, :] - x[1 + d][:, None] for d in range(D)]
+        con = [g[1 + D + t][None, :] for t in range(tri)]
+        G, a = formulas.power_terms(Xs, con)
+        G = G * (g[0][None, :] == x[MR][:, None]).to(G.dtype)
+        vals = g[1 + D + tri:1 + D + tri + C]             # (C, Ec)
+        gct = ct[:, s0:s1]                                # (K*C, S)
+        hs, dvals, k = [], 0.0, 0
+        lap_polys = third_polys = None
+        for order in orders:
+            polys = formulas.component_polys(order, Xs, con, a)
+            if order == "laplacian":
+                lap_polys = polys
+            elif order == "third":
+                third_polys = polys
+            for p in polys:
+                g_k = gct[k * C:(k + 1) * C]              # (C, S)
+                hs.append(_matmul_fp32(g_k.T, vals))      # h_k (S, Ec)
+                dvals = dvals + _matmul_fp32(
+                    g_k, G if isinstance(p, float) else G * p)
+                k += 1
+        S0, w, hl, Y = formulas.fused_pair_accumulators(
+            orders, con, a, hs, lap_polys, third_polys)
+
+        def mom(V, r):
+            return _matmul_fp32(x[:r], G * V)
+
+        rows = [mom(S0, MR)]
+        if has_w:
+            rows += [torch.zeros((MP, e1 - e0), device=geom.device)
+                     if w[l] is None else mom(w[l], MP) for l in range(D)]
+        if has_hl:
+            rows += [torch.zeros((1, e1 - e0), device=geom.device)
+                     if hl[t] is None else mom(hl[t], 1) for t in range(tri)]
+        if has_y:
+            rows += [torch.zeros((1, e1 - e0), device=geom.device)
+                     if Y[t] is None else mom(Y[t], 1) for t in range(tri)]
+        out[:, e0:e1] = torch.cat(rows + [dvals], dim=0)
+    return out
+
+
+def tiled_backward_moments(orders: Tuple[str, ...], D: int, C: int, geom,
+                           mono, ct, s_lo, s_n) -> torch.Tensor:
+    """The moment-form backward (dgs_tpu's kernel 2, moment branch): for
+    every tile-sorted entry the moment_layout rows and the C value-gradient
+    rows, (n_rows + C, Ep) fp32, summed over the entry's same-tile samples;
+    sentinel and pad entries come back zero.  ``geom`` is tile-local (its
+    [tile, mean, conic, value] rows are read), ``mono`` the monomial
+    operand, ``ct`` the (K*C, Np) cotangent.  The caller folds the rows
+    with moment_combine, then segment-sums them by Gaussian id.  The
+    M_S0 rows' contraction against the monomials runs on the tensor cores
+    at 3 TF32 passes always (dgs_tpu pins it to HIGHEST under fast-math
+    too); the rows against [1, x_l] only (M_W, M_hl, M_Y) are fp32 sums on
+    the CUDA cores.  CUDA tensors launch
+    csrc/tiled_backward_moments.cu, which writes entry-major rows (the
+    result is the transpose view of an (Ep, n_rows + C) buffer; counted in
+    ``tiled_backward_moments.launches``); CPU tensors run
+    tiled_backward_moments_plain."""
+    _order_rows(orders, D)
+    if geom.device.type == "cpu":
+        return tiled_backward_moments_plain(orders, D, C, geom, mono, ct,
+                                            s_lo, s_n)
+    if geom.device.type != "cuda":
+        raise ValueError(
+            f"tiled_backward_moments: no kernel for device {geom.device}")
+    from . import _build
+
+    tri = tri_size(D)
+    K = total_unique(orders, D)
+    Ep, Np = geom.shape[1], mono.shape[1]
+    EB = Ep // BLOCK_E
+    if geom.shape[0] < 1 + D + tri + C:
+        raise ValueError("tiled_backward_moments: geom has too few rows")
+    _check_operands("tiled_backward_moments", (
+        ("geom", geom, torch.float32, (geom.shape[0], EB * BLOCK_E),
+         geom.device),
+        ("mono", mono, torch.float32, (mono_rows(D) + 1, Np), geom.device),
+        ("ct", ct, torch.float32, (K * C, Np), geom.device),
+        ("s_lo", s_lo, torch.int32, (EB,), geom.device),
+        ("s_n", s_n, torch.int32, (EB,), geom.device)))
+    if not 1 <= D <= 3:
+        raise ValueError(f"tiled_backward_moments: unsupported D={D}")
+    mask, rows = _order_rows(orders, D)
+    n_rows = moment_layout(orders, D)[3]
+    lib = _build.load()
+    if lib.dgs_tiled_backward_moments_rows(D, mask) != n_rows:
+        raise RuntimeError("tiled_backward_moments: kernel library row "
+                           "count differs from moment_layout")
+    out = torch.empty((Ep, n_rows + C), dtype=torch.float32,
+                      device=geom.device)
+    with torch.cuda.device(geom.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dgs_tiled_backward_moments(
+            geom.data_ptr(), Ep, C, mono.data_ptr(), Np, ct.data_ptr(),
+            s_lo.data_ptr(), s_n.data_ptr(), EB, D, mask, rows["value"],
+            rows["derivative"], rows["laplacian"], rows["third"],
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"tiled_backward_moments: CUDA launch failed (cudaError {err})")
+    tiled_backward_moments.launches += 1
+    return out.T
+
+
+tiled_backward_moments.launches = 0
+
+
+def moment_combine(orders, D: int, C: int, dent, geom) -> torch.Tensor:
+    """Fold the moment rows (dent[:n_rows]) with the per-entry tile-local
+    geometry into the packed (D + tri + C, Ep) parameter-gradient rows: one
+    elementwise pass over Ep in plain torch, outside the kernel, as in
+    dgs_tpu.  With X = mu_l - x_l, z = W - X S0 / 2 and S* the moments of
+    G S0 (the monomial q rows un-weighted by -2 on the diagonal and -1 off
+    it into raw second moments):
+      dmu_d  = sum_l C(d,l) (Wsum_l + Sx_l) - b_d S1
+      dcon_t = expanded moments of G (X_v z_u + X_u z_v) - M[G hl_t]
+               + M[G Y_t]."""
+    from ..config import tri_index
+
+    tri = tri_size(D)
+    has_w, has_hl, has_y, n_rows = moment_layout(orders, D)
+    MP = 1 + D
+    mu = [geom[1 + d] for d in range(D)]
+    Cc = lambda i, j: geom[1 + D + tri_index(D, i, j)]
+    r = 0
+    M_S0 = dent[r:r + MP + tri]
+    r += MP + tri
+    S1 = M_S0[0]
+    Sx = [M_S0[1 + d] for d in range(D)]
+    Sq = [None] * tri
+    for u in range(D):
+        for v in range(u, D):
+            t = tri_index(D, u, v)
+            Sq[t] = (-2.0 if u == v else -1.0) * M_S0[MP + t]
+    Wsum = [None] * D
+    Wx = [[None] * D for _ in range(D)]
+    if has_w:
+        for l in range(D):
+            Wsum[l] = dent[r]
+            for d in range(D):
+                Wx[l][d] = dent[r + 1 + d]
+            r += MP
+    Mhl = [None] * tri
+    if has_hl:
+        for t in range(tri):
+            Mhl[t] = dent[r]
+            r += 1
+    MY = [None] * tri
+    if has_y:
+        for t in range(tri):
+            MY[t] = dent[r]
+            r += 1
+    dvals = dent[n_rows:]
+
+    dmu = []
+    for d in range(D):
+        md = 0.0
+        b_d = 0.0
+        for l in range(D):
+            term = Sx[l] if Wsum[l] is None else Wsum[l] + Sx[l]
+            md = md + Cc(d, l) * term
+            b_d = b_d + Cc(d, l) * mu[l]
+        dmu.append(md - b_d * S1)
+    dcon = []
+    for u in range(D):
+        for v in range(u, D):
+            t = tri_index(D, u, v)
+            if u == v:
+                term = -0.5 * (mu[u] * mu[u] * S1 + Sq[t]) + mu[u] * Sx[u]
+                if Wsum[u] is not None:
+                    term = term + mu[u] * Wsum[u] - Wx[u][u]
+            else:
+                term = (mu[v] * Sx[u] + mu[u] * Sx[v]
+                        - mu[u] * mu[v] * S1 - Sq[t])
+                if Wsum[u] is not None:
+                    term = term + mu[v] * Wsum[u] - Wx[u][v]
+                if Wsum[v] is not None:
+                    term = term + mu[u] * Wsum[v] - Wx[v][u]
+            if Mhl[t] is not None:
+                term = term - Mhl[t]
+            if MY[t] is not None:
+                term = term + MY[t]
+            dcon.append(term)
+    return torch.cat([torch.stack(dmu + dcon, dim=0), dvals], dim=0)

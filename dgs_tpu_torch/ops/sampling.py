@@ -16,12 +16,15 @@ share the interface:
   * ``sample_tiled_multi`` / ``sample_binned``: the tile-binned path over a
     prebuilt BinningState, the tiled forward kernel, and a backward that is
     the tiled backward kernel followed by a deterministic segment-sum of
-    the per-entry gradient rows by Gaussian id.
+    the per-entry gradient rows by Gaussian id.  On wrap-free configs the
+    kernel modes of dgs_tpu (``kernel_modes``) swap in the separable
+    forward and the moment-form backward.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -207,25 +210,76 @@ def segment_sum_rows(rows, gid, P: int, slots: int):
     return segment.segment_sum(rows, order, starts)
 
 
+def kernel_modes(cfg, D: int, kernel_period: Optional[float],
+                 separable: Optional[bool] = None,
+                 moments: Optional[bool] = None, warn: bool = True):
+    """(separable, moments): the kernel modes of the tiled path, resolved as
+    dgs_tpu's sample_tiled_multi resolves them.  Both need wrap-free
+    (tile-local) pair math, so both are off unless ``kernel_period`` is None
+    (unwrapped or open configs).  ``separable`` None reads
+    cfg.separable_kernels; where that is None too, and for ``moments`` None,
+    the automatic default is on exactly under cfg.fast_math_dots at
+    wrap-free D >= 3.  A separable mode forced on a wrapped config turns off
+    silently; moments forced there turn off with a warning (``warn``)."""
+    wrap_free = kernel_period is None
+    if separable is None:
+        separable = cfg.separable_kernels
+    if separable is None:
+        separable = bool(cfg.fast_math_dots) and D >= 3 and wrap_free
+    else:
+        separable = bool(separable) and wrap_free
+    if moments is None:
+        moments = bool(cfg.fast_math_dots) and D >= 3 and wrap_free
+    else:
+        if moments and not wrap_free and warn:
+            warnings.warn(
+                "moment_backward=True requires wrap-free (tile-local) "
+                "kernels but the config is periodic without the compact-"
+                "support certificate (cfg.unwrapped_kernels); falling back "
+                "to the per-pair backward", stacklevel=3)
+        moments = bool(moments) and wrap_free
+    return separable, moments
+
+
 class _TiledForward(torch.autograd.Function):
     """(means, values, conics) -> packed (K*C, Np) outputs in tile-sorted
-    sample order (kernels.tiled.tiled_forward); the backward runs
-    kernels.tiled.tiled_backward on the (K*C, Np) cotangent as it arrives
-    and segment-sums the per-entry rows by Gaussian id."""
+    sample order; the backward runs on the (K*C, Np) cotangent as it
+    arrives and segment-sums the per-entry rows by Gaussian id.
+
+    ``modes`` is (separable, moments) from kernel_modes.  Neither: the
+    classic kernels (kernels.tiled.tiled_forward / tiled_backward).  With
+    either, ``smp`` is the monomial operand and the geom tile-local, and
+    the forward is kernels.tiled.tiled_forward_sep (separable) or the
+    classic forward on the tile-local operands, wrap-free; the backward is
+    kernels.tiled.tiled_backward_moments and moment_combine (moments) or the
+    classic backward on the tile-local operands, wrap-free.  No mode runs a
+    kernel other than the one it names."""
 
     @staticmethod
     def forward(ctx, means, values, conics, orders, cfg, kernel_period,
-                state, smp, ent_lo, ent_n):
+                state, smp, ent_lo, ent_n, modes):
         from ..kernels import tiled as ktiled
 
         D = means.shape[1]
         C = values.shape[1]
+        separable, moments = modes
+        local = separable or moments
         gid, _, geom, _ = ktiled.prepare_entries(
-            state, means, values, conics, ktiled.BLOCK_E, cfg=cfg)
+            state, means, values, conics, ktiled.BLOCK_E, cfg=cfg,
+            separable=local)
         ctx.save_for_backward(geom, smp, gid)
         ctx.orders, ctx.kernel_period, ctx.state = orders, kernel_period, state
         ctx.P, ctx.D, ctx.C = means.shape[0], D, C
         ctx.slots = cfg.with_dims(D).max_tiles_per_gaussian ** D
+        ctx.separable, ctx.moments = separable, moments
+        ctx.passes = ktiled.dot_passes(cfg)
+        if separable:
+            return ktiled.tiled_forward_sep(orders, D, C, geom, smp, ent_lo,
+                                            ent_n, passes=ctx.passes)
+        if local:
+            return ktiled.tiled_forward(
+                orders, None, D, C, ktiled.base_rows(geom, D, C),
+                ktiled.local_samples(smp, D), ent_lo, ent_n)
         return ktiled.tiled_forward(orders, kernel_period, D, C, geom, smp,
                                     ent_lo, ent_n)
 
@@ -238,13 +292,24 @@ class _TiledForward(torch.autograd.Function):
         D, C = ctx.D, ctx.C
         tri = tri_size(D)
         s_lo, s_n = ktiled.sample_ranges(ctx.state, geom.shape[1])
-        dent = ktiled.tiled_backward(ctx.orders, ctx.kernel_period, D, C,
-                                     geom, smp, grad.contiguous(), s_lo, s_n)
-        # The mean rows are d/dmu' of the period-shifted means, and
-        # dmu'/dmu = 1 (the image shift is piecewise constant).
+        grad = grad.contiguous()
+        if ctx.moments:
+            rows = ktiled.tiled_backward_moments(ctx.orders, D, C, geom, smp,
+                                                 grad, s_lo, s_n)
+            dent = ktiled.moment_combine(ctx.orders, D, C, rows, geom)
+        elif ctx.separable:
+            dent = ktiled.tiled_backward(
+                ctx.orders, None, D, C, ktiled.base_rows(geom, D, C),
+                ktiled.local_samples(smp, D), grad, s_lo, s_n)
+        else:
+            dent = ktiled.tiled_backward(ctx.orders, ctx.kernel_period, D, C,
+                                         geom, smp, grad, s_lo, s_n)
+        # The mean rows are d/dmu' of the period-shifted means (or of the
+        # tile-local means), and dmu'/dmu = 1 (the image shift and the tile
+        # centre are piecewise constant).
         d = segment_sum_rows(dent, gid, ctx.P, ctx.slots)
         return (d[:, :D], d[:, D + tri:], d[:, D:D + tri],
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def sample_tiled_multi(orders: Tuple[str, ...], cfg,
@@ -252,7 +317,9 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
                        *, sorted_outputs: bool = False,
                        unique_outputs: bool = False,
                        padded_outputs: bool = False,
-                       unwrapped: bool = False):
+                       unwrapped: bool = False,
+                       separable: Optional[bool] = None,
+                       moments: Optional[bool] = None):
     """Fused multi-order evaluation over a prebuilt BinningState
     (binning.grid.build); returns one output per order.
 
@@ -265,16 +332,19 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
     zero pad columns.  ``unwrapped`` drops the per-pair torus wrap (exact
     under the planner's compact-support certificate).  ``state`` must come
     from binning.build with this ``cfg`` (the periodic image shift and the
-    backward's slot bound R^D read it).  Gradients flow to (means, values,
-    conics).  ops.sampling_chunked runs the same forward and output
-    assembly over a binning of its own."""
+    backward's slot bound R^D read it).  ``separable`` / ``moments`` force
+    the kernel modes on or off (None: kernel_modes' default; dgs_tpu's
+    sample_binned passes cfg.moment_backward, as this one's does).
+    Gradients flow to (means, values, conics).  ops.sampling_chunked runs
+    the same forward and output assembly over a binning of its own."""
     N, D = samples.shape
     C = values.shape[1]
     if padded_outputs and not sorted_outputs:
         raise ValueError("padded_outputs requires sorted_outputs")
     orders = tuple(orders)
     packed_t = tiled_packed(orders, cfg, means, values, conics, samples,
-                            state, None if unwrapped else cfg.period)
+                            state, None if unwrapped else cfg.period,
+                            separable=separable, moments=moments)
     pos = None if sorted_outputs else sample_columns(state.s_perm)
     return tiled_outputs(packed_t, orders, D, C, N, pos,
                          unique_outputs=unique_outputs,
@@ -282,22 +352,35 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
 
 
 def tiled_packed(orders: Tuple[str, ...], cfg, means, values, conics,
-                 samples, state, kernel_period: Optional[float]):
+                 samples, state, kernel_period: Optional[float],
+                 separable: Optional[bool] = None,
+                 moments: Optional[bool] = None, mono=None):
     """The tiled forward kernel's packed (K*C, Np) outputs over ``state``
     (tile-sorted columns, zero pad columns), differentiable in (means,
-    values, conics) through _TiledForward.  ``samples`` gives only N and
-    the device (the coordinates come from state.s_sorted); the backward's
-    slot bound is cfg.max_tiles_per_gaussian ** D."""
+    values, conics) through _TiledForward, in the kernel modes that
+    kernel_modes resolves from ``separable`` / ``moments``.  ``samples``
+    gives only N and the device (the coordinates come from
+    state.s_sorted); ``mono`` is the monomial operand where the caller has
+    built it (prepare_samples with ``separable``); the backward's slot
+    bound is cfg.max_tiles_per_gaussian ** D."""
     from ..kernels import tiled as ktiled
 
     if os.environ.get("DGS_ABLATE"):
         raise NotImplementedError(
             "DGS_ABLATE is a TPU kernel-ablation hook of dgs_tpu; "
             "dgs_tpu_torch does not port it")
-    smp, _, Np = ktiled.prepare_samples(state, samples, ktiled.BLOCK_N)
+    D = samples.shape[1]
+    modes = kernel_modes(cfg, D, kernel_period, separable, moments)
+    local = any(modes)
+    if local and mono is not None:
+        smp, Np = mono, mono.shape[1]
+    else:
+        smp, _, Np = ktiled.prepare_samples(state, samples, ktiled.BLOCK_N,
+                                            cfg=cfg, separable=local)
     ent_lo, ent_n = ktiled.entry_ranges(state, Np)
     return _TiledForward.apply(means, values, conics, tuple(orders), cfg,
-                               kernel_period, state, smp, ent_lo, ent_n)
+                               kernel_period, state, smp, ent_lo, ent_n,
+                               modes)
 
 
 def sample_columns(s_perm) -> torch.Tensor:
@@ -367,6 +450,7 @@ def sample_binned(cfg, means, values, conics, covariances, samples,
         tuple(orders), cfg, means, values, conics, samples, state,
         sorted_outputs=sorted_outputs, unique_outputs=unique_outputs,
         padded_outputs=padded_outputs, unwrapped=cfg.unwrapped_kernels,
+        moments=cfg.moment_backward,
     )
     zero = torch.zeros((), dtype=torch.int32, device=means.device)
     diag = {

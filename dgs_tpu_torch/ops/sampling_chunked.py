@@ -18,7 +18,9 @@ tile-sorted sides and a range of the other side per 32 rows, so no side is
 padded, no work list is built and nothing beyond the entry capacity can
 overflow: the path is ``ops.sampling``'s tiled forward (kernel 1, then
 kernel 2 and the gid segment-sum in the backward) over a binning built
-here.  Gradients flow to (means, values, conics) only.
+here, in the kernel modes ``_kernel_modes`` resolves from the config as
+dgs_tpu's does (under ``fast_math_dots`` at D = 3 the separable forward and
+the moment-form backward).  Gradients flow to (means, values, conics) only.
 """
 
 from __future__ import annotations
@@ -48,15 +50,38 @@ class ChunkPlan(NamedTuple):
 
 class ChunkedSamples(NamedTuple):
     """The sample side, built once per sample set: the tile binning of the
-    samples and each sample's column in the tile-sorted layout.
+    samples, each sample's column in the tile-sorted layout and, where the
+    config's kernel modes need it, the monomial operand.
 
     dgs_tpu's ChunkedSamples also carries the chunk layout (s_coords, cm,
-    cbase, ctile), the separable modes' monomial matrix (mono) and a
-    chunk-capacity overflow counter; the port has no chunk layout and no
-    such modes, so they are left out."""
+    cbase, ctile) and a chunk-capacity overflow counter; the port has no
+    chunk layout, so they are left out."""
 
     binning: binning.SampleBinning
     pos: torch.Tensor   # (N,) int64 sorted column of each sample
+    # (mono_rows(D) + 1, Np) [1, x_l, -w/2 x_i x_j, tile] (kernels.tiled
+    # .prepare_samples with ``separable``), or None where no mode needs it.
+    mono: Optional[torch.Tensor] = None
+
+
+def _kernel_period(cfg: SamplerConfig) -> Optional[float]:
+    """The period the chunked path's kernels wrap by: None where they run
+    wrap-free (cfg.unwrapped_kernels or an open domain)."""
+    return None if cfg.unwrapped_kernels else cfg.period
+
+
+def _kernel_modes(cfg: SamplerConfig):
+    """(separable, moments, folded) resolved from the config flags for the
+    chunked path, as dgs_tpu's _kernel_modes: separable and moments as
+    ops.sampling.kernel_modes resolves them over _kernel_period (wrap-free
+    configs only; the automatic default is on under fast_math_dots at
+    D >= 3), with no warning here.  chunk_samples and sample_chunked_multi
+    both read this one resolution.  folded is False: the folded modes are
+    not ported, and SamplerConfig refuses folded_values."""
+    separable, moments = sampling.kernel_modes(
+        cfg, cfg.D, _kernel_period(cfg), cfg.separable_kernels,
+        cfg.moment_backward, warn=False)
+    return separable, moments, False
 
 
 def _radii(cfg: SamplerConfig, covariances, D: int):
@@ -106,14 +131,23 @@ def plan_chunked(cfg: SamplerConfig, means, covariances, samples,
 def chunk_samples(cfg: SamplerConfig, samples, plan: ChunkPlan,
                   block_n: int, sample_binning=None) -> ChunkedSamples:
     """The sample side of the chunked path (once per sample set): the
-    tile-sorted samples (``sample_binning`` if given) and each sample's
-    column.  ``plan`` and ``block_n`` size dgs_tpu's chunk layout and are
-    not read."""
+    tile-sorted samples (``sample_binning`` if given), each sample's
+    column, and the monomial operand of the kernel modes where the config
+    resolves to one (_kernel_modes; dgs_tpu builds its monomial matrix here
+    too).  ``plan`` and ``block_n`` size dgs_tpu's chunk layout and are not
+    read."""
+    from ..kernels import tiled as ktiled
+
     samples = samples.detach()
     cfg = cfg.with_dims(samples.shape[1])
     sb = (sample_binning if sample_binning is not None
           else binning.bin_samples(cfg, samples))
-    return ChunkedSamples(binning=sb, pos=sampling.sample_columns(sb.s_perm))
+    separable, moments, _ = _kernel_modes(cfg)
+    mono = (ktiled.prepare_samples(sb, samples, ktiled.BLOCK_N, cfg=cfg,
+                                   separable=True)[0]
+            if separable or moments else None)
+    return ChunkedSamples(binning=sb, pos=sampling.sample_columns(sb.s_perm),
+                          mono=mono)
 
 
 def sample_chunked_multi(
@@ -173,9 +207,13 @@ def sample_chunked_multi(
     # config's max_tiles_per_gaussian.
     op_cfg = dataclasses.replace(cfg, max_tiles_per_gaussian=plan.rect)
     N = cs.pos.shape[0]
+    # The modes chunk_samples built cs.mono for; tiled_packed keeps them as
+    # given (kernel_modes leaves a resolved pair unchanged).
+    separable, moments, _ = _kernel_modes(cfg)
     packed_t = sampling.tiled_packed(
         orders, op_cfg, means, values, conics, sb.s_sorted.T, state,
-        None if cfg.unwrapped_kernels else cfg.period)
+        _kernel_period(cfg), separable=separable, moments=moments,
+        mono=cs.mono)
     outs = sampling.tiled_outputs(
         packed_t, tuple(orders), D, C, N,
         None if padded_outputs else cs.pos,

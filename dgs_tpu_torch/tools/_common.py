@@ -1,6 +1,17 @@
 """What the port's measuring tools share: the refusal of the JAX tools'
-TPU-only knobs, the device knob, the step clock, device busy time, the
-trace directory and the card's name and power limit.
+TPU-only knobs, the kernel-mode and span knobs resolved into SamplerConfig
+flags as the JAX tools resolve them, the device knob, the step clock,
+device busy time, the trace directory and the card's name and power limit.
+
+Knobs.  BENCH_BN/BP/BBN/BBP, AGG_BN/BE and SWEEP_BLOCKS size the TPU
+kernels' blocks: refused.  BENCH_FOLDED, BENCH_FDV, BENCH_FVJP and
+BENCH_HMM set to 1 ask for kernel modes the port has not ported: refused.
+BENCH_MOMENTS, BENCH_SEP and BENCH_FASTMATH select the moment-form
+backward, the separable forward and the fast-math knob, which the port has:
+``mode_flags`` resolves them into the same SamplerConfig flags as the JAX
+tool that reads them.  BENCH_SPAN_F / BENCH_SPAN_B are scheduling knobs of
+the TPU work list (work_span_fwd / work_span_bwd): resolved into the config
+as the JAX tool does, accepted and not read by the port's kernels.
 
 Timing.  The JAX tools time a 1-run chain against a 3-run chain of a
 scanned program and sync by reading a scalar back, a workaround for their
@@ -38,33 +49,45 @@ class UnsupportedKnob(ValueError):
 # read none (config.SamplerConfig docstring).
 BLOCK_KNOBS = ("BENCH_BN", "BENCH_BP", "BENCH_BBN", "BENCH_BBP", "AGG_BN",
                "AGG_BE", "SWEEP_BLOCKS")
-# The span-packed work list; only a span of 1 has a counterpart.
-SPAN_KNOBS = ("BENCH_SPAN_F", "BENCH_SPAN_B")
-# Kernel modes that ROADMAP.md lists as not ported, by decision; set to 1
-# they would ask for a kernel the port does not have.
-MODE_KNOBS = ("BENCH_MOMENTS", "BENCH_FOLDED", "BENCH_FDV", "BENCH_FVJP",
-              "BENCH_HMM", "BENCH_SEP", "BENCH_FASTMATH")
+# Kernel modes that the port has not ported yet (ROADMAP.md); set to 1 they
+# would ask for a kernel the port does not have.
+MODE_KNOBS = ("BENCH_FOLDED", "BENCH_FDV", "BENCH_FVJP", "BENCH_HMM")
 
 
 def refuse(env: Mapping[str, str]) -> None:
     """Raise UnsupportedKnob, naming the knob, where ``env`` sets one of the
-    JAX tools' TPU-only knobs: a block size at all, a span other than 1, a
-    kernel mode to 1.  Every tool refuses every one of them."""
+    JAX tools' TPU-only knobs: a block size at all, an unported kernel mode
+    to 1.  Every tool refuses every one of them."""
     for knob in BLOCK_KNOBS:
         if knob in env:
             raise UnsupportedKnob(
                 f"{knob} sizes a block of the TPU kernels; the port's "
                 "kernels read no block size: unset it")
-    for knob in SPAN_KNOBS:
-        if env.get(knob, "1") != "1":
-            raise UnsupportedKnob(
-                f"{knob}={env[knob]} asks for the span-packed TPU work list, "
-                "which the port does not have: unset it or set it to 1")
     for knob in MODE_KNOBS:
         if env.get(knob) == "1":
             raise UnsupportedKnob(
-                f"{knob}=1 asks for a TPU kernel mode that the port does not "
-                "port (ROADMAP.md 'Not ported, by decision'): unset it")
+                f"{knob}=1 asks for a kernel mode of dgs_tpu that the port "
+                "has not ported yet (ROADMAP.md): unset it")
+
+
+def mode_flags(env: Mapping[str, str], *, separable: bool = False,
+               moments: bool = False, fast_math: bool = False,
+               span: int = 1) -> Dict:
+    """SamplerConfig flags from the knobs a JAX tool reads, as it reads
+    them: BENCH_MOMENTS / BENCH_SEP 0 or 1 force moment_backward /
+    separable_kernels off or on, unset leaves them None (the automatic
+    default); BENCH_FASTMATH=1 sets fast_math_dots; BENCH_SPAN_F / _B give
+    work_span_fwd / _bwd (default ``span``).  Only the knobs the tool reads
+    (``separable``, ``moments``, ``fast_math``) become flags."""
+    flags = {"work_span_fwd": int(env.get("BENCH_SPAN_F", span)),
+             "work_span_bwd": int(env.get("BENCH_SPAN_B", span))}
+    for on, knob, field in ((moments, "BENCH_MOMENTS", "moment_backward"),
+                            (separable, "BENCH_SEP", "separable_kernels")):
+        if on:
+            flags[field] = None if knob not in env else env[knob] == "1"
+    if fast_math:
+        flags["fast_math_dots"] = env.get("BENCH_FASTMATH", "0") == "1"
+    return flags
 
 
 def torch_device(name: str, knob: str) -> torch.device:

@@ -26,10 +26,12 @@ read after the timing; one that is not zero raises.
 Env: BENCH_P, BENCH_N, BENCH_D, BENCH_C, BENCH_STEPS, BENCH_METHOD (tiled,
 chunked, pallas, dense), BENCH_TILE, BENCH_R, BENCH_SIGMA,
 BENCH_EIG_FLOOR, BENCH_AXIS, BENCH_ELLIP, BENCH_ORDERS (comma list) and
-BENCH_DEVICE (default cuda; cpu runs the kernels' plain versions).  The
-TPU-only knobs (BENCH_BN/BP/BBN/BBP, a BENCH_SPAN_F/B other than 1, the
-kernel modes BENCH_MOMENTS/FOLDED/FDV/FVJP/HMM/SEP/FASTMATH set to 1)
-raise ``_common.UnsupportedKnob``.
+BENCH_DEVICE (default cuda; cpu runs the kernels' plain versions).
+BENCH_MOMENTS, BENCH_SEP and BENCH_FASTMATH select the kernel modes as in
+bench.py (unset: the automatic default, which turns both modes on under
+BENCH_FASTMATH=1 at wrap-free D = 3); BENCH_SPAN_F/B (default 2 at D = 2,
+else 1) are accepted and not read.  The TPU-only knobs (BENCH_BN/BP/BBN/BBP,
+BENCH_FOLDED/FDV/FVJP/HMM set to 1) raise ``_common.UnsupportedKnob``.
 """
 
 from __future__ import annotations
@@ -70,7 +72,9 @@ def settings(env=None) -> dict:
         axis_radii=env.get("BENCH_AXIS", "1") == "1",
         ellip_cull=env.get("BENCH_ELLIP", "1" if D >= 3 else "0") == "1",
         orders=tuple(env.get("BENCH_ORDERS", DEFAULT_ORDERS).split(",")),
-        device=env.get("BENCH_DEVICE", "cuda"))
+        device=env.get("BENCH_DEVICE", "cuda"),
+        flags=_common.mode_flags(env, separable=True, moments=True,
+                                 fast_math=True, span=2 if D == 2 else 1))
 
 
 class Workload(NamedTuple):
@@ -86,10 +90,11 @@ class Workload(NamedTuple):
 
 
 def config(s: dict) -> SamplerConfig:
-    """The configuration of settings ``s`` before planning."""
+    """The configuration of settings ``s`` before planning, with the kernel
+    mode and span flags of ``s["flags"]`` (mode_flags) where it has them."""
     return SamplerConfig(tile_size=s["tile"], max_tiles_per_gaussian=s["R"],
                          eig_floor=s["eig_floor"], axis_radii=s["axis_radii"],
-                         ellip_cull=s["ellip_cull"])
+                         ellip_cull=s["ellip_cull"], **s.get("flags", {}))
 
 
 def field_and_samples(P, N, D, C, sigma, dev, seed=0):

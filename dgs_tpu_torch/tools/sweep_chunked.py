@@ -17,8 +17,9 @@ read the peak bytes before trusting a row.
     python -m dgs_tpu_torch.tools.sweep_chunked
 
 Env: SWEEP_D, SWEEP_P, SWEEP_N, SWEEP_STEPS, SWEEP_TILES, BENCH_AXIS and
-SWEEP_DEVICE (default cuda).  SWEEP_BLOCKS, a BENCH_SPAN_F/B other than 1
-and the other TPU-only knobs raise _common.UnsupportedKnob.
+SWEEP_DEVICE (default cuda); BENCH_SPAN_F/B (default 1) are accepted and
+not read.  SWEEP_BLOCKS and the other TPU-only knobs raise
+_common.UnsupportedKnob.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def settings(env=None) -> dict:
         R=3, eig_floor=1e-12, axis_radii=env.get("BENCH_AXIS", "1") == "1",
         ellip_cull=False,
         orders=("value", "derivative", "laplacian"),
-        device=env.get("SWEEP_DEVICE", "cuda"))
+        device=env.get("SWEEP_DEVICE", "cuda"),
+        flags=_common.mode_flags(env))
 
 
 def run(s: dict) -> list:

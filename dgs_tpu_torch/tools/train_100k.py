@@ -19,8 +19,8 @@ device busy time of these steps is measured by tools.profile_dynamics and
 chip_smoke.py's profile phase, which hold the steps themselves.
 
 tools/train_100k.py defaults BENCH_SPAN_F/B to 2, the TPU's span-packed
-work list.  The port has no span: its phases leave it out, and a span
-other than 1 in the environment raises _common.UnsupportedKnob.
+work list; both phases' configs carry the same spans, which the port's
+kernels do not read.
 
     python -m dgs_tpu_torch.tools.train_100k
 
@@ -57,7 +57,8 @@ def settings(env=None) -> dict:
         skip_a=bool(env.get("T100K_SKIP_A")), eig_floor=1e-12,
         axis_radii=env.get("BENCH_AXIS", "1") == "1",
         ellip_cull=env.get("BENCH_ELLIP", "1") == "1",
-        device=env.get("T100K_DEVICE", "cuda"))
+        device=env.get("T100K_DEVICE", "cuda"),
+        flags=_common.mode_flags(env, span=2))
 
 
 def _warm(history, wall, steps):
@@ -72,7 +73,7 @@ def run(s: dict) -> list:
     if not s["skip_a"]:
         cfg = SamplerConfig(tile_size=s["tile"], eig_floor=s["eig_floor"],
                             axis_radii=s["axis_radii"],
-                            ellip_cull=s["ellip_cull"])
+                            ellip_cull=s["ellip_cull"], **s["flags"])
         t0 = time.perf_counter()
         _, history = pigs.train(
             cfg, P=s["P"], D=s["D"], C=1, steps=s["steps"],
@@ -94,7 +95,7 @@ def run(s: dict) -> list:
 
     cfg_d = SamplerConfig(eig_floor=s["eig_floor"], tile_size=s["d_tile"],
                           axis_radii=s["axis_radii"],
-                          ellip_cull=s["ellip_cull"])
+                          ellip_cull=s["ellip_cull"], **s["flags"])
     t0 = time.perf_counter()
     _, dhist = dynamics.train(
         cfg_d, P=s["P"], D=s["D"], steps=s["d_steps"], rollout=s["rollout"],

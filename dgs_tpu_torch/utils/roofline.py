@@ -6,6 +6,8 @@ The counterpart of ``dgs_tpu/utils/roofline.py`` for an NVIDIA H100 SXM
 slower under load, so state the limit beside every share of a bound).
 ``pair_count`` is the exact same-tile (entry, sample) pair total of a
 binning; ``pair_ops`` / ``kernel_bound`` bound the tiled and dense kernels,
+``mode_pair_ops`` / ``mode_bound`` the tiled kernels' separable and moment
+modes (their contractions at the TF32 tensor-core peak),
 ``agg_pair_ops`` / ``agg_bound`` the aggregation kernels, and
 ``step_roofline`` a whole tiled training step.  A bound is the larger of
 the operations over the card's peak rate for their type and the bytes moved
@@ -32,6 +34,9 @@ from ..kernels import tiled as ktiled
 MEM_BYTES_S = 3.35e12
 FP32_INSTR_S = 67e12 / 2
 SFU_OPS_S = 16 * 132 * 1.98e9
+# Dense TF32 tensor-core peak of the data sheet (495 TFLOP/s, two flops a
+# multiply-add).
+TF32_MAC_S = 495e12 / 2
 
 
 def pair_ops(D, orders, C, wrapped, backward):
@@ -161,3 +166,45 @@ def step_roofline(orders: Sequence[str], D: int, C: int, pairs: int,
     return {"pairs": pairs, "flops_per_step": pairs * (ops_f + ops_b),
             "sol_step_s": sol, "sol_vpu_s": vpu_t, "sol_mxu_s": 0.0,
             "sol_hbm_s": hbm_t, "bound": "vpu" if vpu_t >= hbm_t else "hbm"}
+
+
+def mode_pair_ops(D, orders, C, kind, passes):
+    """(fp32 instructions, special-function operations, tensor-core
+    multiply-adds) one kept pair needs at the least in a kernel mode:
+    ``kind`` "separable" (the forward with power and a = C X contracted:
+    1 + D + tri and D (1 + D) multiply-adds a pass) or "moments" (the
+    backward with G S0 contracted against the monomials, 1 + D + tri a
+    pass, and G W_l against [1, x_l], D (1 + D) a pass, as dgs_tpu's
+    _moment_rows contracts both on the MXU; the D multiplies G W_l and the
+    laplacian's and the thirds' rows, one FMA each, on the CUDA cores).
+    ``passes`` is the TF32 passes of the contraction (3, or 1 under
+    fast-math; the moment form is always 3).  The rest is pair_ops' count
+    without the work the contraction takes.  This counts the function's
+    work, not how a kernel splits it between the two kinds of core."""
+    tri = D * (D + 1) // 2
+    mr, mp = 1 + D + tri, 1 + D
+    has_w = any(o in ("derivative", "laplacian", "third") for o in orders)
+    if kind == "separable":
+        ops, sfu = pair_ops(D, orders, C, False, False)
+        return ops - (D + D * D + D + 1), sfu, passes * (mr + D * mp)
+    if kind != "moments":
+        raise ValueError(f"unknown kernel mode {kind!r}")
+    ops, sfu = pair_ops(D, orders, C, False, True)
+    ops -= D * (D + 3) + 2 * D + 1 + 5 * tri       # the closing terms
+    ops += D if has_w else 0                        # G W_l
+    ops += tri * (("laplacian" in orders) + ("third" in orders))
+    return ops, sfu, passes * (mr + (D * mp if has_w else 0))
+
+
+def mode_bound(pairs, n_floats, D, orders, C, kind, passes):
+    """{"bound_ms", "bound_by"} of a kernel mode: the larger of the fp32
+    instructions at FP32_INSTR_S, the special functions at SFU_OPS_S, the
+    contraction's multiply-adds at the TF32 peak TF32_MAC_S (the tensor
+    cores run beside the CUDA cores), and ``n_floats`` fp32 values moved at
+    MEM_BYTES_S."""
+    ops, sfu, macs = mode_pair_ops(D, orders, C, kind, passes)
+    t_ops = max(pairs * ops / FP32_INSTR_S, pairs * sfu / SFU_OPS_S,
+                pairs * macs / TF32_MAC_S)
+    t_bytes = 4 * n_floats / MEM_BYTES_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}

@@ -1,0 +1,163 @@
+"""The kernel modes' CUDA sources (csrc/tiled_forward_sep.cu,
+csrc/tiled_backward_moments.cu) built for the host with g++ against the
+emulated CUDA runtime of cuda_emulation.py (tf32_mma.cuh's mma.sync computed
+from the lanes' fragments with shuffles, its TF32 rounding the same as the
+card's), run on operands of the port's binning and held against their plain
+versions: the separable forward at 3 passes within the fp32 gate and at 1
+pass within its sanity bound, the moment-form backward within the gradient
+tolerance and, folded by moment_combine, against the classic backward on
+the same tile-local operands; pad and sentinel columns exactly zero; two
+runs bitwise equal.  This checks the kernels' logic (fragment layouts,
+ranges, channel passes, the row layout), not the card's speed: chip_smoke.py
+holds the same functions on the H100."""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+import cuda_emulation
+from conftest import make_gaussians, make_samples
+from dgs_tpu_torch.binning import grid as tgrid
+from dgs_tpu_torch.config import SamplerConfig as TConfig
+from dgs_tpu_torch.kernels import tiled as kt
+from dgs_tpu_torch.ops import formulas
+
+torch.set_num_threads(2)
+
+ORDERS = ("value", "derivative", "laplacian", "third")
+P_, I_ = ctypes.c_void_p, ctypes.c_int
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    fwd, bwd = cuda_emulation.build(tmp_path_factory.mktemp("modes"),
+                                    ["tiled_forward_sep",
+                                     "tiled_backward_moments"])
+    fwd.dgs_tiled_forward_sep.argtypes = [P_, I_, I_, P_, I_, P_, P_] + \
+        [I_] * 8 + [P_, P_]
+    bwd.dgs_tiled_backward_moments.argtypes = [P_, I_, I_, P_, I_, P_, P_,
+                                               P_] + [I_] * 7 + [P_, P_]
+    bwd.dgs_tiled_backward_moments_rows.argtypes = [I_, I_]
+    return fwd, bwd
+
+
+def _operands(D, C, seed, tile=0.1275, P=None, holes=False):
+    """Tile-local operands of a seeded case: (geom, mono, state, cfg)."""
+    rng = np.random.default_rng(seed)
+    P = P or (60 if D < 3 else 50)
+    m, v, cov, c = map(torch.from_numpy, make_gaussians(
+        rng, P, D, C, sigma_range=(0.02, 0.05)))
+    s = torch.from_numpy(make_samples(rng, 96, D))
+    if holes:       # tiles with entries only, with samples only, with neither
+        s[:, 0] = -s[:, 0].abs()
+        m[:, -1] = -m[:, -1].abs()
+    cfg = TConfig(max_tiles_per_gaussian=8, tile_size=tile, eig_floor=1e-12,
+                  entry_capacity_factor=100.0).with_dims(D)
+    state = tgrid.build(cfg, m, cov, s)
+    assert int(state.overflow) == 0 and int(state.entry_overflow) == 0
+    geom = kt.prepare_entries(state, m, v, c, kt.BLOCK_E, cfg=cfg,
+                              separable=True)[2]
+    mono = kt.prepare_samples(state, s, kt.BLOCK_N, cfg=cfg,
+                              separable=True)[0]
+    return geom, mono, state
+
+
+def _forward(fwd, orders, D, C, geom, mono, lo, n, passes):
+    mask, rows = kt._order_rows(orders, D)
+    K = kt.total_unique(orders, D)
+    Np = mono.shape[1]
+    out = torch.full((K * C, Np), float("nan"))
+    err = fwd.dgs_tiled_forward_sep(
+        geom.data_ptr(), geom.shape[1], C, mono.data_ptr(), Np,
+        lo.data_ptr(), n.data_ptr(), Np // kt.BLOCK_N, D, mask, passes,
+        rows["value"], rows["derivative"], rows["laplacian"], rows["third"],
+        out.data_ptr(), None)
+    assert err == 0
+    return out
+
+
+def _backward(bwd, orders, D, C, geom, mono, ct, lo, n):
+    mask, rows = kt._order_rows(orders, D)
+    n_rows = kt.moment_layout(orders, D)[3]
+    assert bwd.dgs_tiled_backward_moments_rows(D, mask) == n_rows
+    Ep = geom.shape[1]
+    out = torch.full((Ep, n_rows + C), float("nan"))
+    err = bwd.dgs_tiled_backward_moments(
+        geom.data_ptr(), Ep, C, mono.data_ptr(), mono.shape[1],
+        ct.data_ptr(), lo.data_ptr(), n.data_ptr(), Ep // kt.BLOCK_E, D,
+        mask, rows["value"], rows["derivative"], rows["laplacian"],
+        rows["third"], out.data_ptr(), None)
+    assert err == 0
+    return out.T
+
+
+def _check_close(got, ref, rtol, atol_rel, what):
+    scale = max(1.0, float(ref.abs().max()))
+    bad = (got - ref).abs() > atol_rel * scale + rtol * ref.abs()
+    assert not bool(bad.any()), (what, int(bad.sum()),
+                                 float((got - ref).abs().max()))
+
+
+CASES = [(1, 4, ORDERS), (2, 4, ORDERS), (3, 4, ORDERS), (2, 1, ORDERS),
+         (2, 2, ("laplacian", "value")), (3, 6, ("third",)),
+         (3, 1, ("value",)), (2, 4, ("derivative",))]
+
+
+@pytest.mark.parametrize("D,C,orders", CASES,
+                         ids=[f"D{d}_C{c}_{len(o)}" for d, c, o in CASES])
+def test_emulated_mode_kernels_match_plain(libs, D, C, orders):
+    fwd, bwd = libs
+    geom, mono, state = _operands(D, C, 100 * D + C)
+    Np, Ep = mono.shape[1], geom.shape[1]
+    lo, n = kt.entry_ranges(state, Np)
+    ref = kt.tiled_forward_sep_plain(orders, D, C, geom, mono, lo, n)
+    got = _forward(fwd, orders, D, C, geom, mono, lo, n, passes=3)
+    k0 = 0
+    for order in orders:      # the fp32 gate, per order
+        r = slice(k0 * C, (k0 + formulas.n_unique(order, D)) * C)
+        _check_close(got[r], ref[r], 2e-4, 1e-5, order)
+        k0 += formulas.n_unique(order, D)
+    assert not bool(got[:, mono[-1] < 0].any())      # pad columns
+    one = _forward(fwd, orders, D, C, geom, mono, lo, n, passes=1)
+    assert float((one - got).abs().max()) <= 2e-2 * float(got.abs().max())
+    assert torch.equal(_forward(fwd, orders, D, C, geom, mono, lo, n, 3),
+                       got)
+
+    K = kt.total_unique(orders, D)
+    ct = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        (K * C, Np)).astype(np.float32))
+    s_lo, s_n = kt.sample_ranges(state, Ep)
+    rows = _backward(bwd, orders, D, C, geom, mono, ct, s_lo, s_n)
+    ref_rows = kt.tiled_backward_moments_plain(orders, D, C, geom, mono, ct,
+                                               s_lo, s_n)
+    _check_close(rows, ref_rows, 2e-3, 1e-5, "moment rows")
+    dead = (geom[0] < 0) | (geom[0] >= state.ent_start.shape[0] - 2)
+    assert not bool(rows[:, dead].any())
+    assert torch.equal(_backward(bwd, orders, D, C, geom, mono, ct, s_lo,
+                                 s_n), rows)
+    combined = kt.moment_combine(orders, D, C, rows, geom)
+    classic = kt.tiled_backward_plain(
+        orders, None, D, C, kt.base_rows(geom, D, C),
+        kt.local_samples(mono, D), ct, s_lo, s_n)
+    _check_close(combined, classic, 2e-3, 1e-5, "combined rows")
+
+
+def test_emulated_mode_kernels_with_empty_tiles(libs):
+    """Tiles with entries and no samples, samples and no entries, neither
+    (D = 2), and full-cover footprints' long ranges at a coarse tile."""
+    fwd, bwd = libs
+    for geom, mono, state in (_operands(2, 4, 7, holes=True),
+                              _operands(2, 4, 8, tile=0.5, P=20)):
+        D, C, Np, Ep = 2, 4, mono.shape[1], geom.shape[1]
+        lo, n = kt.entry_ranges(state, Np)
+        got = _forward(fwd, ORDERS, D, C, geom, mono, lo, n, 3)
+        ref = kt.tiled_forward_sep_plain(ORDERS, D, C, geom, mono, lo, n)
+        _check_close(got, ref, 2e-4, 1e-5, "forward")
+        ct = torch.ones((kt.total_unique(ORDERS, D) * C, Np))
+        s_lo, s_n = kt.sample_ranges(state, Ep)
+        rows = _backward(bwd, ORDERS, D, C, geom, mono, ct, s_lo, s_n)
+        ref_rows = kt.tiled_backward_moments_plain(ORDERS, D, C, geom, mono,
+                                                   ct, s_lo, s_n)
+        _check_close(rows, ref_rows, 2e-3, 1e-5, "moment rows")

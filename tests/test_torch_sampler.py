@@ -120,11 +120,12 @@ def test_debug_errors(rng):
 
 def test_unported_paths_raise(rng, monkeypatch):
     """The chunked method is ported (the facade constructs it); what the
-    port still does not run raises on it: dgs_tpu's TPU-only kernel modes
-    and its kernel-ablation hook."""
+    port still does not run raises on it: dgs_tpu's kernel modes that are
+    not ported yet (the folded trio, h_matmul) and its kernel-ablation
+    hook."""
     assert TSampler(method="chunked").method == "chunked"
-    with pytest.raises(NotImplementedError, match="separable_kernels"):
-        TConfig(separable_kernels=True)
+    with pytest.raises(NotImplementedError, match="folded_values"):
+        TConfig(folded_values=True)
     arrays = [torch.from_numpy(a) for a in _data(rng, P=30, N=60, D=3)]
     s = TSampler(method="chunked", config=TConfig(tile_size=0.25))
     s.preprocess(*arrays)

@@ -30,6 +30,7 @@ from dgs_tpu.models.pigs import field_outputs as jfield_outputs
 from dgs_tpu.ops import formulas as jformulas
 from dgs_tpu.utils import native as jnative
 from dgs_tpu_torch.models import dynamics as tdyn
+from dgs_tpu_torch.config import SamplerConfig as TConfig
 from dgs_tpu_torch.models.field import GaussianField
 from dgs_tpu_torch.tools import _common, bench, train_100k
 
@@ -149,12 +150,9 @@ REFUSED = [("bench", "BENCH_BN", "512"), ("bench", "BENCH_BP", "256"),
            ("bench_aggregate", "AGG_BN", "32"),
            ("profile_aggregate", "AGG_BE", "128"),
            ("sweep_tile", "SWEEP_BLOCKS", "256x128x256x128"),
-           ("train_100k", "BENCH_SPAN_F", "2"),
-           ("sweep_chunked", "BENCH_SPAN_B", "2"),
-           ("bench", "BENCH_MOMENTS", "1"), ("bench", "BENCH_FOLDED", "1"),
+           ("bench", "BENCH_FOLDED", "1"),
            ("bench", "BENCH_FDV", "1"), ("bench", "BENCH_FVJP", "1"),
-           ("bench", "BENCH_HMM", "1"), ("bench", "BENCH_SEP", "1"),
-           ("profile_step", "BENCH_FASTMATH", "1")]
+           ("bench", "BENCH_HMM", "1")]
 
 
 @pytest.mark.parametrize("tool,knob,value", REFUSED)
@@ -170,6 +168,54 @@ def test_knobs_at_their_port_values_are_accepted():
            "BENCH_FASTMATH": "0"}
     for name in TOOLS:
         _tool(name).settings(env)
+
+
+# The kernel-mode and span knobs the port reads (formerly refused): the
+# tool's config flags against the ones the JAX tool passes to
+# SamplerConfig from the same environment.
+ACCEPTED = [("train_100k", "BENCH_SPAN_F", "2"),
+            ("sweep_chunked", "BENCH_SPAN_B", "2"),
+            ("bench", "BENCH_MOMENTS", "1"), ("bench", "BENCH_SEP", "1"),
+            ("profile_step", "BENCH_FASTMATH", "1")]
+FLAGS = ("moment_backward", "separable_kernels", "fast_math_dots",
+         "work_span_fwd", "work_span_bwd")
+
+
+def _port_configs(tool, s):
+    """The SamplerConfigs the port's tool builds from settings ``s`` before
+    planning (bench.config, or each train_100k phase's flags)."""
+    if tool == "sweep_chunked":
+        return [bench.config({**s, "tile": tile}) for tile in s["tiles"]]
+    if tool in ("bench", "profile_step"):
+        return [bench.config(s)]
+    return [TConfig(**s["flags"])]
+
+
+@pytest.mark.parametrize("tool,knob,value", ACCEPTED)
+def test_ported_knob_is_accepted(monkeypatch, tool, knob, value):
+    """BENCH_MOMENTS, BENCH_SEP, BENCH_FASTMATH and a span other than 1 are
+    accepted and resolve into the same config flags as the JAX tool
+    (bench.py:97-140, tools/profile_step.py:54-61, tools/train_100k.py,
+    tools/sweep_chunked.py)."""
+    for k in list(os.environ):
+        if k.startswith(("BENCH_", "PROF_", "AGG_", "DYN_", "T100K_",
+                         "SWEEP_")):
+            monkeypatch.delenv(k)
+    path, capture, envs = PARITY[tool]
+    env = {**envs[0], knob: value}
+    log = {}
+    capture(path, monkeypatch, env, log)
+    s = _tool(tool).settings(env)
+    defaults = JConfig()
+    want = [{f: kw.get(f, getattr(defaults, f)) for f in FLAGS}
+            for kw in log["config"] if kw]
+    got = [{f: getattr(c, f) for f in FLAGS} for c in _port_configs(tool, s)]
+    assert want and all(w == got[0] for w in want), (want, got)
+    field = {"BENCH_SPAN_F": "work_span_fwd", "BENCH_SPAN_B": "work_span_bwd",
+             "BENCH_MOMENTS": "moment_backward",
+             "BENCH_SEP": "separable_kernels",
+             "BENCH_FASTMATH": "fast_math_dots"}[knob]
+    assert got[0][field] in (True, int(value))
 
 
 # ---------------------------------------------------- settings parity

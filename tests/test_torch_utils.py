@@ -259,6 +259,28 @@ def test_pair_ops_pinned():
     assert a == {"bound_ms": pytest.approx(4.0), "bound_by": "bytes"}
 
 
+@pytest.mark.parametrize("D,orders,kind,passes,want", [
+    (3, SLICE, "moments", 3, (146, 1, 66)),
+    (2, SLICE, "moments", 3, (85, 1, 36)),
+    (3, ("value",), "moments", 3, (26, 1, 30)),
+    (3, SLICE, "separable", 3, (56, 1, 66)),
+    (3, SLICE, "separable", 1, (56, 1, 22)),
+])
+def test_mode_pair_ops_pinned(D, orders, kind, passes, want):
+    """The kernel modes' per-pair counts: the moment form contracts G S0
+    against the 1 + D + tri monomials and, where the orders have W rows,
+    G W_l against [1, x_l] (D (1 + D) more multiply-adds a pass), both at
+    the TF32 rate as dgs_tpu's _moment_rows does on the MXU; only the D
+    multiplies G W_l stay fp32 (at D = 3, three orders: 10 + 12 = 22
+    multiply-adds a pass, 66 at 3 passes)."""
+    assert roofline.mode_pair_ops(D, orders, 4, kind, passes) == want
+    b = roofline.mode_bound(10 ** 9, 0, D, orders, 4, kind, passes)
+    assert b == {"bound_ms": pytest.approx(1e3 * max(
+        want[0] * 1e9 / roofline.FP32_INSTR_S,
+        want[1] * 1e9 / roofline.SFU_OPS_S,
+        want[2] * 1e9 / roofline.TF32_MAC_S)), "bound_by": "operations"}
+
+
 def test_step_roofline_keys_and_bound():
     got = roofline.step_roofline(SLICE, 2, 4, 198_446_456, 1_000_000,
                                  321_920)
