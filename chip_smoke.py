@@ -22,6 +22,9 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # phase_tools)
     python3 chip_smoke.py --modes    # the kernel modes' two phases only
                                      # (parity_modes, modes_slice)
+    python3 chip_smoke.py --folded   # the folded modes' and h_matmul's
+                                     # two phases only (parity_folded,
+                                     # folded_slice)
 
 Several modes may be given; they run in the order given.  The per-pair
 operation counts and the card's peak rates of the bounds are
@@ -89,6 +92,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    the op in each mode (separable, moments, both) against
                    the dense masked oracle: outputs, and gradients twice
                    and bitwise equal, with the kernels each mode launched.
+     parity_folded - the folded modes of kernels 1-2 and h_matmul
+                   (csrc/tiled_forward_folded.cu, tiled_backward_folded.cu,
+                   tiled_backward_hmm.cu, tiled_backward_moments.cu's
+                   h_matmul instantiations) against their plain versions
+                   on wrap-free operands: D in {1, 2, 3} x C in {1, 4, 6}
+                   x three orders, four orders and (value, laplacian),
+                   full-cover footprints (open box), tiles without samples
+                   or entries; the folded forward and VJP within the
+                   general limits or, where the expansion's cancellation
+                   defeats them, within FOLD_ERR_RATIO times the fp32 plain
+                   version's error against float64, the folded dvalues
+                   (with and without h_matmul) too; h_matmul's backwards
+                   within the general limits; 1-pass readings (outside the
+                   gate; ONE_PASS_SANITY for the folded dvalues and
+                   h_matmul); the folded VJP's combined rows against the
+                   classic backward (FOLD_ATOL_REL); pad and sentinel
+                   columns exactly zero; bitwise repeats.  Then the op in
+                   each folded mode and under h_matmul against the dense
+                   masked oracle, gradients twice and bitwise equal, with
+                   the kernels each mode launched.
   4. slice       - the evaluation path at full width: GaussianSampler
                    (method "tiled") preprocess + sample_all(value,
                    derivative, laplacian) at P = 100,000 Gaussians x
@@ -278,6 +301,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    that each run launched the kernels of its path
                    (launches_by_path tool_*); the phase's seconds.
 
+After modes_slice, folded_slice: the D = 3 chunked bench step (100k x 1M,
+C = 4, three orders) classic, under BENCH_FOLDED=1, + BENCH_FDV=1,
++ BENCH_FVJP=1 and BENCH_HMM=1 (10 warm steps each from the same
+parameters: host median and range, busy ms, device items, peak bytes, the
+kernels each mode names, gradients against the classic step's at
+FOLD_ATOL_REL), each new kernel's CUDA-event ms, bound and plain version
+on its step's operands beside kernels 1-2; the four-order step under
+BENCH_FDV=1, whose folded dvalues turn themselves off; and the D = 2
+headline step classic, under the folded VJP and under h_matmul.
+
 Then the kernels line (per kernel: launches on its main path and by path,
 its time, its plain version's time, the least time the card could take
 for the same work, the larger of the bytes over the memory rate and the
@@ -349,6 +382,10 @@ KERNELS = {"tiled_forward": ktiled.tiled_forward,
            "tiled_backward": ktiled.tiled_backward,
            "tiled_forward_sep": ktiled.tiled_forward_sep,
            "tiled_backward_moments": ktiled.tiled_backward_moments,
+           "tiled_forward_folded": ktiled.tiled_forward_folded,
+           "tiled_backward_fdv": ktiled.tiled_backward_fdv,
+           "tiled_backward_fvjp": ktiled.tiled_backward_fvjp,
+           "tiled_backward_hmm": ktiled.tiled_backward_hmm,
            "dense_forward": kdense.dense_forward,
            "dense_backward": kdense.dense_backward,
            "agg_totals": kagg.totals,
@@ -508,6 +545,8 @@ def phase_build():
             r"Compiling entry function '(\S+)'[\s\S]*?Used (\d+) registers",
             log):
         names = [name for name in KERNELS if name in entry]
+        if "tiled_backward_kernel" in entry and "Lb1EEEv" in entry:
+            names = ["tiled_backward_hmm"]   # its last template flag, HMM
         if names:   # the longest: tiled_forward_sep is not tiled_forward
             name = max(names, key=len)
             by_kernel[name] = max(by_kernel[name], int(used))
@@ -781,7 +820,9 @@ def instantiation(kernel, orders, D, C, period):
     mask = ktiled._order_rows(orders, D)[0]
     cb = getattr(lib, f"dgs_{kernel}_pass")(D, C)
     wrapped = int(period is not None)
-    name = f"{kernel}_kernelILi{D}ELi{mask}ELi{cb}ELb{wrapped}EE"
+    name = f"{kernel}_kernelILi{D}ELi{mask}ELi{cb}ELb{wrapped}E"
+    # The backward's template ends with its h_matmul flag (off here).
+    name += "Lb0EE" if kernel == "tiled_backward" else "E"
     reports = [
         r for r in _build.build_log().split("Compiling entry function")[1:]
         if name in r.split("'")[1]]
@@ -2077,8 +2118,8 @@ def tiled_evaluations(t):
     operands its two kernels were (and will be) launched with: a list of
     dicts (orders, period, D, C, geom, smp, state, the entries' gid, P and
     slots for the segment-sum, and the kernel modes: separable, moments,
-    passes; under a mode geom is tile-local and smp the monomial
-    operand)."""
+    folded, fold_dv, fold_vjp, hmm, passes; under a mode geom is tile-local
+    and smp the monomial operand; under folded, fold and foldw)."""
     seen, stack, found = set(), [t.grad_fn], []
     while stack:
         fn = stack.pop()
@@ -2086,12 +2127,18 @@ def tiled_evaluations(t):
             continue
         seen.add(fn)
         if type(fn).__name__ == "_TiledForwardBackward":
-            geom, smp, gid = fn.saved_tensors
+            saved = fn.saved_tensors
+            geom, smp, gid = saved[:3]
+            separable, moments, folded, fold_dv, fold_vjp, hmm = fn.modes
             found.append(dict(orders=fn.orders, period=fn.kernel_period,
                               D=fn.D, C=fn.C, geom=geom.detach(), smp=smp,
                               state=fn.state, gid=gid, P=fn.P,
-                              slots=fn.slots, separable=fn.separable,
-                              moments=fn.moments, passes=fn.passes))
+                              slots=fn.slots, separable=separable,
+                              moments=moments, folded=folded,
+                              fold_dv=fold_dv, fold_vjp=fold_vjp, hmm=hmm,
+                              fold=saved[3].detach() if folded else None,
+                              foldw=saved[4] if folded else None,
+                              passes=fn.passes))
         stack.extend(f for f, _ in fn.next_functions)
     return found
 
@@ -3345,12 +3392,12 @@ MODE_RUNS = (("classic", {}), ("fastmath", {"BENCH_FASTMATH": "1"}),
              ("sep_moments", {"BENCH_SEP": "1", "BENCH_MOMENTS": "1"}))
 
 
-def mode_case(dev, seed, D, sigma, C, holes=False, open_domain=False):
+def wrap_free_case(dev, seed, D, sigma, C, holes=False, open_domain=False):
     """small_field's field binned wrap-free (the modes need tile-local
     operands): unwrapped under the planner's certificate on the periodic
     domain, or on the open box [-1, 1]^D for footprints wider than the
-    certificate allows.  Returns (state, geom, mono, P, N, generator) with
-    geom and mono in the separable layout."""
+    certificate allows.  Returns ((means, values, covs, conics), samples,
+    generator, cfg, state)."""
     (means, values, covs, conics), samples, g = small_field(
         dev, seed, D, sigma, C, holes)
     kw = dict(tile_size=0.1275, eig_floor=1e-12)
@@ -3365,6 +3412,14 @@ def mode_case(dev, seed, D, sigma, C, holes=False, open_domain=False):
         cfg = dataclasses.replace(cfg, unwrapped_kernels=True)
     state = binning.build(cfg, means, covs, samples)
     assert int(state.overflow) == 0 and int(state.entry_overflow) == 0
+    return (means, values, covs, conics), samples, g, cfg, state
+
+
+def mode_case(dev, seed, D, sigma, C, holes=False, open_domain=False):
+    """wrap_free_case's case in the separable layout: (state, geom, mono,
+    P, N, generator)."""
+    (means, values, _, conics), samples, g, cfg, state = wrap_free_case(
+        dev, seed, D, sigma, C, holes, open_domain)
     geom = ktiled.prepare_entries(state, means, values, conics,
                                   ktiled.BLOCK_E, cfg=cfg, separable=True)[2]
     mono = ktiled.prepare_samples(state, samples, ktiled.BLOCK_N, cfg=cfg,
@@ -3566,19 +3621,23 @@ def mode_step(dev, name, w, expect, steps=10):
     reset_launches()
     times = host_ms(step, steps)
     launches = read_launches()
-    # The modes the step ran, read from the kernels it launched.
-    sep, mom = expect
-    ran = {"tiled_forward_sep": sep, "tiled_forward": not sep,
-           "tiled_backward_moments": mom, "tiled_backward": not mom}
+    # The modes the step ran, read from the kernels it launched: ``expect``
+    # is (separable, moments) or {kernel: launched or not}.
+    if isinstance(expect, dict):
+        ran = expect
+    else:
+        sep, mom = expect
+        ran = {"tiled_forward_sep": sep, "tiled_forward": not sep,
+               "tiled_backward_moments": mom, "tiled_backward": not mom}
     if any(bool(launches[k]) != on for k, on in ran.items()):
-        raise AssertionError(f"{name}: launched {launches}, expected modes "
-                             f"(separable, moments) = {expect}")
+        raise AssertionError(f"{name}: launched {launches}, expected "
+                             f"{ran}")
     peak = torch.cuda.max_memory_allocated()
     t1 = time.perf_counter()
     busy, top, items = device_busy(step, 5)
     fields = dict(
         seconds={"steps": t1 - t0, "profile": time.perf_counter() - t1},
-        run=name, separable=expect[0], moments=expect[1],
+        run=name, expect=ran,
         passes=ktiled.dot_passes(w.cfg), D=w.samples.shape[1],
         P=w.field.P, N=w.samples.shape[0], method=w.method,
         orders=list(w.orders), tile=w.cfg.tile_size,
@@ -3609,7 +3668,11 @@ def mode_kernel_numbers(ev, sides, plain=True):
                                 dtype=torch.float32, device=geom.device
                                 ).repeat_interleave(C) for o in orders])
     with torch.no_grad():
-        if ev["separable"]:
+        if ev["folded"]:
+            packed = ktiled.tiled_forward_folded(
+                orders, D, C, geom, ev["fold"], smp, lo, n,
+                passes=ev["passes"])
+        elif ev["separable"]:
             packed = ktiled.tiled_forward_sep(orders, D, C, geom, smp, lo, n,
                                               passes=ev["passes"])
         elif ev["moments"]:
@@ -3620,6 +3683,11 @@ def mode_kernel_numbers(ev, sides, plain=True):
             packed = ktiled.tiled_forward(orders, ev["period"], D, C, geom,
                                           smp, lo, n)
         ct = (2.0 / N) * w[:, None] * packed
+    cb = local = None
+    if ev["folded"]:
+        meta = formulas.folded_structure(orders, D)[0]
+        cb = ktiled.ct_beta_rows(meta, C, ct, smp)
+        local = ktiled.local_samples(smp, D)
     out = {}
     for kernel in sides:
         # Floats moved: each input the kernel reads once, its output once.
@@ -3640,6 +3708,10 @@ def mode_kernel_numbers(ev, sides, plain=True):
             plain_call = lambda: ktiled.tiled_forward_sep_plain(
                 orders, D, C, geom, smp, lo, n)
             floats = sum(t.numel() for t in (geom, smp, lo, n, packed))
+        elif kernel in FOLDED_KERNELS:
+            call, plain_call, floats = folded_calls(kernel, ev, lo, n, s_lo,
+                                                    s_n, ct, cb, local,
+                                                    packed)
         else:
             call = lambda: ktiled.tiled_backward_moments(
                 orders, D, C, geom, smp, ct, s_lo, s_n)
@@ -3653,6 +3725,9 @@ def mode_kernel_numbers(ev, sides, plain=True):
             bound = kernel_bound(pairs, floats, D, orders, C,
                                  ev["period"] is not None,
                                  kernel == "tiled_backward")
+        elif kernel in FOLDED_KERNELS:
+            bound = mode_bound(pairs, floats, D, orders, C,
+                               FOLDED_KERNELS[kernel], ev["passes"])
         else:
             kind = ("separable" if kernel == "tiled_forward_sep"
                     else "moments")
@@ -3660,6 +3735,22 @@ def mode_kernel_numbers(ev, sides, plain=True):
                                ev["passes"] if kind == "separable" else 3)
         out[kernel] = {"ms": ms, **bound, "share": bound["bound_ms"] / ms,
                        "kept_pairs": pairs}
+        if kernel in FOLDED_KERNELS and plain:
+            got = call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = plain_call()
+            torch.cuda.synchronize()
+            out[kernel]["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            ref64 = (plain_call(torch.float64)
+                     if kernel != "tiled_backward_hmm" else None)
+            err = folded_check(f"{kernel} at full width", got, ref, ref64,
+                               fwd_groups(orders, D, C)
+                               if kernel == "tiled_forward_folded"
+                               else bwd_groups(D, C))
+            out[kernel]["max_abs_err"] = err["max_abs"]
+            out[kernel]["err"] = err
+            del got, ref, ref64
         if kernel in ("tiled_forward_sep", "tiled_backward_moments") and \
                 plain:
             got = call()
@@ -3790,6 +3881,447 @@ def modes_times(dev):
          kernels=kernels)
 
 
+# ---------------------------------------------------------------- folded
+
+# A folded op or step against the classic one: two algorithms, held to the
+# JAX suite's limit for exactly this comparison (tests/test_binning_tiled.py
+# :441-446, rtol 2e-3 / atol 2e-4 max(1, |ref|)).
+FOLD_ATOL_REL = 2e-4
+# The folded kernels against their plain versions, where the general
+# limits fail: the expanded polynomials cancel, so the fp32
+# plain version itself misses a float64 evaluation of the same operands by
+# up to ~7e-5 of max|ref| (CPU, D = 3, tile 0.1275), and 3 TF32 passes keep
+# ~21 bits a product against fp32's 24 (8x).  Then the kernel's error
+# against the float64 evaluation may be at most this many times the plain
+# version's (plus the general atol): 4 bits lost, no more.
+FOLD_ERR_RATIO = 16.0
+PARTIAL = ("value", "laplacian")
+THREE = ("value", "derivative", "laplacian")
+# Kernel wrapper -> roofline.mode_bound kind.
+FOLDED_KERNELS = {"tiled_forward_folded": "folded",
+                  "tiled_backward_fdv": "folded_dvals",
+                  "tiled_backward_fvjp": "folded_vjp",
+                  "tiled_backward_hmm": "h_matmul"}
+# folded_slice's runs: (name, bench knobs, the kernels the step launches).
+FOLDED_RUNS = (
+    ("folded", {"BENCH_FOLDED": "1"},
+     {"tiled_forward_folded": True, "tiled_backward": True}),
+    ("folded_dvals", {"BENCH_FOLDED": "1", "BENCH_FDV": "1"},
+     {"tiled_forward_folded": True, "tiled_backward_fdv": True,
+      "tiled_backward": False}),
+    ("folded_vjp", {"BENCH_FOLDED": "1", "BENCH_FDV": "1",
+                    "BENCH_FVJP": "1"},
+     {"tiled_forward_folded": True, "tiled_backward_fvjp": True,
+      "tiled_backward": False}),
+    ("h_matmul", {"BENCH_HMM": "1"},
+     {"tiled_forward": True, "tiled_backward_hmm": True,
+      "tiled_backward": False}),
+)
+FOLDED_FLAGS = {"BENCH_FOLDED": "folded_values", "BENCH_FDV": "folded_dvals",
+                "BENCH_FVJP": "folded_vjp", "BENCH_HMM": "h_matmul"}
+
+
+def folded_check(what, got, ref, ref64, groups):
+    """A folded kernel against its plain version, per row group (``groups``
+    {name: row slice}): within the general limits (RTOL for the forward's
+    orders, GRAD_RTOL for the backward's rows; ATOL_REL) or, where
+    ``ref64`` (the plain version on float64 operands) is given, the
+    kernel's max error against it at most FOLD_ERR_RATIO times the plain
+    version's plus ATOL_REL, in units of max(1, max|ref|) of the group;
+    raises otherwise.  Returns the readings and the largest abs error."""
+    out, worst = {}, 0.0
+    for name, (rows, rtol) in groups.items():
+        g, r = got[rows], ref[rows]
+        if r.numel() == 0:
+            continue
+        scale = max(1.0, float(r.abs().max()))
+        diff = (g - r).abs()
+        within = not bool((diff > ATOL_REL * scale + rtol * r.abs()).any())
+        e = {"max_abs": float(diff.max()), "rel": float(diff.max()) / scale,
+             "within_general": within}
+        worst = max(worst, e["max_abs"])
+        if ref64 is not None:
+            e["kernel_vs_f64"] = float((g - ref64[rows]).abs().max()) / scale
+            e["plain_vs_f64"] = float((r - ref64[rows]).abs().max()) / scale
+            within = within or (e["kernel_vs_f64"] <= FOLD_ERR_RATIO
+                                * e["plain_vs_f64"] + ATOL_REL)
+        if not within:
+            raise AssertionError(f"{what} {name}: {e}")
+        out[name] = e
+    out["max_abs"] = worst
+    return out
+
+
+def fwd_groups(orders, D, C):
+    groups, k0 = {}, 0
+    for order in orders:
+        nu = formulas.n_unique(order, D)
+        groups[order] = (slice(k0 * C, (k0 + nu) * C), RTOL)
+        k0 += nu
+    return groups
+
+
+def bwd_groups(D, C):
+    tri = D * (D + 1) // 2
+    return {"means": (slice(0, D), GRAD_RTOL),
+            "conics": (slice(D, D + tri), GRAD_RTOL),
+            "values": (slice(D + tri, D + tri + C), GRAD_RTOL),
+            "vz": (slice(D + tri + C, None), GRAD_RTOL)}
+
+
+def folded_calls(kernel, ev, lo, n, s_lo, s_n, ct, cb, local, packed):
+    """(the kernel's call, its plain version's call on operands of a given
+    dtype, the floats it must move) of a folded-mode kernel on one
+    evaluation's operands (tiled_evaluations) and the step's cotangent."""
+    orders, D, C, p = ev["orders"], ev["D"], ev["C"], ev["passes"]
+    geom, smp, fold, foldw = ev["geom"], ev["smp"], ev["fold"], ev["foldw"]
+    tri = D * (D + 1) // 2
+    Ep = geom.shape[1]
+    size = lambda *ts: sum(t.numel() for t in ts if t is not None)
+    if kernel == "tiled_forward_folded":
+        return (lambda: ktiled.tiled_forward_folded(orders, D, C, geom, fold,
+                                                    smp, lo, n, passes=p),
+                lambda dt=torch.float32: ktiled.tiled_forward_folded_plain(
+                    orders, D, C, geom.to(dt), fold.to(dt), smp.to(dt), lo,
+                    n),
+                (1 + D + tri) * Ep + size(fold, smp, lo, n, packed))
+    if kernel == "tiled_backward_fdv":
+        return (lambda: ktiled.tiled_backward_fdv(
+                    orders, D, C, geom, local, ct, cb, s_lo, s_n, passes=p,
+                    h_matmul=ev["hmm"]),
+                lambda dt=torch.float32: ktiled.tiled_backward_plain(
+                    orders, None, D, C, geom.to(dt), local.to(dt), ct.to(dt),
+                    s_lo, s_n, cb=cb.to(dt)),
+                size(geom, local, ct, cb, s_lo, s_n) + (D + tri + C) * Ep)
+    if kernel == "tiled_backward_fvjp":
+        nsel = len(ktiled.fvjp_vz_groups(orders, D))
+        return (lambda: ktiled.tiled_backward_fvjp(
+                    orders, D, C, geom, fold, foldw, local, cb, s_lo, s_n,
+                    passes=p),
+                lambda dt=torch.float32: ktiled.tiled_backward_fvjp_plain(
+                    orders, D, C, geom.to(dt), fold.to(dt), foldw.to(dt),
+                    local.to(dt), cb.to(dt), s_lo, s_n),
+                size(geom, fold, foldw, local, cb, s_lo, s_n)
+                + (D + tri + C + nsel) * Ep)
+    return (lambda: ktiled.tiled_backward_hmm(orders, ev["period"], D, C,
+                                              geom, smp, ct, s_lo, s_n,
+                                              passes=p),
+            lambda dt=torch.float32: ktiled.tiled_backward_plain(
+                orders, ev["period"], D, C, geom.to(dt), smp.to(dt),
+                ct.to(dt), s_lo, s_n),
+            size(geom, smp, ct, s_lo, s_n) + (D + tri + C) * Ep)
+
+
+def phase_parity_folded(dev):
+    """The folded modes' kernels against their plain versions on small
+    seeded cases (D = 1, 2, 3 x C = 1, 4, 6 x three orders, four orders and
+    (value, laplacian); an open box with full-cover footprints; tiles
+    without samples or entries): the folded forward, the folded dvalues
+    (with and without h_matmul) and the folded VJP within the general
+    limits or FOLD_ERR_RATIO against float64; h_matmul's classic and
+    moment-form backwards within the general limits; the 1-pass
+    (fast-math) readings of each, outside the fp32 gate, the h_matmul and
+    folded-dvalues ones under ONE_PASS_SANITY; the folded VJP's rows
+    combined (fvjp_combine) against the classic backward on the same
+    operands at FOLD_ATOL_REL; pad and sentinel columns exactly zero; the
+    backwards twice, bitwise equal.  Then the op in each folded mode and
+    under h_matmul against the dense masked oracle, gradients twice and
+    bitwise equal, with the kernels each mode launched.  (The folded
+    dvalues are held as the folded forward and VJP are: their value rows
+    sum the same expansion, 1.5e-4 of max|ref| from the plain version at
+    D = 1, C = 4, four orders, 3,125 samples a tile.)"""
+    t_phase = time.perf_counter()
+    cases = [(1, 1, THREE), (1, 4, ORDERS), (1, 6, PARTIAL),
+             (2, 1, ORDERS), (2, 4, THREE), (2, 6, PARTIAL),
+             (3, 1, PARTIAL), (3, 4, THREE), (3, 6, ORDERS)]
+    cases = [(D, 0.03, C, o, False, False) for D, C, o in cases]
+    cases += [(2, 0.6, 4, THREE, False, True),    # full cover, open box
+              (2, 0.03, 4, ORDERS, True, False)]  # tiles without a side
+    one_pass = {}
+    for i, (D, sigma, C, orders, holes, open_domain) in enumerate(cases):
+        (m, v, covs, con), samples, g, cfg, state = wrap_free_case(
+            dev, 90 + i, D, sigma, C, holes, open_domain)
+        meta, n_mono, R, Rp = ktiled.folded_layout(orders, D, C)
+        _, _, geom, _, fold, foldw = ktiled.prepare_entries(
+            state, m, v, con, ktiled.BLOCK_E, cfg=cfg, folded=orders,
+            fold_meta=meta, folded_vjp=True)
+        mono = ktiled.prepare_samples(
+            state, samples, ktiled.BLOCK_N, cfg=cfg,
+            folded_deg=ktiled.folded_degree(orders))[0]
+        lo, n = ktiled.entry_ranges(state, mono.shape[1])
+        s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+        K = ktiled.total_unique(orders, D)
+        ct = torch.randn((K * C, mono.shape[1]), generator=g, device=dev)
+        ev = dict(orders=orders, D=D, C=C, passes=3, geom=geom, smp=mono,
+                  fold=fold, foldw=foldw, period=None, hmm=False)
+        cb = ktiled.ct_beta_rows(meta, C, ct, mono)
+        local = ktiled.local_samples(mono, D)
+        dead = dead_entries(geom, state)
+        res, ones = {}, {}
+        for kernel, groups in (
+                ("tiled_forward_folded", fwd_groups(orders, D, C)),
+                ("tiled_backward_fdv", bwd_groups(D, C)),
+                ("tiled_backward_fvjp", bwd_groups(D, C))):
+            for hmm in ((False, True) if kernel == "tiled_backward_fdv"
+                        else (False,)):
+                ev["hmm"] = hmm
+                call, plain_call, _ = folded_calls(
+                    kernel, ev, lo, n, s_lo, s_n, ct, cb, local, None)
+                got, again = call(), call()
+                ref = plain_call()
+                ref64 = plain_call(torch.float64)
+                torch.cuda.synchronize()
+                key = kernel + ("_hmm" if hmm else "")
+                res[key] = folded_check(f"{key} D={D} C={C}", got, ref,
+                                        ref64, groups)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{key} D={D}: two runs differ")
+                if kernel == "tiled_forward_folded":
+                    res[key]["pad_columns_zero"] = check_dead_rows(
+                        key, got, mono[-1] < 0)
+                else:
+                    res[key]["sentinel_columns_zero"] = check_dead_rows(
+                        key, got, dead)
+                if kernel == "tiled_backward_fvjp":
+                    classic = ktiled.tiled_backward_plain(
+                        orders, None, D, C, ktiled.base_rows(geom, D, C),
+                        local, ct, s_lo, s_n)
+                    res[key]["combined_vs_classic_err"] = err_fields(
+                        compare_rows(ktiled.fvjp_combine(orders, D, C, got,
+                                                         geom),
+                                     classic, D, C, atol_rel=FOLD_ATOL_REL))
+                ev["passes"] = 1
+                one = folded_calls(kernel, ev, lo, n, s_lo, s_n, ct, cb,
+                                   local, None)[0]()
+                ev["passes"] = 3
+                ones[key] = float((one - got).abs().max()) / max(
+                    float(got.abs().max()), 1e-30)
+                if kernel == "tiled_backward_fdv" and \
+                        ones[key] > ONE_PASS_SANITY:
+                    raise AssertionError(f"1-pass {key} D={D} C={C}: "
+                                         f"{ones[key]}")
+                del got, again, ref, ref64, one
+        # h_matmul in the classic backward (tile-local operands) and in the
+        # moment form.
+        base = ktiled.base_rows(geom, D, C)
+        ev_h = dict(ev, geom=base, smp=local, hmm=True)
+        call, plain_call, _ = folded_calls("tiled_backward_hmm", ev_h, lo, n,
+                                           s_lo, s_n, ct, None, None, None)
+        got = call()
+        res["tiled_backward_hmm"] = err_fields(compare_rows(
+            got, plain_call(), D, C))
+        if not torch.equal(call(), got):
+            raise AssertionError(f"h_matmul D={D}: two runs differ")
+        ev_h["passes"] = 1
+        one = folded_calls("tiled_backward_hmm", ev_h, lo, n, s_lo, s_n, ct,
+                           None, None, None)[0]()
+        ones["tiled_backward_hmm"] = float((one - got).abs().max()) / float(
+            got.abs().max())
+        sgeom = ktiled.prepare_entries(state, m, v, con, ktiled.BLOCK_E,
+                                       cfg=cfg, separable=True)[2]
+        smono = ktiled.prepare_samples(state, samples, ktiled.BLOCK_N,
+                                       cfg=cfg, separable=True)[0]
+        rows = ktiled.tiled_backward_moments(orders, D, C, sgeom, smono, ct,
+                                             s_lo, s_n, h_matmul=True)
+        res["tiled_backward_moments_hmm"] = err_fields(moment_errs(
+            rows, ktiled.tiled_backward_moments_plain(
+                orders, D, C, sgeom, smono, ct, s_lo, s_n), orders, D))
+        for key in ("tiled_backward_hmm",):
+            if ones[key] > ONE_PASS_SANITY:
+                raise AssertionError(f"1-pass {key} D={D}: {ones[key]}")
+        for key, e in ones.items():
+            one_pass[key] = max(one_pass.get(key, 0.0), e)
+        emit("parity_folded", D=D, sigma=sigma, C=C, orders=list(orders),
+             R=R, P=m.shape[0], N=samples.shape[0], holes=holes,
+             open_domain=open_domain, entries=int((~dead).sum()),
+             **tile_facts(state), err=res, one_pass_vs_three_pass=ones,
+             one_pass_label="outside the fp32 gate")
+        del geom, fold, foldw, mono, cb, ct
+
+    for D in (1, 2, 3):
+        gen = torch.Generator(device=dev).manual_seed(60 + D)
+        field = init_field(gen, 300, D, 3, sigma=0.05)
+        samples = 2.0 * torch.rand((2000, D), generator=gen, device=dev) - 1.0
+        with torch.no_grad():
+            m, v = field.means.detach(), field.values.detach()
+            cov, con = field.covariances(), field.conics()
+        cfg, plan = planned_config(
+            SamplerConfig(tile_size=0.25).with_dims(D), m, cov, samples)
+        if not plan["safe_unwrapped"]:
+            raise AssertionError(f"D={D}: no wrap-free certificate")
+        state = binning.build(cfg, m, cov, samples)
+        mask = binning.pair_mask_dense(cfg, state, samples, 300)
+
+        def loss_oracle(m_, v_, c_):
+            return sum((oracle.evaluate(o, m_, v_, c_, samples,
+                                        period=cfg.period,
+                                        pair_mask=mask) ** 2).sum()
+                       for o in ORDERS)
+
+        def grads(loss):
+            args = [a.clone().requires_grad_() for a in (m, v, con)]
+            return torch.autograd.grad(loss(*args), args)
+
+        ref = grads(loss_oracle)
+        refs = [oracle.evaluate(o, m, v, con, samples, period=cfg.period,
+                                pair_mask=mask) for o in ORDERS]
+        for name, env, expect in FOLDED_RUNS:
+            mcfg = dataclasses.replace(
+                cfg, **{FOLDED_FLAGS[k]: True for k in env})
+
+            def loss_modes(m_, v_, c_, mcfg=mcfg):
+                outs = sampling.sample_tiled_multi(
+                    ORDERS, mcfg, m_, v_, c_, samples, state, unwrapped=True)
+                return sum((o ** 2).sum() for o in outs)
+
+            reset_launches()
+            got = grads(loss_modes)
+            launched = read_launches()
+            if any(bool(launched[k]) != on for k, on in expect.items()):
+                raise AssertionError(f"{name} D={D} launched {launched}")
+            again = grads(loss_modes)
+            outs = sampling.sample_tiled_multi(ORDERS, mcfg, m, v, con,
+                                               samples, state, unwrapped=True)
+            atol = ATOL_REL if name == "h_matmul" else FOLD_ATOL_REL
+            err = {o: check_close(f"{name} vs oracle D={D} {o}", a, r, RTOL,
+                                  atol)[0]
+                   for o, a, r in zip(ORDERS, outs, refs)}
+            for pname, a, b, r in zip(("means", "values", "conics"), got,
+                                      again, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} D={D} d{pname}: two runs "
+                                         "differ")
+                err[f"d{pname}"] = check_close(
+                    f"{name} grads vs oracle D={D} d{pname}", a, r,
+                    GRAD_RTOL, atol)[0]
+            emit("parity_folded_oracle", D=D, P=300, N=2000, mode=name,
+                 launches=launched, max_abs_err=err, bitwise_repeatable=True)
+    emit("parity_folded_summary", one_pass_worst=one_pass,
+         seconds=time.perf_counter() - t_phase)
+    return one_pass
+
+
+def folded_workload(w, env):
+    """Workload ``w`` (bench's, planned once) with the folded knobs of
+    ``env`` set in its config; the chunked sample side is rebuilt where the
+    modes ask for another monomial operand."""
+    cfg = dataclasses.replace(
+        w.cfg, **{FOLDED_FLAGS[k]: v == "1" for k, v in env.items()})
+    sb = w.sb
+    if w.method == "chunked":
+        sb = sampling_chunked.chunk_samples(cfg, w.samples, w.plan,
+                                            cfg.block_n)
+    return w._replace(cfg=cfg, sb=sb)
+
+
+def phase_folded_slice(dev, steps=10):
+    """The folded modes and h_matmul on their path at full width: the D = 3
+    chunked bench step (tools.bench at BENCH_D=3: 100k x 1M, tile 0.2,
+    axis radii, ellipsoid cull, C = 4, three orders) classic, then (a)
+    BENCH_FOLDED=1, (b) + BENCH_FDV=1, (c) + BENCH_FVJP=1 and (d)
+    BENCH_HMM=1, one plan for all: ``steps`` warm steps each (host median
+    and range, busy ms, device items, peak bytes, launches: each step ran
+    the kernels its mode names), each kernel's CUDA-event ms on its own
+    operands beside kernels 1-2 of the classic step, the plain versions'
+    ms once (the folded forward and VJP also against float64), the
+    gradients against the classic step's at FOLD_ATOL_REL.  A step at all
+    four orders under (b) checks that the folded dvalues turned themselves
+    off (the beta-expanded cotangent is 4.4 GB, above CT_BETA_MAX_BYTES).
+    Then the D = 2 headline step classic, under (c) and under (d).
+    Returns (launches by path, kernel numbers by run)."""
+    launches, kernels = {}, {}
+    t_phase = time.perf_counter()
+    for D in (3, 2):
+        t0 = time.perf_counter()
+        _, base = modes_workload(dev, {}, D=D)
+        t_plan = time.perf_counter() - t0
+        # Each run's steps move the shared field: every run starts from the
+        # same parameters.
+        start = [p.detach().clone() for p in base.field.parameters()]
+
+        def restore():
+            with torch.no_grad():
+                for p, p0 in zip(base.field.parameters(), start):
+                    p.copy_(p0)
+
+        fields, base_grads, ev, launched = mode_step(
+            dev, f"d{D}_classic", base, (False, False), steps)
+        base_loss = fields["loss"]
+        fields["kernels"] = mode_kernel_numbers(
+            ev, ("tiled_forward", "tiled_backward"))
+        fields["seconds"]["plan"] = t_plan
+        kernels[f"d{D}_classic"] = fields["kernels"]
+        emit("folded_slice", **fields)
+        del ev
+        runs = FOLDED_RUNS if D == 3 else FOLDED_RUNS[2:]
+        for name, env, expect in runs:
+            restore()
+            w = folded_workload(base, env)
+            fields, grads, ev, launched = mode_step(
+                dev, f"d{D}_{name}", w, expect, steps)
+            # Each kernel timed (and its plain version, at D = 3) on the
+            # run that first launches it; at D = 2 the folded forward and
+            # dvalues on (c)'s operands (the same geom and cotangent).
+            sides = {"folded": ["tiled_forward_folded"],
+                     "folded_dvals": ["tiled_backward_fdv"],
+                     "folded_vjp": (["tiled_backward_fvjp"] if D == 3 else
+                                    ["tiled_forward_folded",
+                                     "tiled_backward_fdv",
+                                     "tiled_backward_fvjp"]),
+                     "h_matmul": ["tiled_backward_hmm"]}[name]
+            t0 = time.perf_counter()
+            fields["kernels"] = mode_kernel_numbers(ev, sides, plain=D == 3)
+            fields["seconds"]["kernels"] = time.perf_counter() - t0
+            fields["vs_classic"] = err_fields(
+                {pname: check_close(f"d{D} {name} vs classic d{pname}", a, b,
+                                    GRAD_RTOL, FOLD_ATOL_REL)
+                 for pname, a, b in zip(FIELD_PARAMS, grads, base_grads)})
+            fields["vs_classic"]["loss_rel"] = abs(
+                fields["loss"] - base_loss) / abs(base_loss)
+            kernels[f"d{D}_{name}"] = fields["kernels"]
+            launches[f"folded_d{D}_{name}"] = launched
+            emit("folded_slice", **fields)
+            del ev, w
+            torch.cuda.empty_cache()
+        if D == 3:
+            # Four orders: the folded dvalues turn themselves off.
+            w4 = folded_workload(base._replace(orders=ORDERS),
+                                 FOLDED_RUNS[1][1])
+            Np = ktiled._round_up(w4.samples.shape[0], ktiled.BLOCK_N)
+            beta = sampling.ct_beta_bytes(ORDERS, 3, 4, Np)
+            if beta <= ktiled.CT_BETA_MAX_BYTES:
+                raise AssertionError(f"four orders: the beta-expanded "
+                                     f"cotangent's {beta} bytes fit the gate")
+            restore()
+            reset_launches()
+            value, _ = bench.loss(w4)
+            value.backward()
+            torch.cuda.synchronize()
+            got = read_launches()
+            if not (got["tiled_forward_folded"] == 1
+                    and got["tiled_backward"] == 1
+                    and got["tiled_backward_fdv"] == 0):
+                raise AssertionError(f"four orders under BENCH_FDV=1 "
+                                     f"launched {got}")
+            emit("folded_slice", run="d3_folded_dvals_four_orders",
+                 launches=got, ct_beta_bytes=beta,
+                 ct_beta_max_bytes=ktiled.CT_BETA_MAX_BYTES,
+                 folded_dvals_off=True)
+            del w4, value
+        del base
+        torch.cuda.empty_cache()
+    emit("folded_slice_summary", seconds=time.perf_counter() - t_phase)
+    return launches, kernels
+
+
+def folded_times(dev):
+    """python3 chip_smoke.py --folded: the two folded phases alone."""
+    one_pass = phase_parity_folded(dev)
+    launches, kernels = phase_folded_slice(dev)
+    emit("folded_summary", one_pass_worst=one_pass, launches=launches,
+         kernels=kernels)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3799,7 +4331,8 @@ def main():
     modes = {"--tiled": tiled_times, "--dense": dense_times,
              "--agg": agg_times, "--segment": segment_times,
              "--chunked": chunked_times, "--sharded": sharded_times,
-             "--tools": phase_tools, "--modes": modes_times}
+             "--tools": phase_tools, "--modes": modes_times,
+             "--folded": folded_times}
     if sys.argv[1:]:
         for mode in sys.argv[1:]:
             modes[mode](dev)
@@ -3810,7 +4343,11 @@ def main():
         raise AssertionError(f"aggregation kernels spill: {agg_spills}")
     mode_spills = {k: b for k, b in build["spilling_kernels"].items()
                    if k.startswith(("tiled_forward_sep",
-                                    "tiled_backward_moments"))}
+                                    "tiled_backward_moments",
+                                    "tiled_forward_folded",
+                                    "tiled_backward_fdv",
+                                    "tiled_backward_fvjp",
+                                    "tiled_backward_kernel"))}
     if mode_spills:
         raise AssertionError(f"mode kernels spill: {mode_spills}")
     # The many-line parity phases first, the measured paths after them, so
@@ -3825,11 +4362,13 @@ def main():
     by_shape = phase_parity_paths(dev)
     phase_parity_chunked(dev)
     phase_parity_modes(dev)
+    phase_parity_folded(dev)
     slice_launches, k_fwd = phase_slice(dev)
     train_launches, k_bwd, k_seg, train_step = phase_train_step(dev)
     k_seg["d3_r8"], k_seg["d3_real"] = phase_segment(dev)
     chunked_launches, chunked, chunked_train_step = phase_chunked_slice(dev)
     modes_launches, k_modes = phase_modes_slice(dev)
+    folded_launches, k_folded = phase_folded_slice(dev)
     for n_orders, fields in chunked.items():
         by_shape[f"chunked_d3_{n_orders}_orders"] = {
             **fields["kernels"], "segment_sum": fields["segment_sum"]}
@@ -3854,7 +4393,7 @@ def main():
              "agg_step": agg_step_launches, "dynamics": dynamics_launches,
              "sharded": sharded_launches,
              "sharded_two_ranks": two_rank_launches, **chunked_launches,
-             **modes_launches, **tool_launches}
+             **modes_launches, **folded_launches, **tool_launches}
     # name: (source, the TPU kernel it replaces, its main path, numbers)
     kernels = {
         "tiled_forward": ("tiled_forward.cu", "dgs_tpu/kernels/tiled.py:727",
@@ -3884,6 +4423,23 @@ def main():
             "tiled_backward_moments.cu", "dgs_tpu/kernels/tiled.py:1212",
             "modes_sep_moments",
             k_modes["sep_moments"]["tiled_backward_moments"]),
+        # Kernels 1-2's folded branches and h_matmul, each on the D = 3
+        # chunked bench step of the run that first launches it.
+        "tiled_forward_folded": (
+            "tiled_forward_folded.cu", "dgs_tpu/kernels/tiled.py:616",
+            "folded_d3_folded", k_folded["d3_folded"]["tiled_forward_folded"]),
+        "tiled_backward_fdv": (
+            "tiled_backward_folded.cu", "dgs_tpu/kernels/tiled.py:1117",
+            "folded_d3_folded_dvals",
+            k_folded["d3_folded_dvals"]["tiled_backward_fdv"]),
+        "tiled_backward_fvjp": (
+            "tiled_backward_folded.cu", "dgs_tpu/kernels/tiled.py:932",
+            "folded_d3_folded_vjp",
+            k_folded["d3_folded_vjp"]["tiled_backward_fvjp"]),
+        "tiled_backward_hmm": (
+            "tiled_backward_hmm.cu", "dgs_tpu/kernels/tiled.py:1098",
+            "folded_d3_h_matmul",
+            k_folded["d3_h_matmul"]["tiled_backward_hmm"]),
         # Not a TPU kernel: the reference's segment-sum is an XLA op.
         "segment_sum": ("segment_sum.cu", "dgs_tpu/ops/sampling.py:409",
                         "train_step", k_seg),

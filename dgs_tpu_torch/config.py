@@ -2,12 +2,10 @@
 
 Field for field the same frozen dataclass as ``dgs_tpu.config`` (same names,
 same defaults, same periodic tile snap), so one configuration drives both
-packages.  The kernel modes that the port has kernels for (the separable
-forward, the moment-form backward and ``fast_math_dots``, which turns both on
-at wrap-free D >= 3) are read as dgs_tpu reads them.  The folded modes and
-``h_matmul`` are kept for the shared field list but must stay unset: the port
-has no such kernels yet, and running the classic math under a flag that asks
-for another kernel would be a silent substitution.
+packages.  Every kernel mode of dgs_tpu's kernels 1-2 has a kernel in the
+port (the separable forward, the moment-form backward, the folded forward,
+the folded dvalues, the folded VJP, h_matmul, and ``fast_math_dots``),
+and ops.sampling.kernel_modes resolves the flags as dgs_tpu's code does.
 """
 
 from __future__ import annotations
@@ -29,12 +27,6 @@ def tri_index(D: int, i: int, j: int) -> int:
     return u * D - u * (u - 1) // 2 + (v - u)
 
 
-# Flags that select kernel modes of dgs_tpu that the port has not ported;
-# the port raises on any of them rather than run the classic kernel in their
-# place.
-TPU_ONLY_FLAGS = ("folded_values", "folded_dvals", "folded_vjp", "h_matmul")
-
-
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
     """Static configuration of the sampling engine (see dgs_tpu.config for
@@ -43,18 +35,34 @@ class SamplerConfig:
     The port reads: ``period``, ``lower``, ``upper_bounds``, ``tile_size``,
     ``radius_sigma``, ``eig_floor``, ``max_tiles_per_gaussian``,
     ``entry_capacity_factor``, ``unwrapped_kernels``, ``axis_radii``,
-    ``ellip_cull``, ``separable_kernels``, ``moment_backward`` and
-    ``fast_math_dots`` (ops.sampling.kernel_modes resolves the last three as
-    dgs_tpu does; ``fast_math_dots`` also runs the separable forward's
-    contraction at one TF32 pass instead of three).  On the H100 these
-    modes are measured slower than the classic kernels: the D = 3 chunked
-    bench step is busy 33.4-33.7 ms under ``fast_math_dots`` and 34.0-34.3
-    ms under ``separable_kernels`` with ``moment_backward``, against
-    22.4-22.7 ms classic (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
-    5), and the one-pass forward moves the gradients by up to 0.43% of
-    their largest value.
-    ``fast_math_dots`` keeps dgs_tpu's automatic default all the same: at
-    wrap-free D >= 3 it turns both modes on.
+    ``ellip_cull`` and the kernel-mode flags, which
+    ops.sampling.kernel_modes resolves as dgs_tpu's code does:
+
+      ``separable_kernels`` / ``moment_backward``: the separable forward /
+      the moment-form backward, wrap-free only; None is the automatic
+      default, on exactly under ``fast_math_dots`` at wrap-free D >= 3.
+      ``folded_values``: the folded forward (one tensor-core contraction
+      Z = fold G a pair block), wrap-free only and off under either mode
+      above; its backward is the classic one on tile-local operands unless
+      ``folded_dvals`` is set (None is off, as in dgs_tpu's code): then the
+      value gradients are the folded contraction Zd = cb G, where the
+      beta-expanded cotangent (R * Np * 4 bytes) fits
+      kernels.tiled.CT_BETA_MAX_BYTES.  ``folded_vjp`` (needs the folded
+      dvalues, else turns off silently): the whole backward from Zd, S0 and
+      W_l contractions, no h chains.  ``h_matmul``: h_k = g_k . values as a
+      tensor-core contraction in every backward that builds h.
+      ``fast_math_dots``: every such contraction at one TF32 pass instead
+      of three (outside the fp32 gate).
+
+    What the modes cost on the card (NVIDIA H100 80GB HBM3, 700.00 W;
+    PERF.md section 5): every one is slower than the classic kernels.  The
+    D = 3 chunked bench step is busy 22.4-22.7 ms classic, 33.4-33.7 ms
+    under ``fast_math_dots``, 34.0-34.3 ms under ``separable_kernels``
+    with ``moment_backward``, 71.0 ms under ``folded_values``, 116.3 ms
+    with ``folded_dvals``, 375.2 ms with ``folded_vjp`` too, and 26.2 ms
+    under ``h_matmul``; peak memory 0.9 GB classic, 5.8, 7.5 and 15.6 GB
+    under the three folded modes.  One TF32 pass (``fast_math_dots``)
+    moves the folded forward by up to 3.6% of its largest output.
 
     Accepted, not read: the block sizes (``block_n``, ``block_p``,
     ``block_n_bwd``, ``block_p_bwd``), the work-list capacities
@@ -62,8 +70,7 @@ class SamplerConfig:
     ``work_span_bwd``, any positive value).  They size and pack the TPU
     kernels' grids and work lists, which change only how the TPU schedules
     the same pairs; the port's kernels walk each block's range themselves
-    and need none of them.  ``folded_values``, ``folded_dvals``,
-    ``folded_vjp`` and ``h_matmul`` must stay unset (TPU_ONLY_FLAGS).
+    and need none of them.
     """
 
     period: Optional[float] = 2.0
@@ -96,12 +103,6 @@ class SamplerConfig:
     work_span_bwd: int = 1
 
     def __post_init__(self):
-        on = [f for f in TPU_ONLY_FLAGS if getattr(self, f)]
-        if on:
-            raise NotImplementedError(
-                f"SamplerConfig sets {', '.join(on)}: kernel modes of "
-                "dgs_tpu that dgs_tpu_torch does not port yet (ROADMAP.md); "
-                "leave them unset")
         for f in ("work_span_fwd", "work_span_bwd"):
             if getattr(self, f) < 1:
                 raise ValueError(f"SamplerConfig.{f} must be positive")

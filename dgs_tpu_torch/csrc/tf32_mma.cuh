@@ -1,6 +1,8 @@
 // Warp-level TF32 tensor-core contraction with fp32 accumulation, for the
 // kernel modes of the tiled kernels (tiled_forward_sep.cu,
-// tiled_backward_moments.cu): mma.sync.aligned.m16n8k8 on sm_90a.
+// tiled_backward_moments.cu, tiled_forward_folded.cu,
+// tiled_backward_folded.cu, and h_matmul in the backwards that build h):
+// mma.sync.aligned.m16n8k8 on sm_90a.
 //
 // Precision.  A TF32 operand keeps 10 explicit mantissa bits.  One pass
 // multiplies the operands rounded to TF32 (hi * hi): about 3 decimal digits,
@@ -75,6 +77,13 @@ DGS_HD Tf32<PASSES> tf32_operand(float x) {
   return r;
 }
 
+// The split with the passes chosen at run time (``three``: 3 passes, else
+// 1 with lo = 0), for kernels that take the passes as an argument.
+DGS_HD void tf32_split_rt(float x, bool three, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = three ? tf32_round(x - hi) : 0.0f;
+}
+
 // The sum of products of one fp32 dot of depth n, computed as the
 // tensor-core contraction does per product: lo * hi + hi * lo + hi * hi
 // (3 passes) or hi * hi (1 pass), accumulated in fp32 in that order.  A
@@ -143,6 +152,82 @@ __device__ __forceinline__ void mma_passes(float (&c)[4],
     mma_tf32(c, a_hi, b_lo);
   }
   mma_tf32(c, a_hi, b_hi);
+}
+
+// The same with the passes chosen at run time (uniform across the warp).
+__device__ __forceinline__ void mma_passes_rt(float (&c)[4],
+                                              const float (&a_hi)[4],
+                                              const float (&a_lo)[4],
+                                              const float (&b_hi)[2],
+                                              const float (&b_lo)[2],
+                                              bool three) {
+  if (three) {
+    mma_tf32(c, a_lo, b_hi);
+    mma_tf32(c, a_hi, b_lo);
+  }
+  mma_tf32(c, a_hi, b_hi);
+}
+
+// h_matmul: the folded cotangents of a block of 8 staged samples and the
+// warp's 32 entries (a lane each), h_k[e][j] = sum_c ct[k][c](j) v_c(e), as
+// TF32 tensor-core contractions over the channels (depth CB <= 4 padded to
+// k = 8 with zeros): entries the M side (two m16 tiles), samples the N side
+// (one n8 tile), channels the K side.  ``rec`` is the warp's staged
+// backward records as floats (tiled_layout.cuh: ct[k][c] of staged sample j
+// is float k * CB + c of vectors 1.. of row j, vector v of row j at float4
+// index v * 32 + j); va_* are the A fragments of the values, [m16 tile]
+// {v_t(16 mt + g), v_t(16 mt + g + 8), 0, 0} split for the passes (zero
+// from channel CB on).  Writes h_k of sample j0 + j, entry e to
+// hb[(k * 8 + j) * kHStride + e].  Every lane of the warp takes part.
+constexpr int kHStride = 36;   // conflict-free fragment stores
+
+template <int K, int CB>
+__device__ __forceinline__ void h_matmul_block(const float* rec, int j0,
+                                               const float (&va_hi)[2][4],
+                                               const float (&va_lo)[2][4],
+                                               bool three, float* hb) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll 1
+  for (int k = 0; k < K; ++k) {
+    const int i = k * CB + t;
+    const float x =
+        t < CB ? rec[4 * ((1 + i / 4) * 32 + j0 + g) + i % 4] : 0.0f;
+    float b_hi[2], b_lo[2];
+    tf32_split_rt(x, three, b_hi[0], b_lo[0]);
+    b_hi[1] = b_lo[1] = 0.0f;
+    float* h = hb + k * 8 * kHStride;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_passes_rt(c, va_hi[mt], va_lo[mt], b_hi, b_lo, three);
+      h[2 * t * kHStride + 16 * mt + g] = c[0];
+      h[(2 * t + 1) * kHStride + 16 * mt + g] = c[1];
+      h[2 * t * kHStride + 16 * mt + g + 8] = c[2];
+      h[(2 * t + 1) * kHStride + 16 * mt + g + 8] = c[3];
+    }
+  }
+}
+
+// The values' A fragments of h_matmul_block for the warp's entries
+// e_base + 0..31 and the channel pass c0: v_c of the geom row vrow0 + c.
+template <int CB>
+__device__ __forceinline__ void h_matmul_values(const float* geom,
+                                                long long Ep, long long vrow0,
+                                                int C, int c0,
+                                                long long e_base, bool three,
+                                                float (&va_hi)[2][4],
+                                                float (&va_lo)[2][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = (r < 2 && t < CB && c0 + t < C)
+                          ? geom[(vrow0 + c0 + t) * Ep + e_base + 16 * mt +
+                                 g + 8 * r]
+                          : 0.0f;
+      tf32_split_rt(x, three, va_hi[mt][r], va_lo[mt][r]);
+    }
 }
 #endif
 

@@ -51,6 +51,13 @@
 // keeps the widest instantiation (D = 3, all four orders) within 255
 // registers.  A simple first version.
 //
+// h_matmul (the HMM instantiations): per k-step of 8 samples the warp
+// computes h_k for its entries as TF32 tensor-core contractions over the
+// pass's channels (tf32_mma.cuh h_matmul_block, 3 passes or 1) into a block
+// of shared memory that the lanes read, in place of the K x CB FMAs; the
+// dvalues FMAs stay.  The h block takes K x 8 x 36 floats a warp, so these
+// instantiations ask for more than 48 KB of dynamic shared memory at K = 20.
+//
 // Build: with the other sources into libdgs_kernels.so
 // (dgs_tpu_torch/kernels/_build.py).  Never with --use_fast_math.
 #include <cuda_runtime.h>
@@ -80,34 +87,51 @@ DGS_HD constexpr int n_moment_rows(int D, int mask) {
          ((mask & dgs::kThird) ? dgs::tri_size(D) : 0);
 }
 
-template <int D, int MASK, int CB>
+template <int D, int MASK, int CB, bool HMM>
 struct Staged {
   float4 rec[dgs::bwd_record_vecs(dgs::total_unique(D, MASK), CB) * kWarp];
   float b_hi[8 * s0_tiles(D)][kBStride];   // monomials of the staged samples
   float b_lo[8 * s0_tiles(D)][kBStride];
   float v[8][kVStride];   // one k-step's A operand, G S0 [sample][entry]
+  // h_matmul: h_k of one k-step's 8 samples (tf32_mma.cuh h_matmul_block),
+  // and the lanes' M_W, M_hl and M_Y rows [row][lane]
+  float h[HMM ? dgs::total_unique(D, MASK) * 8 * dgs::kHStride : 4];
+  float acc[HMM ? D * (1 + D) + 2 * dgs::tri_size(D) : 1][kWarp];
+};
+
+// The pair's h_k: from the lane's registers, or under h_matmul from the
+// shared h block at each use (volatile, so that no copy of the K values is
+// held in registers: held, the widest instantiations spilled).
+struct HRegs {
+  const float* h;
+  __device__ __forceinline__ float operator()(int k) const { return h[k]; }
+};
+struct HBlock {
+  const volatile float* col;   // hb + (j - j0) * kHStride + lane
+  __device__ __forceinline__ float operator()(int k) const {
+    return col[k * 8 * dgs::kHStride];
+  }
 };
 
 // The fused VJP's per-pair accumulators of one kept pair (the quantities of
 // pair_math.cuh pair_vjp, without their closing terms): GS = sum_k h_k w_k
 // = G S0, W_l and Y_t as there; hl is h's laplacian block.
-template <int D, int MASK>
+template <int D, int MASK, class H>
 __device__ __forceinline__ void pair_accumulators(
     const float (&a)[D], const float (&q)[dgs::tri_size(D)],
-    const float (&w)[dgs::total_unique(D, MASK)],
-    const float (&h)[dgs::total_unique(D, MASK)], float& GS, float (&W)[D],
-    float (&Y)[dgs::tri_size(D)]) {
+    const float (&w)[dgs::total_unique(D, MASK)], const H& h, float& GS,
+    float (&W)[D], float (&Y)[dgs::tri_size(D)]) {
   constexpr int TRI = dgs::tri_size(D);
   constexpr int K = dgs::total_unique(D, MASK);
   constexpr int kd = (MASK & dgs::kValue) ? 1 : 0;
   constexpr int kl = kd + ((MASK & dgs::kDerivative) ? D : 0);
   constexpr int kt = kl + ((MASK & dgs::kLaplacian) ? TRI : 0);
-  GS = h[0] * w[0];
+  GS = h(0) * w[0];
 #pragma unroll
-  for (int k = 1; k < K; ++k) GS += h[k] * w[k];
+  for (int k = 1; k < K; ++k) GS += h(k) * w[k];
 #pragma unroll
   for (int l = 0; l < D; ++l)
-    W[l] = (MASK & dgs::kDerivative) ? h[kd + l] : 0.0f;
+    W[l] = (MASK & dgs::kDerivative) ? h(kd + l) : 0.0f;
   if (MASK & dgs::kLaplacian) {
     int k = kl;
 #pragma unroll
@@ -115,10 +139,10 @@ __device__ __forceinline__ void pair_accumulators(
 #pragma unroll
       for (int j = i; j < D; ++j, ++k) {
         if (i == j) {
-          W[i] += (h[k] + h[k]) * a[i];
+          W[i] += (h(k) + h(k)) * a[i];
         } else {
-          W[i] += h[k] * a[j];
-          W[j] += h[k] * a[i];
+          W[i] += h(k) * a[j];
+          W[j] += h(k) * a[i];
         }
       }
   }
@@ -135,17 +159,17 @@ __device__ __forceinline__ void pair_accumulators(
           const int tij = dgs::tri_index(D, i, j),
                     til = dgs::tri_index(D, i, l),
                     tjl = dgs::tri_index(D, j, l);
-          W[i] -= h[k] * q[tjl];
-          W[j] -= h[k] * q[til];
-          W[l] -= h[k] * q[tij];
-          Y[tij] += h[k] * a[l];
-          Y[til] += h[k] * a[j];
-          Y[tjl] += h[k] * a[i];
+          W[i] -= h(k) * q[tjl];
+          W[j] -= h(k) * q[til];
+          W[l] -= h(k) * q[tij];
+          Y[tij] += h(k) * a[l];
+          Y[til] += h(k) * a[j];
+          Y[tjl] += h(k) * a[i];
         }
   }
 }
 
-template <int D, int MASK, int CB>
+template <int D, int MASK, int CB, bool HMM>
 __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kernel(
     const float* __restrict__ geom,  // (>= 1 + D + tri + C, Ep) tile-local
     long long Ep, int C,
@@ -154,7 +178,7 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
     const float* __restrict__ ct,    // (K * C, Np) cotangent
     const int* __restrict__ s_lo,    // (Ep / 32,) first sample of each range
     const int* __restrict__ s_n,     // (Ep / 32,) length of the range
-    OrderRows rows,
+    OrderRows rows, bool three,      // h_matmul's passes: 3, else 1
     float* __restrict__ out) {       // (Ep, n_rows + C), entry-major
   constexpr int TRI = dgs::tri_size(D);
   constexpr int K = dgs::total_unique(D, MASK);
@@ -166,9 +190,10 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
   // The warps' staged blocks, in dynamic shared memory (launch_one passes
   // kWarps of them).
   extern __shared__ float s_dt[];
-  static_assert(sizeof(Staged<D, MASK, CB>) % 16 == 0, "whole 16-byte vectors a warp");
-  Staged<D, MASK, CB>& sh =
-      reinterpret_cast<Staged<D, MASK, CB>*>(s_dt)[threadIdx.x / kWarp];
+  static_assert(sizeof(Staged<D, MASK, CB, HMM>) % 16 == 0,
+                "whole 16-byte vectors a warp");
+  Staged<D, MASK, CB, HMM>& sh =
+      reinterpret_cast<Staged<D, MASK, CB, HMM>*>(s_dt)[threadIdx.x / kWarp];
   const int lane = threadIdx.x % kWarp, g = lane / 4, t = lane % 4;
 
   // Every lane owns a real column (Ep == 32 * ranges; pads have tile -1.0).
@@ -187,7 +212,19 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
 
   // Accumulator fragments of M_S0 [m16 tile][n8 tile]; the lane's own
   // M_W_l [l][m], M_hl and M_Y rows.
-  float cS[2][NT][4], mw[D][MP], hl[TRI], Ysum[TRI];
+  // Under HMM the lane's M_W, M_hl and M_Y rows live in its column of
+  // sh.acc (the h block's registers made the widest instantiations spill).
+  float cS[2][NT][4], mw_r[HMM ? 1 : D][MP], hl_r[HMM ? 1 : TRI],
+      Ysum_r[HMM ? 1 : TRI];
+  auto mw = [&](int l, int m) -> float& {
+    return HMM ? sh.acc[l * MP + m][lane] : mw_r[HMM ? 0 : l][m];
+  };
+  auto hl = [&](int u) -> float& {
+    return HMM ? sh.acc[D * MP + u][lane] : hl_r[HMM ? 0 : u];
+  };
+  auto Ysum = [&](int u) -> float& {
+    return HMM ? sh.acc[D * MP + TRI + u][lane] : Ysum_r[HMM ? 0 : u];
+  };
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -197,9 +234,9 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
 #pragma unroll
   for (int l = 0; l < D; ++l)
 #pragma unroll
-    for (int m = 0; m < MP; ++m) mw[l][m] = 0.0f;
+    for (int m = 0; m < MP; ++m) mw(l, m) = 0.0f;
 #pragma unroll
-  for (int u = 0; u < TRI; ++u) hl[u] = Ysum[u] = 0.0f;
+  for (int u = 0; u < TRI; ++u) hl(u) = Ysum(u) = 0.0f;
 
   for (int c0 = 0; c0 < C; c0 += CB) {
     float v[CB], dv[CB];
@@ -247,6 +284,17 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
       __syncwarp();
 
       for (int ks = 0; 8 * ks < n; ++ks) {
+        if (HMM) {
+          // The values' fragments are reloaded for each block of 8 samples
+          // (from L1): held across the sweep they made the widest
+          // instantiations spill.
+          float va_hi[2][4], va_lo[2][4];
+          dgs::h_matmul_values<CB>(geom, Ep, 1 + D + TRI, C, c0, col - lane,
+                                   three, va_hi, va_lo);
+          dgs::h_matmul_block<K, CB>(reinterpret_cast<const float*>(sh.rec),
+                                     8 * ks, va_hi, va_lo, three, sh.h);
+          __syncwarp();
+        }
 #pragma unroll 1
         for (int jj = 0; jj < 8; ++jj) {
           const int j = 8 * ks + jj;
@@ -254,14 +302,15 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
           const float4 head = sh.rec[j];
           if (j < n && head.x == tile) {
             const float xs[3] = {head.y, head.z, head.w};
-            float X[D], a[D], q[TRI], wk[K], h[K], W[D], Y[TRI], GS;
+            float X[D], a[D], q[TRI], wk[K], h[HMM ? 1 : K], W[D], Y[TRI],
+                GS;
 #pragma unroll
             for (int d = 0; d < D; ++d) X[d] = mu[d] - xs[d];
             const float G = dgs::pair_gauss<D>(X, con, a);
             dgs::pair_polys<D, MASK>(con, a, q);
             dgs::component_weights<D, MASK>(con, a, q, G, wk);
 #pragma unroll
-            for (int k = 0; k < K; ++k) h[k] = 0.0f;
+            for (int k = 0; k < (HMM ? 1 : K); ++k) h[k] = 0.0f;
 #pragma unroll
             for (int gv = 0; gv < NV - 1; ++gv) {
               const float4 c4 = sh.rec[(1 + gv) * kWarp + j];
@@ -270,32 +319,39 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
               for (int u = 0; u < 4; ++u) {
                 const int idx = 4 * gv + u;
                 if (idx < K * CB) {
-                  h[idx / CB] = fmaf(ctv[u], v[idx % CB], h[idx / CB]);
+                  if (!HMM)
+                    h[idx / CB] = fmaf(ctv[u], v[idx % CB], h[idx / CB]);
                   dv[idx % CB] = fmaf(ctv[u], wk[idx / CB], dv[idx % CB]);
                 }
               }
             }
-            pair_accumulators<D, MASK>(a, q, wk, h, GS, W, Y);
+            const HBlock hb{sh.h + jj * dgs::kHStride + lane};
+            const HRegs hr{h};
+            if (HMM)
+              pair_accumulators<D, MASK>(a, q, wk, hb, GS, W, Y);
+            else
+              pair_accumulators<D, MASK>(a, q, wk, hr, GS, W, Y);
             gs = GS;
             if (has_w(MASK)) {
 #pragma unroll
               for (int l = 0; l < D; ++l) {
                 const float gw = G * W[l];
-                mw[l][0] += gw;
+                mw(l, 0) += gw;
 #pragma unroll
                 for (int d = 0; d < D; ++d)
-                  mw[l][1 + d] = fmaf(gw, xs[d], mw[l][1 + d]);
+                  mw(l, 1 + d) = fmaf(gw, xs[d], mw(l, 1 + d));
               }
             }
             if (MASK & dgs::kLaplacian) {
               constexpr int kl = ((MASK & dgs::kValue) ? 1 : 0) +
                                  ((MASK & dgs::kDerivative) ? D : 0);
 #pragma unroll
-              for (int u = 0; u < TRI; ++u) hl[u] = fmaf(G, h[kl + u], hl[u]);
+              for (int u = 0; u < TRI; ++u)
+                hl(u) = fmaf(G, HMM ? hb(kl + u) : hr(kl + u), hl(u));
             }
             if (MASK & dgs::kThird) {
 #pragma unroll
-              for (int u = 0; u < TRI; ++u) Ysum[u] = fmaf(G, Y[u], Ysum[u]);
+              for (int u = 0; u < TRI; ++u) Ysum(u) = fmaf(G, Y[u], Ysum(u));
             }
           }
           sh.v[jj][lane] = gs;
@@ -339,15 +395,15 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
 #pragma unroll
     for (int l = 0; l < D; ++l)
 #pragma unroll
-      for (int m = 0; m < MP; ++m) rec[MR + l * MP + m] = mw[l][m];
+      for (int m = 0; m < MP; ++m) rec[MR + l * MP + m] = mw(l, m);
   }
   if (MASK & dgs::kLaplacian) {
 #pragma unroll
-    for (int u = 0; u < TRI; ++u) rec[ROW_HL + u] = hl[u];
+    for (int u = 0; u < TRI; ++u) rec[ROW_HL + u] = hl(u);
   }
   if (MASK & dgs::kThird) {
 #pragma unroll
-    for (int u = 0; u < TRI; ++u) rec[ROW_Y + u] = Ysum[u];
+    for (int u = 0; u < TRI; ++u) rec[ROW_Y + u] = Ysum(u);
   }
   const long long e_base = w * kWarp;
 #pragma unroll
@@ -362,29 +418,39 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
     }
 }
 
-template <int D, int MASK, int CB>
+template <int D, int MASK, int CB, bool HMM>
 cudaError_t launch_one(const float* geom, long long Ep, int C,
                        const float* mono, long long Np, const float* ct,
                        const int* s_lo, const int* s_n, int n_ranges,
-                       OrderRows rows, float* out, cudaStream_t stream) {
+                       OrderRows rows, bool three, float* out,
+                       cudaStream_t stream) {
   const dim3 grid((n_ranges + kWarps - 1) / kWarps), block(kWarps * kWarp);
-  constexpr size_t bytes = sizeof(Staged<D, MASK, CB>) * kWarps;
-  static_assert(bytes <= 48 * 1024, "above the default shared-memory limit");
-  tiled_backward_moments_kernel<D, MASK, CB><<<grid, block, bytes, stream>>>(
-      geom, Ep, C, mono, Np, ct, s_lo, s_n, rows, out);
+  constexpr size_t bytes = sizeof(Staged<D, MASK, CB, HMM>) * kWarps;
+  static_assert(HMM || bytes <= 48 * 1024,
+                "above the default shared-memory limit");
+  static_assert(bytes <= 227 * 1024, "above the shared memory of an SM");
+  auto* kernel = tiled_backward_moments_kernel<D, MASK, CB, HMM>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, block, bytes, stream>>>(geom, Ep, C, mono, Np, ct, s_lo,
+                                         s_n, rows, three, out);
   return cudaGetLastError();
 }
 
-template <int D, int CB>
+template <int D, int CB, bool HMM>
 cudaError_t launch(int mask, const float* geom, long long Ep, int C,
                    const float* mono, long long Np, const float* ct,
                    const int* s_lo, const int* s_n, int n_ranges,
-                   OrderRows rows, float* out, cudaStream_t stream) {
+                   OrderRows rows, bool three, float* out,
+                   cudaStream_t stream) {
   switch (mask) {
-#define DGS_CASE(M)                                                     \
-  case M:                                                               \
-    return launch_one<D, M, CB>(geom, Ep, C, mono, Np, ct, s_lo, s_n,   \
-                                n_ranges, rows, out, stream);
+#define DGS_CASE(M)                                                        \
+  case M:                                                                  \
+    return launch_one<D, M, CB, HMM>(geom, Ep, C, mono, Np, ct, s_lo, s_n, \
+                                     n_ranges, rows, three, out, stream);
     DGS_CASE(1) DGS_CASE(2) DGS_CASE(3) DGS_CASE(4) DGS_CASE(5)
     DGS_CASE(6) DGS_CASE(7) DGS_CASE(8) DGS_CASE(9) DGS_CASE(10)
     DGS_CASE(11) DGS_CASE(12) DGS_CASE(13) DGS_CASE(14) DGS_CASE(15)
@@ -392,6 +458,37 @@ cudaError_t launch(int mask, const float* geom, long long Ep, int C,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The launches of both C entries.
+template <bool HMM>
+int launch_moments(const void* geom, int Ep, int C, const void* mono, int Np,
+                   const void* ct, const void* s_lo, const void* s_n,
+                   int n_ranges, int D, int mask, OrderRows rows, bool three,
+                   void* out, void* stream) {
+  if ((long long)n_ranges * kWarp != Ep || C < 1)
+    return (int)cudaErrorInvalidValue;
+  const auto* g = static_cast<const float*>(geom);
+  const auto* m = static_cast<const float*>(mono);
+  const auto* c = static_cast<const float*>(ct);
+  const auto* lo = static_cast<const int*>(s_lo);
+  const auto* n = static_cast<const int*>(s_n);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int cb = (D == 2 && C <= 2) ? C : 4;
+#define DGS_LAUNCH(DD, CB)                                                 \
+  launch<DD, CB, HMM>(mask, g, Ep, C, m, Np, c, lo, n, n_ranges, rows,     \
+                      three, o, st)
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 1)
+    err = DGS_LAUNCH(1, 4);
+  else if (D == 2)
+    err = cb == 1 ? DGS_LAUNCH(2, 1) : cb == 2 ? DGS_LAUNCH(2, 2)
+                                               : DGS_LAUNCH(2, 4);
+  else if (D == 3)
+    err = DGS_LAUNCH(3, 4);
+#undef DGS_LAUNCH
+  return (int)err;
 }
 
 }  // namespace
@@ -416,29 +513,26 @@ int dgs_tiled_backward_moments(const void* geom, int Ep, int C,
                                int n_ranges, int D, int mask, int r_value,
                                int r_derivative, int r_laplacian, int r_third,
                                void* out, void* stream) {
-  if ((long long)n_ranges * kWarp != Ep || C < 1)
-    return (int)cudaErrorInvalidValue;
-  const OrderRows rows{r_value, r_derivative, r_laplacian, r_third};
-  const auto* g = static_cast<const float*>(geom);
-  const auto* m = static_cast<const float*>(mono);
-  const auto* c = static_cast<const float*>(ct);
-  const auto* lo = static_cast<const int*>(s_lo);
-  const auto* n = static_cast<const int*>(s_n);
-  auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int cb = (D == 2 && C <= 2) ? C : 4;
-#define DGS_LAUNCH(DD, CB) \
-  launch<DD, CB>(mask, g, Ep, C, m, Np, c, lo, n, n_ranges, rows, o, st)
-  cudaError_t err = cudaErrorInvalidValue;
-  if (D == 1)
-    err = DGS_LAUNCH(1, 4);
-  else if (D == 2)
-    err = cb == 1 ? DGS_LAUNCH(2, 1) : cb == 2 ? DGS_LAUNCH(2, 2)
-                                               : DGS_LAUNCH(2, 4);
-  else if (D == 3)
-    err = DGS_LAUNCH(3, 4);
-#undef DGS_LAUNCH
-  return (int)err;
+  return launch_moments<false>(
+      geom, Ep, C, mono, Np, ct, s_lo, s_n, n_ranges, D, mask,
+      OrderRows{r_value, r_derivative, r_laplacian, r_third}, true, out,
+      stream);
+}
+
+// The same under h_matmul: h_k from `passes` (3 or 1) TF32 tensor-core
+// passes over the channels (tf32_mma.cuh h_matmul_block).
+int dgs_tiled_backward_moments_hmm(const void* geom, int Ep, int C,
+                                   const void* mono, int Np, const void* ct,
+                                   const void* s_lo, const void* s_n,
+                                   int n_ranges, int D, int mask,
+                                   int r_value, int r_derivative,
+                                   int r_laplacian, int r_third, int passes,
+                                   void* out, void* stream) {
+  if (passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
+  return launch_moments<true>(
+      geom, Ep, C, mono, Np, ct, s_lo, s_n, n_ranges, D, mask,
+      OrderRows{r_value, r_derivative, r_laplacian, r_third}, passes == 3,
+      out, stream);
 }
 
 }  // extern "C"

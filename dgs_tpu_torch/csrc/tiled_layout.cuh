@@ -1,5 +1,5 @@
-// Layout shared by the two tiled kernels (tiled_forward.cu,
-// tiled_backward.cu): how a warp stages the other side's rows in shared
+// Layout shared by the tiled kernels (tiled_forward.cu, tiled_backward.cuh
+// and the kernel modes): how a warp stages the other side's rows in shared
 // memory as 16-byte records.  Everything here is a __host__ __device__
 // inline, so the CPU tests build it with g++ and hold it against numpy
 // (tests/test_torch_tiled_layout.py).
@@ -34,12 +34,20 @@ DGS_HD constexpr int record_vecs(int n_floats) { return (n_floats + 3) / 4; }
 // Index (in float4 units) of vector v of staged row j.
 DGS_HD constexpr int staged_index(int v, int j) { return v * kWarp + j; }
 
-#if defined(__CUDACC__)
+#if defined(__CUDA_ARCH__) || defined(__NVCC__)
+// The warp's staged records as the sweep addresses them: their 32-bit
+// shared-memory address.
+using StagedBase = unsigned;
+
+__device__ __forceinline__ StagedBase staged_base(const float4* s_rec) {
+  return (unsigned)__cvta_generic_to_shared(s_rec);
+}
+
 // Vector v of staged row j, read through the warp's 32-bit shared-memory
 // address: one LDS.128 with an immediate offset, so the sweep keeps no
 // generic pointer alive and recomputes no address.  Volatile and a memory
 // clobber, because the same address holds another row after the next fill.
-__device__ __forceinline__ float4 staged_vector(unsigned s_base, int v,
+__device__ __forceinline__ float4 staged_vector(StagedBase s_base, int v,
                                                 int j) {
   float4 q;
   asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
@@ -47,6 +55,16 @@ __device__ __forceinline__ float4 staged_vector(unsigned s_base, int v,
                : "r"(s_base + 16u * staged_index(v, j))
                : "memory");
   return q;
+}
+#elif defined(__CUDACC__)
+// Built for the host against an emulated runtime (the CPU tests): a plain
+// pointer and a plain load.
+using StagedBase = const float4*;
+
+inline StagedBase staged_base(const float4* s_rec) { return s_rec; }
+
+inline float4 staged_vector(StagedBase s_base, int v, int j) {
+  return s_base[staged_index(v, j)];
 }
 #endif
 

@@ -84,6 +84,27 @@ def load() -> ctypes.CDLL:
             p, i, i, p, i, p, p, p, i, i, i, i, i, i, i, p, p,
         ]
         lib.dgs_tiled_backward_moments.restype = i
+        lib.dgs_tiled_backward_moments_hmm.argtypes = [
+            p, i, i, p, i, p, p, p, i, i, i, i, i, i, i, i, p, p,
+        ]
+        lib.dgs_tiled_backward_moments_hmm.restype = i
+        lib.dgs_tiled_backward_hmm.argtypes = [
+            p, i, i, p, i, p, p, p, i, i, i, i, ctypes.c_float,
+            i, i, i, i, i, p, p,
+        ]
+        lib.dgs_tiled_backward_hmm.restype = i
+        lib.dgs_tiled_forward_folded.argtypes = [
+            p, i, p, i, i, p, i, i, p, p, i, i, i, p, i, p, p,
+        ]
+        lib.dgs_tiled_forward_folded.restype = i
+        lib.dgs_tiled_backward_fdv.argtypes = [
+            p, i, i, p, i, p, p, i, i, p, p, i, i, i, i, i, i, i, i, i, p, p,
+        ]
+        lib.dgs_tiled_backward_fdv.restype = i
+        lib.dgs_tiled_backward_fvjp.argtypes = [
+            p, i, i, p, p, p, i, i, p, i, p, p, i, i, p, i, i, p, p,
+        ]
+        lib.dgs_tiled_backward_fvjp.restype = i
         lib.dgs_tiled_backward_moments_rows.argtypes = [i, i]
         lib.dgs_tiled_backward_moments_rows.restype = i
         lib.dgs_dense_forward.argtypes = [

@@ -17,6 +17,7 @@ of this math is ``dgs_tpu_torch/csrc/pair_math.cuh``.
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from typing import List, Optional, Sequence
 
@@ -469,3 +470,171 @@ def vjp_params_folded(order: str, Xs: Sequence, con: Sequence, G, a,
                     dp = dp + a[i]
                 dcon[t] = dcon[t] + hG * (s[t] * p + dp)
     return dmu, dcon
+
+
+# ---------------------------------------------------------------------------
+# Monomial expansion of the component polynomials (the folded-values form)
+#
+# Every component weight is G q_u with q_u a polynomial in X = mu_l - x_l.
+# In tile-local coordinates q_u expands exactly over the raw monomials of
+# the sample coordinate x_l, with coefficients that depend on the entry
+# (mu_l, conic) only.  Folding values_c * coefficient into per-entry rows
+# turns the K value contractions of a pair block into one contraction
+# whose other operand is G alone (kernels/tiled.py tiled_forward_folded).
+# ---------------------------------------------------------------------------
+
+
+ORDER_DEGREE = {"value": 0, "derivative": 1, "laplacian": 2, "third": 3}
+
+
+def monomials_upto(D: int, deg: int):
+    """Exponent tuples of the raw monomial basis in D variables up to
+    degree ``deg``, by degree then canonical index order: [1] + [x_d] +
+    [x_i x_j, i <= j] + [x_i x_j x_k, i <= j <= k].  The degree-1 rows sit
+    at 1..D (the kernels read tile-local x from them)."""
+    def unit(d):
+        return tuple(1 if m == d else 0 for m in range(D))
+
+    def add(*es):
+        return tuple(sum(x) for x in zip(*es))
+
+    out = [tuple(0 for _ in range(D))]
+    if deg >= 1:
+        out += [unit(d) for d in range(D)]
+    if deg >= 2:
+        out += [add(unit(i), unit(j)) for i in range(D) for j in range(i, D)]
+    if deg >= 3:
+        out += [add(unit(i), unit(j), unit(k)) for i in range(D)
+                for j in range(i, D) for k in range(j, D)]
+    return out
+
+
+def _poly_add(p, q):
+    out = dict(p)
+    for e, c in q.items():
+        out[e] = out[e] + c if e in out else c
+    return out
+
+
+def _poly_mul(p, q):
+    out = {}
+    for e1, c1 in p.items():
+        for e2, c2 in q.items():
+            e = tuple(a + b for a, b in zip(e1, e2))
+            out[e] = out[e] + c1 * c2 if e in out else c1 * c2
+    return out
+
+
+def _a_polys(D: int, mu: Sequence, con: Sequence):
+    """a_d = (C mu)_d - sum_l C_dl x_l as x-polynomials (dicts)."""
+    C = lambda i, j: con[tri_index(D, i, j)]
+    zero = tuple(0 for _ in range(D))
+    A = []
+    for d in range(D):
+        p = {zero: sum(C(d, l) * mu[l] for l in range(D))}
+        for l in range(D):
+            p[tuple(1 if m == l else 0 for m in range(D))] = -C(d, l)
+        A.append(p)
+    return A
+
+
+def component_coeff_polys(orders: Sequence[str], D: int, mu: Sequence,
+                          con: Sequence):
+    """Per unique component (across ``orders`` in sequence) a dict from
+    monomial exponent tuple to per-entry coefficient, such that
+    q_u(X) == sum_m coeff_m(mu, con) x^m with X_l = mu_l - x_l.  ``mu`` is
+    the list of D tile-local mean rows, ``con`` the packed conic rows.  The
+    key sets are structural (the algebra never drops a key), so
+    folded_structure derives the static layout from a run on zeros."""
+    C = lambda i, j: con[tri_index(D, i, j)]
+    zero = tuple(0 for _ in range(D))
+    A = _a_polys(D, mu, con)
+    out = []
+    for order in orders:
+        for idx in sym_indices(order, D):
+            if order == "value":
+                out.append({zero: 1.0})
+            elif order == "derivative":
+                out.append(dict(A[idx[0]]))
+            elif order == "laplacian":
+                i, j = idx
+                out.append(_poly_add(_poly_mul(A[i], A[j]),
+                                     {zero: -C(i, j)}))
+            else:  # third
+                i, j, k = idx
+                p = _poly_mul(_poly_mul(A[i], A[j]), A[k])
+                p = {e: -c for e, c in p.items()}
+                for (u, v, w) in ((i, j, k), (i, k, j), (j, k, i)):
+                    p = _poly_add(p, {e: C(u, v) * c for e, c in A[w].items()})
+                out.append(p)
+    return out
+
+
+def comp_flat_index(orders: Sequence[str], D: int):
+    """(order, canonical index tuple) -> flat unique-component index across
+    ``orders`` in sequence."""
+    idx, k0 = {}, 0
+    for order in orders:
+        for t, sidx in enumerate(sym_indices(order, D)):
+            idx[(order, sidx)] = k0 + t
+        k0 += n_unique(order, D)
+    return idx
+
+
+def w_coeff_polys(orders: Sequence[str], D: int, mu: Sequence,
+                  con: Sequence):
+    """The fused VJP's W_l accumulators expanded over the (component,
+    sample-monomial) basis: a list over l of dicts {(flat component k,
+    exponent) -> per-entry coefficient} with
+      W_l(p, n) = sum_(k, e) coeff(p) x^e(n) h_k(p, n),
+    which is W_l = sum_u h_u dq_u/da_l (the doubled laplacian diagonal,
+    the thirds' negated products).  Every exponent lies in component k's own
+    monomial set, so the rows align with folded_structure's layout."""
+    C = lambda i, j: con[tri_index(D, i, j)]
+    zero = tuple(0 for _ in range(D))
+    A = _a_polys(D, mu, con)
+    idx = comp_flat_index(orders, D)
+    out = [dict() for _ in range(D)]
+
+    def add(l, comp_key, poly, scale=1.0):
+        if comp_key not in idx:
+            return
+        k = idx[comp_key]
+        for e, c in poly.items():
+            term = c * scale if scale != 1.0 else c
+            key = (k, e)
+            out[l][key] = (out[l][key] + term) if key in out[l] else term
+
+    for l in range(D):
+        add(l, ("derivative", (l,)), {zero: 1.0})
+        for m in range(D):
+            add(l, ("laplacian", tuple(sorted((l, m)))), A[m],
+                2.0 if l == m else 1.0)
+    if "third" in orders:
+        def q_pair(j, k):
+            return _poly_add(_poly_mul(A[j], A[k]), {zero: -C(j, k)})
+
+        for i in range(D):
+            for j in range(i, D):
+                for k in range(j, D):
+                    comp = ("third", (i, j, k))
+                    add(i, comp, q_pair(j, k), -1.0)
+                    add(j, comp, q_pair(i, k), -1.0)
+                    add(k, comp, q_pair(i, j), -1.0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def folded_structure(orders: Sequence[str], D: int):
+    """Static layout of the folded scheme: (meta, n_mono).  ``meta`` has
+    one tuple a unique component (across ``orders``) of the raw-monomial
+    row indices (into monomials_upto(D, deg)) its polynomial uses, in basis
+    order; the folded row count is C * sum(len(m) for m in meta), rows
+    (component, monomial, channel) with the channel fastest."""
+    deg = max(ORDER_DEGREE[o] for o in orders)
+    basis = monomials_upto(D, deg)
+    index = {e: i for i, e in enumerate(basis)}
+    polys = component_coeff_polys(orders, D, [0.0] * D,
+                                  [0.0] * tri_size(D))
+    meta = tuple(tuple(sorted(index[e] for e in p)) for p in polys)
+    return meta, len(basis)

@@ -212,15 +212,31 @@ def segment_sum_rows(rows, gid, P: int, slots: int):
 
 def kernel_modes(cfg, D: int, kernel_period: Optional[float],
                  separable: Optional[bool] = None,
-                 moments: Optional[bool] = None, warn: bool = True):
-    """(separable, moments): the kernel modes of the tiled path, resolved as
-    dgs_tpu's sample_tiled_multi resolves them.  Both need wrap-free
-    (tile-local) pair math, so both are off unless ``kernel_period`` is None
-    (unwrapped or open configs).  ``separable`` None reads
-    cfg.separable_kernels; where that is None too, and for ``moments`` None,
-    the automatic default is on exactly under cfg.fast_math_dots at
-    wrap-free D >= 3.  A separable mode forced on a wrapped config turns off
-    silently; moments forced there turn off with a warning (``warn``)."""
+                 moments: Optional[bool] = None, warn: bool = True,
+                 folded: Optional[bool] = None, beta_bytes: int = 0):
+    """(separable, moments, folded, fold_dv, fold_vjp, h_matmul): the kernel
+    modes of the tiled path, resolved as dgs_tpu's sample_tiled_multi
+    resolves them (its code, where its comments differ).  All but h_matmul
+    need wrap-free (tile-local) pair math, so they are off unless
+    ``kernel_period`` is None (unwrapped or open configs).
+
+      separable  ``separable`` None reads cfg.separable_kernels; where that
+                 is None too the automatic default is on exactly under
+                 cfg.fast_math_dots at wrap-free D >= 3.
+      moments    ``moments`` None: the same automatic default; forced on a
+                 wrapped config it turns off with a warning (``warn``).
+      folded     ``folded`` None reads cfg.folded_values; off under any
+                 separable or moment mode (so fast_math_dots at wrap-free
+                 D >= 3 runs those even where folded_values is set).
+      fold_dv    the folded dvalues: folded, cfg.folded_dvals truthy (None
+                 is off) and the beta-expanded cotangent's ``beta_bytes``
+                 (ct_beta_bytes) within kernels.tiled.CT_BETA_MAX_BYTES.
+      fold_vjp   the folded VJP: fold_dv and cfg.folded_vjp; without
+                 fold_dv it turns off silently.
+      h_matmul   cfg.h_matmul: h_k as tensor-core contractions in every
+                 backward that builds h."""
+    from ..kernels import tiled as ktiled
+
     wrap_free = kernel_period is None
     if separable is None:
         separable = cfg.separable_kernels
@@ -238,7 +254,22 @@ def kernel_modes(cfg, D: int, kernel_period: Optional[float],
                 "support certificate (cfg.unwrapped_kernels); falling back "
                 "to the per-pair backward", stacklevel=3)
         moments = bool(moments) and wrap_free
-    return separable, moments
+    if folded is None:
+        folded = cfg.folded_values
+    folded = bool(folded) and wrap_free and not (separable or moments)
+    fold_dv = (folded and bool(cfg.folded_dvals)
+               and beta_bytes <= ktiled.CT_BETA_MAX_BYTES)
+    fold_vjp = fold_dv and bool(cfg.folded_vjp)
+    return (separable, moments, folded, fold_dv, fold_vjp,
+            bool(cfg.h_matmul))
+
+
+def ct_beta_bytes(orders, D: int, C: int, Np: int) -> int:
+    """Bytes of the folded dvalues' beta-expanded cotangent at Np sample
+    columns (R * Np * 4, R the folded row count), which kernel_modes holds
+    against CT_BETA_MAX_BYTES."""
+    meta, _ = formulas.folded_structure(tuple(orders), D)
+    return 4 * C * sum(len(m) for m in meta) * Np
 
 
 class _TiledForward(torch.autograd.Function):
@@ -246,14 +277,20 @@ class _TiledForward(torch.autograd.Function):
     sample order; the backward runs on the (K*C, Np) cotangent as it
     arrives and segment-sums the per-entry rows by Gaussian id.
 
-    ``modes`` is (separable, moments) from kernel_modes.  Neither: the
-    classic kernels (kernels.tiled.tiled_forward / tiled_backward).  With
-    either, ``smp`` is the monomial operand and the geom tile-local, and
+    ``modes`` is kernel_modes' tuple.  With no mode on: the classic kernels
+    (kernels.tiled.tiled_forward / tiled_backward).  With separable or
+    moments, ``smp`` is the monomial operand and the geom tile-local, and
     the forward is kernels.tiled.tiled_forward_sep (separable) or the
     classic forward on the tile-local operands, wrap-free; the backward is
     kernels.tiled.tiled_backward_moments and moment_combine (moments) or the
-    classic backward on the tile-local operands, wrap-free.  No mode runs a
-    kernel other than the one it names."""
+    classic backward on the tile-local operands, wrap-free.  With folded,
+    ``smp`` is the raw monomial operand and the forward
+    kernels.tiled.tiled_forward_folded; the backward is
+    tiled_backward_fvjp and fvjp_combine (fold_vjp), tiled_backward_fdv
+    (fold_dv), else the classic backward on the tile-local operands.  With
+    h_matmul each backward that builds h takes its h_matmul form (the
+    classic one is tiled_backward_hmm).  No mode runs a kernel other than
+    the one it names."""
 
     @staticmethod
     def forward(ctx, means, values, conics, orders, cfg, kernel_period,
@@ -262,17 +299,26 @@ class _TiledForward(torch.autograd.Function):
 
         D = means.shape[1]
         C = values.shape[1]
-        separable, moments = modes
+        separable, moments, folded, fold_dv, fold_vjp, hmm = modes
         local = separable or moments
+        ctx.orders, ctx.kernel_period, ctx.state = orders, kernel_period, state
+        ctx.P, ctx.D, ctx.C = means.shape[0], D, C
+        ctx.slots = cfg.with_dims(D).max_tiles_per_gaussian ** D
+        ctx.modes = modes
+        ctx.passes = ktiled.dot_passes(cfg)
+        if folded:
+            meta = formulas.folded_structure(orders, D)[0]
+            gid, _, geom, _, fold, foldw = ktiled.prepare_entries(
+                state, means, values, conics, ktiled.BLOCK_E, cfg=cfg,
+                folded=orders, fold_meta=meta, folded_vjp=fold_vjp)
+            ctx.save_for_backward(geom, smp, gid, fold, foldw)
+            return ktiled.tiled_forward_folded(orders, D, C, geom, fold, smp,
+                                               ent_lo, ent_n,
+                                               passes=ctx.passes)
         gid, _, geom, _ = ktiled.prepare_entries(
             state, means, values, conics, ktiled.BLOCK_E, cfg=cfg,
             separable=local)
         ctx.save_for_backward(geom, smp, gid)
-        ctx.orders, ctx.kernel_period, ctx.state = orders, kernel_period, state
-        ctx.P, ctx.D, ctx.C = means.shape[0], D, C
-        ctx.slots = cfg.with_dims(D).max_tiles_per_gaussian ** D
-        ctx.separable, ctx.moments = separable, moments
-        ctx.passes = ktiled.dot_passes(cfg)
         if separable:
             return ktiled.tiled_forward_sep(orders, D, C, geom, smp, ent_lo,
                                             ent_n, passes=ctx.passes)
@@ -288,28 +334,63 @@ class _TiledForward(torch.autograd.Function):
     def backward(ctx, grad):
         from ..kernels import tiled as ktiled
 
-        geom, smp, gid = ctx.saved_tensors
-        D, C = ctx.D, ctx.C
+        geom, smp, gid = ctx.saved_tensors[:3]
+        D, C, orders, passes = ctx.D, ctx.C, ctx.orders, ctx.passes
+        separable, moments, folded, fold_dv, fold_vjp, hmm = ctx.modes
         tri = tri_size(D)
         s_lo, s_n = ktiled.sample_ranges(ctx.state, geom.shape[1])
         grad = grad.contiguous()
-        if ctx.moments:
-            rows = ktiled.tiled_backward_moments(ctx.orders, D, C, geom, smp,
-                                                 grad, s_lo, s_n)
-            dent = ktiled.moment_combine(ctx.orders, D, C, rows, geom)
-        elif ctx.separable:
-            dent = ktiled.tiled_backward(
-                ctx.orders, None, D, C, ktiled.base_rows(geom, D, C),
-                ktiled.local_samples(smp, D), grad, s_lo, s_n)
+        if folded:
+            local = ktiled.local_samples(smp, D)
+            meta = formulas.folded_structure(orders, D)[0]
+            cb = (ktiled.ct_beta_rows(meta, C, grad, smp) if fold_dv
+                  else None)
+            if fold_vjp:
+                fold, foldw = ctx.saved_tensors[3:]
+                rows = ktiled.tiled_backward_fvjp(orders, D, C, geom, fold,
+                                                  foldw, local, cb, s_lo,
+                                                  s_n, passes=passes)
+                dent = ktiled.fvjp_combine(orders, D, C, rows, geom)
+            elif fold_dv:
+                dent = ktiled.tiled_backward_fdv(orders, D, C, geom, local,
+                                                 grad, cb, s_lo, s_n,
+                                                 passes=passes, h_matmul=hmm)
+            else:
+                dent = _classic_backward(orders, None, D, C,
+                                         ktiled.base_rows(geom, D, C),
+                                         local, grad, s_lo, s_n, hmm,
+                                         passes)
+        elif moments:
+            rows = ktiled.tiled_backward_moments(orders, D, C, geom, smp,
+                                                 grad, s_lo, s_n,
+                                                 passes=passes, h_matmul=hmm)
+            dent = ktiled.moment_combine(orders, D, C, rows, geom)
+        elif separable:
+            dent = _classic_backward(orders, None, D, C,
+                                     ktiled.base_rows(geom, D, C),
+                                     ktiled.local_samples(smp, D), grad,
+                                     s_lo, s_n, hmm, passes)
         else:
-            dent = ktiled.tiled_backward(ctx.orders, ctx.kernel_period, D, C,
-                                         geom, smp, grad, s_lo, s_n)
+            dent = _classic_backward(orders, ctx.kernel_period, D, C, geom,
+                                     smp, grad, s_lo, s_n, hmm, passes)
         # The mean rows are d/dmu' of the period-shifted means (or of the
         # tile-local means), and dmu'/dmu = 1 (the image shift and the tile
         # centre are piecewise constant).
         d = segment_sum_rows(dent, gid, ctx.P, ctx.slots)
         return (d[:, :D], d[:, D + tri:], d[:, D:D + tri],
                 None, None, None, None, None, None, None, None)
+
+
+def _classic_backward(orders, period, D, C, geom, smp, grad, s_lo, s_n,
+                      hmm: bool, passes: int):
+    """The classic backward kernel, or its h_matmul form."""
+    from ..kernels import tiled as ktiled
+
+    if hmm:
+        return ktiled.tiled_backward_hmm(orders, period, D, C, geom, smp,
+                                         grad, s_lo, s_n, passes=passes)
+    return ktiled.tiled_backward(orders, period, D, C, geom, smp, grad, s_lo,
+                                 s_n)
 
 
 def sample_tiled_multi(orders: Tuple[str, ...], cfg,
@@ -319,7 +400,8 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
                        padded_outputs: bool = False,
                        unwrapped: bool = False,
                        separable: Optional[bool] = None,
-                       moments: Optional[bool] = None):
+                       moments: Optional[bool] = None,
+                       folded: Optional[bool] = None):
     """Fused multi-order evaluation over a prebuilt BinningState
     (binning.grid.build); returns one output per order.
 
@@ -332,9 +414,10 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
     zero pad columns.  ``unwrapped`` drops the per-pair torus wrap (exact
     under the planner's compact-support certificate).  ``state`` must come
     from binning.build with this ``cfg`` (the periodic image shift and the
-    backward's slot bound R^D read it).  ``separable`` / ``moments`` force
-    the kernel modes on or off (None: kernel_modes' default; dgs_tpu's
-    sample_binned passes cfg.moment_backward, as this one's does).
+    backward's slot bound R^D read it).  ``separable`` / ``moments`` /
+    ``folded`` force the kernel modes on or off (None: kernel_modes'
+    default; dgs_tpu's sample_binned passes cfg.moment_backward, as this
+    one's does).
     Gradients flow to (means, values, conics).  ops.sampling_chunked runs
     the same forward and output assembly over a binning of its own."""
     N, D = samples.shape
@@ -344,7 +427,8 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
     orders = tuple(orders)
     packed_t = tiled_packed(orders, cfg, means, values, conics, samples,
                             state, None if unwrapped else cfg.period,
-                            separable=separable, moments=moments)
+                            separable=separable, moments=moments,
+                            folded=folded)
     pos = None if sorted_outputs else sample_columns(state.s_perm)
     return tiled_outputs(packed_t, orders, D, C, N, pos,
                          unique_outputs=unique_outputs,
@@ -354,31 +438,44 @@ def sample_tiled_multi(orders: Tuple[str, ...], cfg,
 def tiled_packed(orders: Tuple[str, ...], cfg, means, values, conics,
                  samples, state, kernel_period: Optional[float],
                  separable: Optional[bool] = None,
-                 moments: Optional[bool] = None, mono=None):
+                 moments: Optional[bool] = None, mono=None,
+                 folded: Optional[bool] = None):
     """The tiled forward kernel's packed (K*C, Np) outputs over ``state``
     (tile-sorted columns, zero pad columns), differentiable in (means,
     values, conics) through _TiledForward, in the kernel modes that
-    kernel_modes resolves from ``separable`` / ``moments``.  ``samples``
-    gives only N and the device (the coordinates come from
+    kernel_modes resolves from ``separable`` / ``moments`` / ``folded``.
+    ``samples`` gives only N and the device (the coordinates come from
     state.s_sorted); ``mono`` is the monomial operand where the caller has
-    built it (prepare_samples with ``separable``); the backward's slot
-    bound is cfg.max_tiles_per_gaussian ** D."""
+    built it (prepare_samples with ``separable``, or with ``folded_deg`` at
+    least kernels.tiled.folded_degree: its rows past that basis are
+    dropped);
+    the backward's slot bound is cfg.max_tiles_per_gaussian ** D."""
     from ..kernels import tiled as ktiled
 
     if os.environ.get("DGS_ABLATE"):
         raise NotImplementedError(
             "DGS_ABLATE is a TPU kernel-ablation hook of dgs_tpu; "
             "dgs_tpu_torch does not port it")
-    D = samples.shape[1]
-    modes = kernel_modes(cfg, D, kernel_period, separable, moments)
-    local = any(modes)
-    if local and mono is not None:
-        smp, Np = mono, mono.shape[1]
+    orders = tuple(orders)
+    N, D = samples.shape
+    C = values.shape[1]
+    Np = ktiled._round_up(N, ktiled.BLOCK_N)
+    modes = kernel_modes(cfg, D, kernel_period, separable, moments,
+                         folded=folded,
+                         beta_bytes=ct_beta_bytes(orders, D, C, Np))
+    separable, moments, folded = modes[:3]
+    if mono is not None and (separable or moments or folded):
+        smp = mono
+        n_mono = ktiled.folded_layout(orders, D, C)[1] if folded else None
+        if folded and mono.shape[0] != n_mono + 1:
+            smp = torch.cat([mono[:n_mono], mono[-1:]], dim=0)
     else:
-        smp, _, Np = ktiled.prepare_samples(state, samples, ktiled.BLOCK_N,
-                                            cfg=cfg, separable=local)
+        smp = ktiled.prepare_samples(
+            state, samples, ktiled.BLOCK_N, cfg=cfg,
+            separable=separable or moments,
+            folded_deg=ktiled.folded_degree(orders) if folded else None)[0]
     ent_lo, ent_n = ktiled.entry_ranges(state, Np)
-    return _TiledForward.apply(means, values, conics, tuple(orders), cfg,
+    return _TiledForward.apply(means, values, conics, orders, cfg,
                                kernel_period, state, smp, ent_lo, ent_n,
                                modes)
 

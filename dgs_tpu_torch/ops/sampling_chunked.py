@@ -20,7 +20,8 @@ overflow: the path is ``ops.sampling``'s tiled forward (kernel 1, then
 kernel 2 and the gid segment-sum in the backward) over a binning built
 here, in the kernel modes ``_kernel_modes`` resolves from the config as
 dgs_tpu's does (under ``fast_math_dots`` at D = 3 the separable forward and
-the moment-form backward).  Gradients flow to (means, values, conics) only.
+the moment-form backward; under ``folded_values`` the folded kernels).
+Gradients flow to (means, values, conics) only.
 """
 
 from __future__ import annotations
@@ -60,7 +61,9 @@ class ChunkedSamples(NamedTuple):
     binning: binning.SampleBinning
     pos: torch.Tensor   # (N,) int64 sorted column of each sample
     # (mono_rows(D) + 1, Np) [1, x_l, -w/2 x_i x_j, tile] (kernels.tiled
-    # .prepare_samples with ``separable``), or None where no mode needs it.
+    # .prepare_samples with ``separable``), under the folded modes the raw
+    # monomials to degree 3 and the tile row (``folded_deg``), or None
+    # where no mode needs it.
     mono: Optional[torch.Tensor] = None
 
 
@@ -72,16 +75,14 @@ def _kernel_period(cfg: SamplerConfig) -> Optional[float]:
 
 def _kernel_modes(cfg: SamplerConfig):
     """(separable, moments, folded) resolved from the config flags for the
-    chunked path, as dgs_tpu's _kernel_modes: separable and moments as
-    ops.sampling.kernel_modes resolves them over _kernel_period (wrap-free
-    configs only; the automatic default is on under fast_math_dots at
-    D >= 3), with no warning here.  chunk_samples and sample_chunked_multi
-    both read this one resolution.  folded is False: the folded modes are
-    not ported, and SamplerConfig refuses folded_values."""
-    separable, moments = sampling.kernel_modes(
-        cfg, cfg.D, _kernel_period(cfg), cfg.separable_kernels,
-        cfg.moment_backward, warn=False)
-    return separable, moments, False
+    chunked path, as dgs_tpu's _kernel_modes: ops.sampling.kernel_modes
+    over _kernel_period, with no warning here.  chunk_samples and
+    sample_chunked_multi both read this one resolution; the folded
+    backward's modes (fold_dv, fold_vjp, h_matmul) follow from it in
+    ops.sampling.tiled_packed, which knows the sizes the gate reads."""
+    return sampling.kernel_modes(cfg, cfg.D, _kernel_period(cfg),
+                                 cfg.separable_kernels, cfg.moment_backward,
+                                 warn=False)[:3]
 
 
 def _radii(cfg: SamplerConfig, covariances, D: int):
@@ -142,10 +143,14 @@ def chunk_samples(cfg: SamplerConfig, samples, plan: ChunkPlan,
     cfg = cfg.with_dims(samples.shape[1])
     sb = (sample_binning if sample_binning is not None
           else binning.bin_samples(cfg, samples))
-    separable, moments, _ = _kernel_modes(cfg)
-    mono = (ktiled.prepare_samples(sb, samples, ktiled.BLOCK_N, cfg=cfg,
-                                   separable=True)[0]
-            if separable or moments else None)
+    separable, moments, folded = _kernel_modes(cfg)
+    mono = None
+    if folded:   # raw monomials to degree 3, which covers every order set
+        mono = ktiled.prepare_samples(sb, samples, ktiled.BLOCK_N, cfg=cfg,
+                                      folded_deg=3)[0]
+    elif separable or moments:
+        mono = ktiled.prepare_samples(sb, samples, ktiled.BLOCK_N, cfg=cfg,
+                                      separable=True)[0]
     return ChunkedSamples(binning=sb, pos=sampling.sample_columns(sb.s_perm),
                           mono=mono)
 
@@ -208,12 +213,13 @@ def sample_chunked_multi(
     op_cfg = dataclasses.replace(cfg, max_tiles_per_gaussian=plan.rect)
     N = cs.pos.shape[0]
     # The modes chunk_samples built cs.mono for; tiled_packed keeps them as
-    # given (kernel_modes leaves a resolved pair unchanged).
-    separable, moments, _ = _kernel_modes(cfg)
+    # given (kernel_modes leaves a resolved triple unchanged) and slices the
+    # raw monomials to the orders' degree.
+    separable, moments, folded = _kernel_modes(cfg)
     packed_t = sampling.tiled_packed(
         orders, op_cfg, means, values, conics, sb.s_sorted.T, state,
         _kernel_period(cfg), separable=separable, moments=moments,
-        mono=cs.mono)
+        mono=cs.mono, folded=folded)
     outs = sampling.tiled_outputs(
         packed_t, tuple(orders), D, C, N,
         None if padded_outputs else cs.pos,

@@ -4,12 +4,12 @@ flags as the JAX tools resolve them, the device knob, the step clock,
 device busy time, the trace directory and the card's name and power limit.
 
 Knobs.  BENCH_BN/BP/BBN/BBP, AGG_BN/BE and SWEEP_BLOCKS size the TPU
-kernels' blocks: refused.  BENCH_FOLDED, BENCH_FDV, BENCH_FVJP and
-BENCH_HMM set to 1 ask for kernel modes the port has not ported: refused.
-BENCH_MOMENTS, BENCH_SEP and BENCH_FASTMATH select the moment-form
-backward, the separable forward and the fast-math knob, which the port has:
-``mode_flags`` resolves them into the same SamplerConfig flags as the JAX
-tool that reads them.  BENCH_SPAN_F / BENCH_SPAN_B are scheduling knobs of
+kernels' blocks: refused.  BENCH_MOMENTS, BENCH_SEP, BENCH_FASTMATH,
+BENCH_FOLDED, BENCH_FDV, BENCH_FVJP and BENCH_HMM select the kernel modes
+(the moment-form backward, the separable forward, fast-math, the folded
+forward, the folded dvalues, the folded VJP, h_matmul), which the port
+has: ``mode_flags`` resolves them into the same SamplerConfig flags as the
+JAX tool that reads them.  BENCH_SPAN_F / BENCH_SPAN_B are scheduling knobs of
 the TPU work list (work_span_fwd / work_span_bwd): resolved into the config
 as the JAX tool does, accepted and not read by the port's kernels.
 
@@ -49,40 +49,38 @@ class UnsupportedKnob(ValueError):
 # read none (config.SamplerConfig docstring).
 BLOCK_KNOBS = ("BENCH_BN", "BENCH_BP", "BENCH_BBN", "BENCH_BBP", "AGG_BN",
                "AGG_BE", "SWEEP_BLOCKS")
-# Kernel modes that the port has not ported yet (ROADMAP.md); set to 1 they
-# would ask for a kernel the port does not have.
-MODE_KNOBS = ("BENCH_FOLDED", "BENCH_FDV", "BENCH_FVJP", "BENCH_HMM")
-
-
 def refuse(env: Mapping[str, str]) -> None:
     """Raise UnsupportedKnob, naming the knob, where ``env`` sets one of the
-    JAX tools' TPU-only knobs: a block size at all, an unported kernel mode
-    to 1.  Every tool refuses every one of them."""
+    JAX tools' TPU-only knobs: a block size.  Every tool refuses every one
+    of them."""
     for knob in BLOCK_KNOBS:
         if knob in env:
             raise UnsupportedKnob(
                 f"{knob} sizes a block of the TPU kernels; the port's "
                 "kernels read no block size: unset it")
-    for knob in MODE_KNOBS:
-        if env.get(knob) == "1":
-            raise UnsupportedKnob(
-                f"{knob}=1 asks for a kernel mode of dgs_tpu that the port "
-                "has not ported yet (ROADMAP.md): unset it")
 
 
 def mode_flags(env: Mapping[str, str], *, separable: bool = False,
                moments: bool = False, fast_math: bool = False,
+               folded: bool = False, folded_backward: bool = False,
                span: int = 1) -> Dict:
     """SamplerConfig flags from the knobs a JAX tool reads, as it reads
-    them: BENCH_MOMENTS / BENCH_SEP 0 or 1 force moment_backward /
-    separable_kernels off or on, unset leaves them None (the automatic
-    default); BENCH_FASTMATH=1 sets fast_math_dots; BENCH_SPAN_F / _B give
-    work_span_fwd / _bwd (default ``span``).  Only the knobs the tool reads
-    (``separable``, ``moments``, ``fast_math``) become flags."""
+    them: BENCH_MOMENTS / BENCH_SEP / BENCH_FOLDED / BENCH_FDV / BENCH_FVJP /
+    BENCH_HMM 0 or 1 force moment_backward / separable_kernels /
+    folded_values / folded_dvals / folded_vjp / h_matmul off or on, unset
+    leaves them None; BENCH_FASTMATH=1 sets fast_math_dots; BENCH_SPAN_F /
+    _B give work_span_fwd / _bwd (default ``span``).  Only the knobs the
+    tool reads (``separable``, ``moments``, ``fast_math``, ``folded``: the
+    folded forward, ``folded_backward``: the folded dvalues and VJP and
+    h_matmul) become flags."""
     flags = {"work_span_fwd": int(env.get("BENCH_SPAN_F", span)),
              "work_span_bwd": int(env.get("BENCH_SPAN_B", span))}
     for on, knob, field in ((moments, "BENCH_MOMENTS", "moment_backward"),
-                            (separable, "BENCH_SEP", "separable_kernels")):
+                            (separable, "BENCH_SEP", "separable_kernels"),
+                            (folded, "BENCH_FOLDED", "folded_values"),
+                            (folded_backward, "BENCH_FDV", "folded_dvals"),
+                            (folded_backward, "BENCH_FVJP", "folded_vjp"),
+                            (folded_backward, "BENCH_HMM", "h_matmul")):
         if on:
             flags[field] = None if knob not in env else env[knob] == "1"
     if fast_math:

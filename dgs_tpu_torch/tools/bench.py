@@ -27,11 +27,12 @@ Env: BENCH_P, BENCH_N, BENCH_D, BENCH_C, BENCH_STEPS, BENCH_METHOD (tiled,
 chunked, pallas, dense), BENCH_TILE, BENCH_R, BENCH_SIGMA,
 BENCH_EIG_FLOOR, BENCH_AXIS, BENCH_ELLIP, BENCH_ORDERS (comma list) and
 BENCH_DEVICE (default cuda; cpu runs the kernels' plain versions).
-BENCH_MOMENTS, BENCH_SEP and BENCH_FASTMATH select the kernel modes as in
-bench.py (unset: the automatic default, which turns both modes on under
+BENCH_MOMENTS, BENCH_SEP, BENCH_FASTMATH, BENCH_FOLDED, BENCH_FDV,
+BENCH_FVJP and BENCH_HMM select the kernel modes as in bench.py (unset: the
+automatic default, which turns the separable and moment modes on under
 BENCH_FASTMATH=1 at wrap-free D = 3); BENCH_SPAN_F/B (default 2 at D = 2,
-else 1) are accepted and not read.  The TPU-only knobs (BENCH_BN/BP/BBN/BBP,
-BENCH_FOLDED/FDV/FVJP/HMM set to 1) raise ``_common.UnsupportedKnob``.
+else 1) are accepted and not read.  The TPU-only knobs (BENCH_BN/BP/BBN/BBP)
+raise ``_common.UnsupportedKnob``.
 """
 
 from __future__ import annotations
@@ -74,7 +75,9 @@ def settings(env=None) -> dict:
         orders=tuple(env.get("BENCH_ORDERS", DEFAULT_ORDERS).split(",")),
         device=env.get("BENCH_DEVICE", "cuda"),
         flags=_common.mode_flags(env, separable=True, moments=True,
-                                 fast_math=True, span=2 if D == 2 else 1))
+                                 fast_math=True, folded=True,
+                                 folded_backward=True,
+                                 span=2 if D == 2 else 1))
 
 
 class Workload(NamedTuple):
@@ -217,7 +220,7 @@ def run(s: dict) -> list:
     if s["method"] in ("tiled", "chunked"):
         pairs, entries = kept_pairs(w)
         roof = step_roofline(s["orders"], s["D"], s["C"], pairs, s["N"],
-                             entries)
+                             entries, folded=bool(w.cfg.folded_values))
     m = measure(w, s["steps"], dev)
     dt = m["ms_median"] / 1e3
     card = _common.card(dev)

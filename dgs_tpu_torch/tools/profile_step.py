@@ -17,8 +17,9 @@ ms_per_step, items}: the device time that each function of the port
 launched, autograd's backward ops under "backward of" their forward op's
 function, which attributes a step's many small torch ops) and a summary
 line last (the items' total, the step's host median and range, D, method,
-tile).  BENCH_MOMENTS, BENCH_FASTMATH and BENCH_SPAN_F/B (default 1) become
-config flags as in tools/profile_step.py, which does not read BENCH_SEP.  The Chrome trace goes to
+tile).  BENCH_MOMENTS, BENCH_FASTMATH, BENCH_FOLDED and BENCH_SPAN_F/B
+(default 1) become config flags as in tools/profile_step.py, which does not
+read BENCH_SEP, BENCH_FDV, BENCH_FVJP or BENCH_HMM.  The Chrome trace goes to
 PROF_DIR when it is set, else to a temporary directory that is removed.
 On the CPU (BENCH_DEVICE=cpu) there are no device items: the list is
 empty.  Refuses the TPU-only knobs as tools.bench does.
@@ -52,7 +53,8 @@ def settings(env=None) -> dict:
                              bench.DEFAULT_ORDERS).split(",")),
         device=env.get("BENCH_DEVICE", "cuda"),
         prof_dir=env.get("PROF_DIR"),
-        flags=_common.mode_flags(env, moments=True, fast_math=True))
+        flags=_common.mode_flags(env, moments=True, fast_math=True,
+                                 folded=True))
 
 
 def run(s: dict) -> list:

@@ -6,16 +6,18 @@ The counterpart of ``dgs_tpu/utils/roofline.py`` for an NVIDIA H100 SXM
 slower under load, so state the limit beside every share of a bound).
 ``pair_count`` is the exact same-tile (entry, sample) pair total of a
 binning; ``pair_ops`` / ``kernel_bound`` bound the tiled and dense kernels,
-``mode_pair_ops`` / ``mode_bound`` the tiled kernels' separable and moment
-modes (their contractions at the TF32 tensor-core peak),
-``agg_pair_ops`` / ``agg_bound`` the aggregation kernels, and
-``step_roofline`` a whole tiled training step.  A bound is the larger of
-the operations over the card's peak rate for their type and the bytes moved
-(each input read once, each output written once) over its memory rate.
+``mode_pair_ops`` / ``mode_bound`` the tiled kernels' modes (separable,
+moments, folded, folded_dvals, folded_vjp, h_matmul: their contractions at
+the TF32 tensor-core peak), ``agg_pair_ops`` / ``agg_bound`` the
+aggregation kernels, ``pair_flops`` dgs_tpu's per-pair model of a training
+step (fp32 instructions and contraction multiply-adds, classic or folded),
+and ``step_roofline`` a whole tiled training step.  A bound is the larger
+of the operations over the card's peak rate for their type and the bytes
+moved (each input read once, each output written once) over its memory
+rate.  Counts are the function's work, whichever core a kernel runs it on.
 
-dgs_tpu's chip constants (its v5e VPU, MXU and HBM rates) and its folded
-matrix-unit pair model (``pair_flops``) describe TPU kernel modes the port
-does not have and are not carried over.
+dgs_tpu's chip constants (its v5e VPU, MXU and HBM rates) describe the TPU
+and are not carried over.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Sequence
 import numpy as np
 
 from ..kernels import tiled as ktiled
+from ..ops import formulas
 
 # The card's peaks.  Memory and fp32 rates are the H100 SXM data sheet's
 # (3.35 TB/s; 67 TFLOP/s outside the tensor cores, two operations per FMA,
@@ -139,54 +142,127 @@ def pair_count(ent_tile, num_tiles: int, s_tile) -> int:
     return int((e_t.astype(np.int64) * s_t.astype(np.int64)).sum())
 
 
+def _context_ops(D):
+    """fp32 instructions of a pair's G and a, unwrapped: X, a = C X, the
+    power and the exponential's scale."""
+    return D + D * D + D + 1 + 1
+
+
+def pair_flops(orders: Sequence[str], D: int, C: int,
+               folded: bool = True):
+    """(fp32 instructions, contraction multiply-adds) a pair of a training
+    step, forward and backward, as dgs_tpu's pair_flops splits them (its
+    mxu_macs are the second number): with ``folded`` the folded forward
+    (G, then R multiply-adds, R = C sum_k |meta_k|) and the folded dvalues
+    (R), the rest of the backward as pair_ops counts it; without, the
+    classic kernels with their value contractions (K C forward, K C
+    backward) counted as multiply-adds.  The port's classic kernels run
+    those on the CUDA cores; this counts the function's work."""
+    K = ktiled.total_unique(tuple(orders), D)
+    R = ktiled.fold_rows(formulas.folded_structure(tuple(orders), D)[0],
+                         C)[0]
+    bwd = pair_ops(D, orders, C, False, True)[0] - K * C
+    if folded:
+        return float(_context_ops(D) + bwd), float(2 * R)
+    fwd = pair_ops(D, orders, C, False, False)[0] - K * C
+    return float(fwd + bwd), float(2 * K * C)
+
+
 def step_roofline(orders: Sequence[str], D: int, C: int, pairs: int,
-                  N: int, E: int) -> dict:
+                  N: int, E: int, folded: bool = False) -> dict:
     """The least time of one tiled training step's kernels (forward,
     backward, segment-sum) on the card, counted unwrapped (the chunked and
     headline steps are certified wrap-free), with dgs_tpu's keys: ``pairs``;
     ``flops_per_step`` (here fp32 instructions, an FMA one: pair_ops'
     forward and backward counts times ``pairs``); ``sol_vpu_s`` (those
     instructions, or the special-function results where they take longer,
-    on the CUDA cores); ``sol_mxu_s`` 0.0 (no tensor cores: the port's
-    kernels run fp32 FMAs only); ``sol_hbm_s`` (bytes: the (K*C, N) output
-    written and its cotangent read, the samples read by both kernels, the
-    per-entry operands read by both and the per-entry gradient rows
-    written and read once); ``sol_step_s`` the largest, and ``bound``
-    "vpu" or "hbm"."""
+    on the CUDA cores); ``sol_mxu_s`` 0.0 (the classic kernels run fp32
+    FMAs only); ``sol_hbm_s`` (bytes: the (K*C, N) output written and its
+    cotangent read, the samples read by both kernels, the per-entry
+    operands read by both and the per-entry gradient rows written and read
+    once); ``sol_step_s`` the largest, and ``bound`` "vpu", "mxu" or "hbm".
+
+    With ``folded`` (the folded forward and the folded dvalues, as
+    dgs_tpu's step_roofline counts them): pair_flops' fp32 instructions,
+    its multiply-adds at 3 TF32 passes on the tensor cores
+    (``sol_mxu_s``), and the folded operands' floats: the fold rows
+    (R x E) and the alpha rows (R / C x E) read, the beta-expanded
+    cotangent (R x N) written and read, and the raw monomials
+    (n_mono + 1 rows in place of D + 1) read by both kernels."""
     tri = D * (D + 1) // 2
     K = ktiled.total_unique(tuple(orders), D)
     ops_f, sfu_f = pair_ops(D, orders, C, False, False)
     ops_b, sfu_b = pair_ops(D, orders, C, False, True)
-    vpu_t = max(pairs * (ops_f + ops_b) / FP32_INSTR_S,
+    ops, macs = float(ops_f + ops_b), 0.0
+    n_floats = (2 * K * C * N + 2 * (D + 1) * N
+                + E * (2 * (1 + D + tri + C) + 2 * (D + tri + C)))
+    if folded:
+        ops, macs = pair_flops(orders, D, C, folded=True)
+        meta, n_mono = formulas.folded_structure(tuple(orders), D)
+        R = ktiled.fold_rows(meta, C)[0]
+        n_floats += R * E + R // C * E + 2 * R * N + 2 * (n_mono - D) * N
+    vpu_t = max(pairs * ops / FP32_INSTR_S,
                 pairs * (sfu_f + sfu_b) / SFU_OPS_S)
-    n_bytes = 4 * (2 * K * C * N + 2 * (D + 1) * N
-                   + E * (2 * (1 + D + tri + C) + 2 * (D + tri + C)))
-    hbm_t = n_bytes / MEM_BYTES_S
-    sol = max(vpu_t, hbm_t)
-    return {"pairs": pairs, "flops_per_step": pairs * (ops_f + ops_b),
-            "sol_step_s": sol, "sol_vpu_s": vpu_t, "sol_mxu_s": 0.0,
-            "sol_hbm_s": hbm_t, "bound": "vpu" if vpu_t >= hbm_t else "hbm"}
+    mxu_t = pairs * 3 * macs / TF32_MAC_S
+    hbm_t = 4 * n_floats / MEM_BYTES_S
+    sol = max(vpu_t, mxu_t, hbm_t)
+    return {"pairs": pairs, "flops_per_step": pairs * (ops + 2 * macs),
+            "sol_step_s": sol, "sol_vpu_s": vpu_t, "sol_mxu_s": mxu_t,
+            "sol_hbm_s": hbm_t,
+            "bound": ("vpu" if sol == vpu_t else "mxu" if sol == mxu_t
+                      else "hbm")}
 
 
 def mode_pair_ops(D, orders, C, kind, passes):
     """(fp32 instructions, special-function operations, tensor-core
     multiply-adds) one kept pair needs at the least in a kernel mode:
-    ``kind`` "separable" (the forward with power and a = C X contracted:
-    1 + D + tri and D (1 + D) multiply-adds a pass) or "moments" (the
-    backward with G S0 contracted against the monomials, 1 + D + tri a
-    pass, and G W_l against [1, x_l], D (1 + D) a pass, as dgs_tpu's
-    _moment_rows contracts both on the MXU; the D multiplies G W_l and the
-    laplacian's and the thirds' rows, one FMA each, on the CUDA cores).
+      "separable"     the forward with power and a = C X contracted:
+                      1 + D + tri and D (1 + D) multiply-adds a pass;
+      "moments"       the backward with G S0 contracted against the
+                      monomials, 1 + D + tri a pass, and G W_l against
+                      [1, x_l], D (1 + D) a pass, as dgs_tpu's _moment_rows
+                      contracts both on the MXU (the D multiplies G W_l and
+                      the laplacian's and the thirds' rows, one FMA each,
+                      on the CUDA cores);
+      "folded"        the folded forward: G of the pair (X, a, the power,
+                      the exponential), then R multiply-adds a pass
+                      (R = C sum_k |meta_k|, Z = fold G);
+      "folded_dvals"  the backward with the folded dvalues: the classic
+                      backward without its K C value-gradient FMAs, and R
+                      multiply-adds a pass (Zd = cb G);
+      "folded_vjp"    the fully folded backward: G and a, then
+                      (1 + D) R multiply-adds a pass for S0 and W_l and R
+                      for Zd, and the combine (dmu: D^2 + 2 D, z: D,
+                      dconic: 3 a packed entry);
+      "h_matmul"      the classic backward with h_k = g_k . values
+                      contracted: K C multiply-adds a pass in place of its
+                      K C h FMAs.
     ``passes`` is the TF32 passes of the contraction (3, or 1 under
     fast-math; the moment form is always 3).  The rest is pair_ops' count
     without the work the contraction takes.  This counts the function's
-    work, not how a kernel splits it between the two kinds of core."""
+    work, not how a kernel splits it between the two kinds of core; the
+    folded forms' per-sample and per-entry recombinations are not per pair
+    and are left out."""
     tri = D * (D + 1) // 2
     mr, mp = 1 + D + tri, 1 + D
+    K = ktiled.total_unique(tuple(orders), D)
     has_w = any(o in ("derivative", "laplacian", "third") for o in orders)
     if kind == "separable":
         ops, sfu = pair_ops(D, orders, C, False, False)
         return ops - (D + D * D + D + 1), sfu, passes * (mr + D * mp)
+    if kind in ("folded", "folded_dvals", "folded_vjp"):
+        R = ktiled.fold_rows(formulas.folded_structure(tuple(orders), D)[0],
+                             C)[0]
+        if kind == "folded":
+            return _context_ops(D), 1, passes * R
+        if kind == "folded_dvals":
+            ops, sfu = pair_ops(D, orders, C, False, True)
+            return ops - K * C, sfu, passes * R
+        return (_context_ops(D) + D * D + 3 * D + 3 * tri, 1,
+                passes * (2 + D) * R)
+    if kind == "h_matmul":
+        ops, sfu = pair_ops(D, orders, C, False, True)
+        return ops - K * C, sfu, passes * K * C
     if kind != "moments":
         raise ValueError(f"unknown kernel mode {kind!r}")
     ops, sfu = pair_ops(D, orders, C, False, True)

@@ -52,6 +52,9 @@ using cudaStream_t = void*;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 using std::max;
 using std::min;
 
@@ -164,20 +167,30 @@ def wait(procs):
         assert p.returncode == 0, out
 
 
+def _rewrite(src):
+    """A source with the launch syntax made emu::launch and the dynamic
+    shared array a per-launch buffer; the number of launches rewritten."""
+    src = src.replace("extern __shared__ float s_dt[];",
+                      "float* s_dt = emu::dyn_;")
+    return re.subn(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\(",
+                   r"emu::launch(\1, \2, ", src, flags=re.S)
+
+
 def build(tmpdir, names):
     """The sources ``csrc/<name>.cu`` built for the host, in parallel,
     against the emulated runtime: the launch syntax becomes emu::launch and
-    the dynamic shared array a per-launch buffer; nothing else of the
-    sources changes.  Returns one ctypes library a name."""
+    the dynamic shared array a per-launch buffer, in the sources and in the
+    headers beside them (rewritten copies shadow the originals); nothing
+    else changes.  Returns one ctypes library a name."""
     (tmpdir / "cuda_runtime.h").write_text(EMULATION)
+    for hdr in os.listdir(CSRC):
+        if hdr.endswith(".cuh"):
+            text = open(os.path.join(CSRC, hdr)).read()
+            (tmpdir / hdr).write_text(_rewrite(text)[0])
     objs, procs = [], []
     for name in names:
-        src = open(os.path.join(CSRC, name + ".cu")).read()
-        src = src.replace("extern __shared__ float s_dt[];",
-                          "float* s_dt = emu::dyn_;")
-        src, n = re.subn(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\(",
-                         r"emu::launch(\1, \2, ", src, flags=re.S)
-        assert n >= 1, name
+        src, n = _rewrite(open(os.path.join(CSRC, name + ".cu")).read())
+        assert n >= 1 or ".cuh\"" in src, name
         (tmpdir / (name + ".cpp")).write_text(src)
         objs.append(str(tmpdir / (name + ".so")))
         procs.append(gxx(["-O1", "-pthread", "-I", str(tmpdir), "-I", CSRC,

@@ -60,21 +60,15 @@ def test_helpers_match():
 
 
 @pytest.mark.parametrize("flag,value", [
+    ("separable_kernels", True), ("moment_backward", True),
+    ("fast_math_dots", True), ("work_span_fwd", 2), ("work_span_bwd", 2),
     ("folded_values", True), ("folded_dvals", True), ("folded_vjp", True),
     ("h_matmul", True),
 ])
-def test_tpu_only_modes_raise(flag, value):
-    with pytest.raises(NotImplementedError, match=flag):
-        tcfg.SamplerConfig(**{flag: value})
-
-
-@pytest.mark.parametrize("flag,value", [
-    ("separable_kernels", True), ("moment_backward", True),
-    ("fast_math_dots", True), ("work_span_fwd", 2), ("work_span_bwd", 2),
-])
 def test_ported_modes_are_accepted(flag, value):
-    """The kernel modes the port has (the separable forward, the moment-form
-    backward, fast_math_dots) and the span scheduling knobs of the TPU work
+    """Every kernel mode of dgs_tpu (the separable forward, the moment-form
+    backward, fast_math_dots, the folded forward, the folded dvalues, the
+    folded VJP, h_matmul) and the span scheduling knobs of the TPU work
     list: accepted, held as given, and the config otherwise dgs_tpu's."""
     t = tcfg.SamplerConfig(**{flag: value})
     j = jcfg.SamplerConfig(**{flag: value})

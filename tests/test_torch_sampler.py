@@ -14,6 +14,7 @@ from dgs_tpu.models import pigs as jpigs
 from dgs_tpu.models.field import init_field as jinit
 from dgs_tpu.sampler import GaussianSampler as JSampler
 from dgs_tpu_torch.config import SamplerConfig as TConfig
+from dgs_tpu_torch.kernels import tiled as ttiled
 from dgs_tpu_torch.models import pigs as tpigs
 from dgs_tpu_torch.models.field import GaussianField
 from dgs_tpu_torch.sampler import GaussianSampler as TSampler
@@ -119,16 +120,26 @@ def test_debug_errors(rng):
 
 
 def test_unported_paths_raise(rng, monkeypatch):
-    """The chunked method is ported (the facade constructs it); what the
-    port still does not run raises on it: dgs_tpu's kernel modes that are
-    not ported yet (the folded trio, h_matmul) and its kernel-ablation
-    hook."""
+    """The chunked method is ported (the facade constructs it) and runs
+    dgs_tpu's folded forward under folded_values (the kernel it names, with
+    the values of the classic facade at the kernel tolerance); what the
+    port does not run raises on it: dgs_tpu's kernel-ablation hook."""
     assert TSampler(method="chunked").method == "chunked"
-    with pytest.raises(NotImplementedError, match="folded_values"):
-        TConfig(folded_values=True)
     arrays = [torch.from_numpy(a) for a in _data(rng, P=30, N=60, D=3)]
-    s = TSampler(method="chunked", config=TConfig(tile_size=0.25))
-    s.preprocess(*arrays)
+    calls = []
+    real = ttiled.tiled_forward_folded
+    monkeypatch.setattr(ttiled, "tiled_forward_folded",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    outs = {}
+    for folded in (False, True):
+        s = TSampler(method="chunked",
+                     config=TConfig(tile_size=0.25, folded_values=folded))
+        s.preprocess(*arrays)
+        outs[folded] = s.sample_gaussians()
+    assert calls == [1]
+    ref = outs[False].numpy()
+    np.testing.assert_allclose(outs[True].numpy(), ref, rtol=2e-4,
+                               atol=1e-5 * max(1.0, float(abs(ref).max())))
     monkeypatch.setenv("DGS_ABLATE", "fdots")
     with pytest.raises(NotImplementedError, match="DGS_ABLATE"):
         s.sample_gaussians()

@@ -352,8 +352,8 @@ def test_kernel_modes_match_dgs_tpu(monkeypatch, D):
                             tcfg, D, None if unwrapped else tcfg.period,
                             arg_sep, arg_mom)
                     case = (fast, unwrapped, cfg_sep, arg_sep, arg_mom)
-                    assert got == want, case
-                    assert prep == any(got), case
+                    assert got[:2] == want, case
+                    assert prep == any(got[:2]), case
                     assert (len(w) > 0) == warned, case
                     for period in (tcfg.period, None):
                         ccfg = dataclasses.replace(

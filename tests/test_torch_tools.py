@@ -149,10 +149,7 @@ REFUSED = [("bench", "BENCH_BN", "512"), ("bench", "BENCH_BP", "256"),
            ("bench", "BENCH_BBN", "256"), ("bench", "BENCH_BBP", "256"),
            ("bench_aggregate", "AGG_BN", "32"),
            ("profile_aggregate", "AGG_BE", "128"),
-           ("sweep_tile", "SWEEP_BLOCKS", "256x128x256x128"),
-           ("bench", "BENCH_FOLDED", "1"),
-           ("bench", "BENCH_FDV", "1"), ("bench", "BENCH_FVJP", "1"),
-           ("bench", "BENCH_HMM", "1")]
+           ("sweep_tile", "SWEEP_BLOCKS", "256x128x256x128")]
 
 
 @pytest.mark.parametrize("tool,knob,value", REFUSED)
@@ -176,9 +173,12 @@ def test_knobs_at_their_port_values_are_accepted():
 ACCEPTED = [("train_100k", "BENCH_SPAN_F", "2"),
             ("sweep_chunked", "BENCH_SPAN_B", "2"),
             ("bench", "BENCH_MOMENTS", "1"), ("bench", "BENCH_SEP", "1"),
-            ("profile_step", "BENCH_FASTMATH", "1")]
+            ("profile_step", "BENCH_FASTMATH", "1"),
+            ("bench", "BENCH_FOLDED", "1"), ("bench", "BENCH_FDV", "1"),
+            ("bench", "BENCH_FVJP", "1"), ("bench", "BENCH_HMM", "1")]
 FLAGS = ("moment_backward", "separable_kernels", "fast_math_dots",
-         "work_span_fwd", "work_span_bwd")
+         "work_span_fwd", "work_span_bwd", "folded_values", "folded_dvals",
+         "folded_vjp", "h_matmul")
 
 
 def _port_configs(tool, s):
@@ -193,9 +193,10 @@ def _port_configs(tool, s):
 
 @pytest.mark.parametrize("tool,knob,value", ACCEPTED)
 def test_ported_knob_is_accepted(monkeypatch, tool, knob, value):
-    """BENCH_MOMENTS, BENCH_SEP, BENCH_FASTMATH and a span other than 1 are
-    accepted and resolve into the same config flags as the JAX tool
-    (bench.py:97-140, tools/profile_step.py:54-61, tools/train_100k.py,
+    """BENCH_MOMENTS, BENCH_SEP, BENCH_FASTMATH, BENCH_FOLDED, BENCH_FDV,
+    BENCH_FVJP, BENCH_HMM and a span other than 1 are accepted and resolve
+    into the same config flags as the JAX tool (bench.py:97-140,
+    tools/profile_step.py:54-61, tools/train_100k.py,
     tools/sweep_chunked.py)."""
     for k in list(os.environ):
         if k.startswith(("BENCH_", "PROF_", "AGG_", "DYN_", "T100K_",
@@ -214,7 +215,9 @@ def test_ported_knob_is_accepted(monkeypatch, tool, knob, value):
     field = {"BENCH_SPAN_F": "work_span_fwd", "BENCH_SPAN_B": "work_span_bwd",
              "BENCH_MOMENTS": "moment_backward",
              "BENCH_SEP": "separable_kernels",
-             "BENCH_FASTMATH": "fast_math_dots"}[knob]
+             "BENCH_FASTMATH": "fast_math_dots",
+             "BENCH_FOLDED": "folded_values", "BENCH_FDV": "folded_dvals",
+             "BENCH_FVJP": "folded_vjp", "BENCH_HMM": "h_matmul"}[knob]
     assert got[0][field] in (True, int(value))
 
 

@@ -265,6 +265,12 @@ def test_pair_ops_pinned():
     (3, ("value",), "moments", 3, (26, 1, 30)),
     (3, SLICE, "separable", 3, (56, 1, 66)),
     (3, SLICE, "separable", 1, (56, 1, 22)),
+    (3, SLICE, "folded", 3, (17, 1, 876)),
+    (2, SLICE, "folded", 1, (10, 1, 100)),
+    (3, SLICE, "folded_dvals", 3, (152, 1, 876)),
+    (3, SLICE, "folded_vjp", 3, (53, 1, 4380)),
+    (2, SLICE, "folded_vjp", 1, (29, 1, 400)),
+    (3, SLICE, "h_matmul", 3, (152, 1, 120)),
 ])
 def test_mode_pair_ops_pinned(D, orders, kind, passes, want):
     """The kernel modes' per-pair counts: the moment form contracts G S0
@@ -272,13 +278,35 @@ def test_mode_pair_ops_pinned(D, orders, kind, passes, want):
     G W_l against [1, x_l] (D (1 + D) more multiply-adds a pass), both at
     the TF32 rate as dgs_tpu's _moment_rows does on the MXU; only the D
     multiplies G W_l stay fp32 (at D = 3, three orders: 10 + 12 = 22
-    multiply-adds a pass, 66 at 3 passes)."""
+    multiply-adds a pass, 66 at 3 passes).  The folded modes contract R
+    rows a pair (R = 292 at D = 3, three orders, C = 4): the forward after
+    G alone, the folded dvalues in place of the K C value FMAs, the folded
+    VJP (1 + D) R for S0 and W_l and R for Zd; h_matmul K C in place of
+    the h FMAs."""
     assert roofline.mode_pair_ops(D, orders, 4, kind, passes) == want
     b = roofline.mode_bound(10 ** 9, 0, D, orders, 4, kind, passes)
     assert b == {"bound_ms": pytest.approx(1e3 * max(
         want[0] * 1e9 / roofline.FP32_INSTR_S,
         want[1] * 1e9 / roofline.SFU_OPS_S,
         want[2] * 1e9 / roofline.TF32_MAC_S)), "bound_by": "operations"}
+
+
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_pair_flops_macs_match_dgs_tpu(D, folded):
+    """pair_flops' contraction multiply-adds equal dgs_tpu's mxu_macs (R
+    forward and R backward folded, K C each classic); the folded step's
+    roofline adds the tensor cores' time and the folded operands' bytes."""
+    for orders in (SLICE, ORDERS, ("value",)):
+        got = roofline.pair_flops(orders, D, 4, folded)
+        assert got[1] == jroofline.pair_flops(orders, D, 4, folded)[1]
+    on = roofline.step_roofline(SLICE, D, 4, 10 ** 9, 10 ** 6, 10 ** 6,
+                                folded=True)
+    off = roofline.step_roofline(SLICE, D, 4, 10 ** 9, 10 ** 6, 10 ** 6)
+    assert on["sol_mxu_s"] == pytest.approx(
+        10 ** 9 * 3 * roofline.pair_flops(SLICE, D, 4)[1]
+        / roofline.TF32_MAC_S)
+    assert on["sol_hbm_s"] > off["sol_hbm_s"] and off["sol_mxu_s"] == 0.0
 
 
 def test_step_roofline_keys_and_bound():
