@@ -94,12 +94,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    and bitwise equal, with the kernels each mode launched.
      parity_folded - the folded modes of kernels 1-2 and h_matmul
                    (csrc/tiled_forward_folded.cu, tiled_backward_folded.cu,
-                   tiled_backward_hmm.cu, tiled_backward_moments.cu's
-                   h_matmul instantiations) against their plain versions
-                   on wrap-free operands: D in {1, 2, 3} x C in {1, 4, 6}
-                   x three orders, four orders and (value, laplacian),
-                   full-cover footprints (open box), tiles without samples
-                   or entries; the folded forward and VJP within the
+                   tiled_backward_fvjp.cu, tiled_backward_hmm.cu,
+                   tiled_backward_moments.cu's h_matmul instantiations)
+                   against their plain versions on wrap-free operands: D in
+                   {1, 2, 3} x C in {1, 4, 6} x three orders, four orders
+                   and (value, laplacian), and D = 3 at four orders and
+                   C = 4 (R = 1,092: three passes of the folded forward,
+                   several Zd windows of the folded VJP; C = 6 gives R =
+                   1,638), blocks that straddle two tiles (counted, and
+                   required), full-cover footprints (open box), tiles
+                   without samples or entries; the folded forward and VJP
+                   within the
                    general limits or, where the expansion's cancellation
                    defeats them, within FOLD_ERR_RATIO times the fp32 plain
                    version's error against float64, the folded dvalues
@@ -307,9 +312,12 @@ C = 4, three orders) classic, under BENCH_FOLDED=1, + BENCH_FDV=1,
 parameters: host median and range, busy ms, device items, peak bytes, the
 kernels each mode names, gradients against the classic step's at
 FOLD_ATOL_REL), each new kernel's CUDA-event ms, bound and plain version
-on its step's operands beside kernels 1-2; the four-order step under
-BENCH_FDV=1, whose folded dvalues turn themselves off; and the D = 2
-headline step classic, under the folded VJP and under h_matmul.
+on its step's operands beside kernels 1-2, with the folded forward's and
+VJP's registers, spills, shared bytes, resident blocks and passes; the
+four-order step under BENCH_FDV=1, whose folded dvalues turn themselves
+off, and the tall-R case: the folded forward and VJP timed on that step's
+four-order operands (R = 1,092); and the D = 2 headline step classic,
+under the folded VJP and under h_matmul.
 
 Then the kernels line (per kernel: launches on its main path and by path,
 its time, its plain version's time, the least time the card could take
@@ -3721,6 +3729,11 @@ def mode_kernel_numbers(ev, sides, plain=True):
             floats = base * Ep + sum(t.numel() for t in (
                 smp, ct, s_lo, s_n)) + (n_rows + C) * Ep
         ms = cuda_ms(call)
+        if kernel in FOLDED_KERNELS and not plain:
+            got = call()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{kernel}: not finite at full width")
+            del got
         if kernel in ("tiled_forward", "tiled_backward"):
             bound = kernel_bound(pairs, floats, D, orders, C,
                                  ev["period"] is not None,
@@ -3735,6 +3748,16 @@ def mode_kernel_numbers(ev, sides, plain=True):
                                ev["passes"] if kind == "separable" else 3)
         out[kernel] = {"ms": ms, **bound, "share": bound["bound_ms"] / ms,
                        "kept_pairs": pairs}
+        if kernel in ("tiled_forward_folded", "tiled_backward_fvjp"):
+            out[kernel]["instantiation"] = folded_facts(kernel, orders, D, C)
+            # One TF32 pass: a third of the contraction, the rest the same.
+            passes, ev["passes"] = ev["passes"], 1
+            out[kernel]["ms_one_pass"] = cuda_ms(folded_calls(
+                kernel, ev, lo, n, s_lo, s_n, ct, cb, local, packed)[0])
+            ev["passes"] = passes
+        elif kernel in ("tiled_forward", "tiled_backward"):
+            out[kernel]["instantiation"] = instantiation(
+                kernel, orders, D, C, ev["period"])
         if kernel in FOLDED_KERNELS and plain:
             got = call()
             torch.cuda.synchronize()
@@ -3969,6 +3992,49 @@ def bwd_groups(D, C):
             "vz": (slice(D + tri + C, None), GRAD_RTOL)}
 
 
+def folded_facts(kernel, orders, D, C):
+    """The build and launch facts of the redesigned folded forward or VJP
+    at (orders, D, C): registers, spill bytes and static shared bytes of its
+    instantiation (the ptxas report), the dynamic shared bytes of a launch,
+    the blocks an SM holds, and the passes over the pairs (the forward's
+    passes of 128 or 384 rows; the VJP's Zd windows)."""
+    lib = _build.load()
+    meta, n_mono, R, Rp = ktiled.folded_layout(orders, D, C)
+    if kernel == "tiled_forward_folded":
+        dyn = lib.dgs_tiled_forward_folded_smem(
+            D, Rp, n_mono, ktiled.total_unique(orders, D) * C)
+        rows = lib.dgs_tiled_forward_folded_pass_rows(Rp)
+        # its template: D, then the m16 tiles of Z a warp holds
+        name = f"{kernel}_kernelILi{D}ELi{rows // 128}EE"
+    else:
+        nsel = len(ktiled.fvjp_vz_groups(orders, D))
+        dyn = lib.dgs_tiled_backward_fvjp_smem(D, Rp, C, nsel)
+        rows = lib.dgs_tiled_backward_fvjp_window(D, Rp, C, nsel)
+        name = f"{kernel}_kernelILi{D}EE"
+    reports = [
+        r for r in _build.build_log().split("Compiling entry function")[1:]
+        if name in r.split("'")[1]]
+    if len(reports) != 1:
+        raise AssertionError(f"{len(reports)} ptxas reports for {name}")
+    regs = int(re.search(r"Used (\d+) registers", reports[0]).group(1))
+    spill = int(re.search(r"(\d+) bytes spill stores", reports[0]).group(1))
+    smem = re.search(r"(\d+) bytes smem", reports[0])
+    static = int(smem.group(1)) if smem else 0
+    return {"registers": regs, "spill_store_bytes": spill,
+            "static_shared_bytes": static, "dynamic_shared_bytes": dyn,
+            "resident_blocks": resident_blocks(regs, 256, static + dyn),
+            "R": R, "rows_a_pass": rows, "passes": -(-Rp // rows)}
+
+
+def straddling_blocks(tiles, T, block):
+    """Blocks of ``block`` consecutive sorted rows whose valid tiles (< T)
+    are two or more."""
+    t = torch.where(tiles < T, tiles, -1)
+    t = t[:t.shape[0] // block * block].reshape(-1, block)
+    first = torch.where(t >= 0, t, T).amin(dim=1)
+    return int((t.amax(dim=1) > first).sum())
+
+
 def folded_calls(kernel, ev, lo, n, s_lo, s_n, ct, cb, local, packed):
     """(the kernel's call, its plain version's call on operands of a given
     dtype, the floats it must move) of a folded-mode kernel on one
@@ -4024,8 +4090,13 @@ def phase_parity_folded(dev):
     folded-dvalues ones under ONE_PASS_SANITY; the folded VJP's rows
     combined (fvjp_combine) against the classic backward on the same
     operands at FOLD_ATOL_REL; pad and sentinel columns exactly zero; the
-    backwards twice, bitwise equal.  Then the op in each folded mode and
-    under h_matmul against the dense masked oracle, gradients twice and
+    backwards twice, bitwise equal.  D = 3 at four orders (C = 4 and 6: R
+    = 1,092 and 1,638) takes several passes of the folded forward and Zd
+    windows of the folded VJP (each case reports the instantiations); the
+    phase fails unless some 64-sample block of the folded forward and some
+    32-entry block of the folded VJP straddle two tiles.  Then the op in
+    each folded mode and under h_matmul against the dense masked oracle,
+    gradients twice and
     bitwise equal, with the kernels each mode launched.  (The folded
     dvalues are held as the folded forward and VJP are: their value rows
     sum the same expansion, 1.5e-4 of max|ref| from the plain version at
@@ -4034,10 +4105,11 @@ def phase_parity_folded(dev):
     cases = [(1, 1, THREE), (1, 4, ORDERS), (1, 6, PARTIAL),
              (2, 1, ORDERS), (2, 4, THREE), (2, 6, PARTIAL),
              (3, 1, PARTIAL), (3, 4, THREE), (3, 6, ORDERS)]
+    cases += [(3, 4, ORDERS)]   # R = 1,092: several passes and Zd windows
     cases = [(D, 0.03, C, o, False, False) for D, C, o in cases]
     cases += [(2, 0.6, 4, THREE, False, True),    # full cover, open box
               (2, 0.03, 4, ORDERS, True, False)]  # tiles without a side
-    one_pass = {}
+    one_pass, straddling = {}, {"fwd_64": 0, "bwd_32": 0}
     for i, (D, sigma, C, orders, holes, open_domain) in enumerate(cases):
         (m, v, covs, con), samples, g, cfg, state = wrap_free_case(
             dev, 90 + i, D, sigma, C, holes, open_domain)
@@ -4058,6 +4130,14 @@ def phase_parity_folded(dev):
         local = ktiled.local_samples(mono, D)
         dead = dead_entries(geom, state)
         res, ones = {}, {}
+        T = state.ent_start.shape[0] - 2
+        blocks = {"fwd_64": straddling_blocks(state.s_tile[0], T, 64),
+                  "bwd_32": straddling_blocks(state.ent_tile[0], T,
+                                              ktiled.BLOCK_E)}
+        for key, count in blocks.items():
+            straddling[key] += count
+        facts = {k: folded_facts(k, orders, D, C)
+                 for k in ("tiled_forward_folded", "tiled_backward_fvjp")}
         for kernel, groups in (
                 ("tiled_forward_folded", fwd_groups(orders, D, C)),
                 ("tiled_backward_fdv", bwd_groups(D, C)),
@@ -4134,7 +4214,8 @@ def phase_parity_folded(dev):
         emit("parity_folded", D=D, sigma=sigma, C=C, orders=list(orders),
              R=R, P=m.shape[0], N=samples.shape[0], holes=holes,
              open_domain=open_domain, entries=int((~dead).sum()),
-             **tile_facts(state), err=res, one_pass_vs_three_pass=ones,
+             **tile_facts(state), straddling_blocks=blocks,
+             instantiations=facts, err=res, one_pass_vs_three_pass=ones,
              one_pass_label="outside the fp32 gate")
         del geom, fold, foldw, mono, cb, ct
 
@@ -4196,7 +4277,10 @@ def phase_parity_folded(dev):
                     GRAD_RTOL, atol)[0]
             emit("parity_folded_oracle", D=D, P=300, N=2000, mode=name,
                  launches=launched, max_abs_err=err, bitwise_repeatable=True)
+    if not all(straddling.values()):
+        raise AssertionError(f"no block straddles two tiles: {straddling}")
     emit("parity_folded_summary", one_pass_worst=one_pass,
+         straddling_blocks=straddling,
          seconds=time.perf_counter() - t_phase)
     return one_pass
 
@@ -4224,11 +4308,16 @@ def phase_folded_slice(dev, steps=10):
     the kernels its mode names), each kernel's CUDA-event ms on its own
     operands beside kernels 1-2 of the classic step, the plain versions'
     ms once (the folded forward and VJP also against float64), the
-    gradients against the classic step's at FOLD_ATOL_REL.  A step at all
-    four orders under (b) checks that the folded dvalues turned themselves
-    off (the beta-expanded cotangent is 4.4 GB, above CT_BETA_MAX_BYTES).
-    Then the D = 2 headline step classic, under (c) and under (d).
-    Returns (launches by path, kernel numbers by run)."""
+    gradients against the classic step's at FOLD_ATOL_REL; for the folded
+    forward and VJP also their one-pass ms and their instantiations
+    (registers, spills, shared bytes, resident blocks, passes:
+    folded_facts), for kernels 1-2 theirs.  A step at all four orders
+    under (b) checks that the folded dvalues turned themselves off (the
+    beta-expanded cotangent is 4.4 GB, above CT_BETA_MAX_BYTES); the
+    folded forward and VJP are then timed on that step's operands (R =
+    1,092: the tall case).  Then the D = 2 headline step classic, under
+    (c) and under (d).  Returns (launches by path, kernel numbers by
+    run)."""
     launches, kernels = {}, {}
     t_phase = time.perf_counter()
     for D in (3, 2):
@@ -4307,7 +4396,27 @@ def phase_folded_slice(dev, steps=10):
                  launches=got, ct_beta_bytes=beta,
                  ct_beta_max_bytes=ktiled.CT_BETA_MAX_BYTES,
                  folded_dvals_off=True)
-            del w4, value
+            del value
+            # The tall-R case: the folded forward and VJP on this step's
+            # four-order operands (R = 1,092: the forward's three passes,
+            # the VJP's three Zd windows), with the foldw rows the step did
+            # not build.
+            t0 = time.perf_counter()
+            value, _ = bench.loss(w4)
+            (ev4,) = tiled_evaluations(value)
+            del value
+            tri = 6
+            ev4["foldw"] = ktiled.build_folded(
+                ORDERS, 3, 4, ev4["geom"][1:1 + 3 + tri + 4].T,
+                formulas.folded_structure(ORDERS, 3)[0], vjp=True)[2]
+            kernels["d3_tall_four_orders"] = mode_kernel_numbers(
+                ev4, ["tiled_forward_folded", "tiled_backward_fvjp"],
+                plain=False)
+            emit("folded_slice", run="d3_tall_four_orders",
+                 kernels=kernels["d3_tall_four_orders"],
+                 seconds=time.perf_counter() - t0)
+            del w4, ev4
+            torch.cuda.empty_cache()
         del base
         torch.cuda.empty_cache()
     emit("folded_slice_summary", seconds=time.perf_counter() - t_phase)
@@ -4433,7 +4542,7 @@ def main():
             "folded_d3_folded_dvals",
             k_folded["d3_folded_dvals"]["tiled_backward_fdv"]),
         "tiled_backward_fvjp": (
-            "tiled_backward_folded.cu", "dgs_tpu/kernels/tiled.py:932",
+            "tiled_backward_fvjp.cu", "dgs_tpu/kernels/tiled.py:932",
             "folded_d3_folded_vjp",
             k_folded["d3_folded_vjp"]["tiled_backward_fvjp"]),
         "tiled_backward_hmm": (

@@ -1,7 +1,8 @@
 // Warp-level TF32 tensor-core contraction with fp32 accumulation, for the
 // kernel modes of the tiled kernels (tiled_forward_sep.cu,
 // tiled_backward_moments.cu, tiled_forward_folded.cu,
-// tiled_backward_folded.cu, and h_matmul in the backwards that build h):
+// tiled_backward_folded.cu, tiled_backward_fvjp.cu, and h_matmul in the
+// backwards that build h):
 // mma.sync.aligned.m16n8k8 on sm_90a.
 //
 // Precision.  A TF32 operand keeps 10 explicit mantissa bits.  One pass
@@ -23,8 +24,9 @@
 // with g++ and hold it against numpy (tests/test_torch_tf32_split.py).  Built
 // for the host under the emulated CUDA runtime of tests/cuda_emulation.py
 // (which defines __CUDACC__ but neither __CUDA_ARCH__ nor __NVCC__),
-// mma_tf32 computes the same fragment product from the lanes' registers with
-// shuffles, so that the CPU tests can run the kernels that use it.
+// mma_tf32 computes the same fragment product from the lanes' registers,
+// gathered in one exchange (emu::warp_gather), so that the CPU tests can run
+// the kernels that use it.
 #pragma once
 
 #include <stdint.h>
@@ -117,23 +119,20 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const float (&a)[4],
         "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])),
         "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
 #elif !defined(__NVCC__)
-  // The same product from the lanes' fragments (every lane takes part).
+  // The same product from the lanes' fragments (every lane takes part),
+  // gathered in one exchange of the warp's registers.
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  float arow[2][8], bcol[2][8];
-  for (int k = 0; k < 8; ++k) {
-    for (int h = 0; h < 2; ++h) {
-      // A[g + 8h][k] lives in lane 4 g + k % 4, register h + 2 (k / 4).
-      arow[h][k] = __shfl_sync(0xffffffffu, a[h + 2 * (k / 4)],
-                               4 * g + k % 4);
-      // B[k][2t + h] lives in lane 4 (2t + h) + k % 4, register k / 4.
-      bcol[h][k] = __shfl_sync(0xffffffffu, b[k / 4],
-                               4 * (2 * t + h) + k % 4);
-    }
-  }
+  const float mine[6] = {a[0], a[1], a[2], a[3], b[0], b[1]};
+  float all[32][6];
+  emu::warp_gather(mine, all);
   for (int r = 0; r < 2; ++r)
     for (int h = 0; h < 2; ++h) {
       float s = c[2 * r + h];
-      for (int k = 0; k < 8; ++k) s += arow[r][k] * bcol[h][k];
+      // A[g + 8r][k] is lane 4 g + k % 4's register r + 2 (k / 4); B[k][n]
+      // is lane 4 n + k % 4's register 4 + k / 4.
+      for (int k = 0; k < 8; ++k)
+        s += all[4 * g + k % 4][r + 2 * (k / 4)] *
+             all[4 * (2 * t + h) + k % 4][4 + k / 4];
       c[2 * r + h] = s;
     }
 #endif

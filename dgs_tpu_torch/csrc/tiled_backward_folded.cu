@@ -1,57 +1,26 @@
-// Tiled backward under the folded forward, for Hopper (sm_90a): the folded
-// dvalues and the fully folded VJP, with their contractions on the tensor
-// cores.
+// Tiled backward under the folded forward with folded_dvals, for Hopper
+// (sm_90a): the folded dvalues, with their contraction on the tensor cores.
+// The fully folded VJP is tiled_backward_fvjp.cu.
 //
 // Replaces the TPU kernel dgs_tpu/kernels/tiled.py::tiled_backward
-// (_wl_backward_kernel) in its two folded branches: the folded dvalues of
-// _compute_one (folded_dvals) and _compute_one_fvjp (folded_vjp).  For
-// every tile-sorted entry (a lane each, 32 entries a warp, the warp's
-// sample range as in tiled_backward.cuh), with the beta-expanded cotangent
-// cb (R rows (k, m, c): ct[k, c] * monomial m, kernels/tiled.py
-// ct_beta_rows) and G of each same-tile pair (X = mu_l - x_l, wrap-free):
+// (_wl_backward_kernel) in its folded-dvalues branch (_compute_one under
+// folded_dvals, dgs_tpu/kernels/tiled.py:1117-1145).  For
+// every tile-sorted entry, with the beta-expanded cotangent cb (R rows
+// (k, m, c): ct[k, c] * monomial m, kernels/tiled.py ct_beta_rows) and G of
+// each same-tile pair (X = mu_l - x_l, wrap-free):
 //
 //   Zd[r, e]    = sum_n cb[r, n] G[n, e]                (the tensor cores)
 //   dvalues_c   = sum_i alpha_i Zd[i * C + c]           (alpha: geom rows)
 //
-// Folded dvalues (tiled_backward_fdv_kernel): the mean and conic rows are
+// The kernel (tiled_backward_fdv_kernel): the mean and conic rows are
 // the classic per-pair VJP of tiled_backward.cuh (entry_sweep without the
 // value gradients: h_k from the (K*C, Np) cotangent, with h_matmul as
-// tensor-core contractions), then the Zd sweep gives the value rows.
-//
-// Folded VJP (tiled_backward_fvjp_kernel): no h chain.  Per block of 32
-// samples x the warp's 32 entries, the fused VJP's accumulators come off
-// the tensor cores with depth R,
-//   S0[n, e]  = sum_r cb[r, n] fold[r, e],   W_l[n, e] = sum_r cb[r, n] foldw_l[r, e],
-// and each lane combines its entry's pairs: dmu_d += G ((C W)_d - a_d S0),
-// z = W - X S0 / 2, dconic_uv += G (X_v z_u + X_u z_v).  The laplacian and
-// third-order conic corrections are per-entry combinations of Zd rows: the
-// kernel writes vz_i = sum_c values_c Zd[i * C + c] for the groups i that
-// ``sel`` names, and kernels/tiled.py fvjp_combine adds them in torch, as
-// moment_combine does.
-//
-// Design.  R (24 to 1,092 rows at C = 4) is too tall for the fragments of a
-// warp, so both kernels take it in slices of 64 rows (four m16 tiles: 64
-// accumulator registers a lane for Zd) and sweep the warp's sample range
-// once a slice.  Per chunk of 32 samples: the warp stages the samples'
-// [tile, x_l], each lane computes G of its entry with them into a 32 x 32
-// block in shared memory ([sample][entry], the B operand of Zd), and
-// mma.sync m16n8k8 adds cb (the A operand, read from global memory) times
-// that block into the slice's Zd fragments.  The folded VJP's S0 and W_l
-// are linear in cb, so each slice contributes its rows' share: per chunk,
-// one (1 + D) x 32 x 32 block of contractions with depth 64 (cb as the A
-// operand read transposed, fold / foldw as B), through shared memory to the
-// lanes, which add the slice's share of the combine into their registers.
-// After a slice the Zd fragments go through shared memory 16 rows at a
-// time, and each lane adds its entry's column, times alpha (and values for
-// vz), into its rows in shared memory.  Every sum runs in a fixed order
-// (slices, chunks, rows): no atomics, bitwise repeatable.  3 TF32 passes,
-// or 1 under fast-math (tf32_mma.cuh).
-//
-// Cost.  G is computed once a slice; the classic VJP of the folded dvalues
-// once.  The contractions are R multiply-adds a pair a pass for Zd and
-// (1 + D) R for S0 and W_l.  cb is read once a range of 32 entries per
-// slice, fold and foldw once a chunk of 32 samples per slice, from L2 where
-// the ranges of a tile run together.  A simple first version.
+// tensor-core contractions), then the Zd sweep gives the value rows.  One
+// warp a range of 32 entries (a lane each), R in slices of 64 rows, the
+// warp's sample range swept once a slice: G is computed once a slice, cb
+// read from device memory as the fragments need it.  A simple first version;
+// tiled_backward_fvjp.cu's staging (cp.async chunks shared by a block's
+// warps, G once a pair) is the way to redesign it.
 //
 // Build: with the other sources into libdgs_kernels.so
 // (dgs_tpu_torch/kernels/_build.py).  Never with --use_fast_math.
@@ -67,33 +36,25 @@ using dgs::kWarp;
 using dgs::OrderRows;
 
 // The folded sweep's part of a warp's shared memory: the staged sample
-// heads, the G block (also the Zd rows of the epilogue), the S0 / W_l
-// blocks (VJP), and the per-entry dvalues and vz rows, [row][lane].
-template <int D, bool VJP>
-DGS_HD constexpr int sweep_floats(int C, int nsel) {
-  return 4 * kWarp + kWarp * kStride +
-         (VJP ? (1 + D) * kWarp * kStride : 0) + (C + nsel) * kWarp;
+// heads, the G block (also the Zd rows of the epilogue), and the per-entry
+// dvalues rows, [row][lane].
+DGS_HD constexpr int sweep_floats(int C) {
+  return 4 * kWarp + kWarp * kStride + C * kWarp;
 }
 
-// The Zd slices (and, with VJP, S0 / W_l and the combine) of one warp.
-// ``col`` is the lane's entry; its tile, mu_l and conic come from geom;
-// dmu / dcon receive the VJP's rows; the value rows and vz rows are left in
-// ``dvs`` / ``vzs`` ([row][lane]).
-template <int D, bool VJP>
+// The Zd slices of one warp (the folded dvalues).  ``col`` is the lane's
+// entry; its tile, mu_l and conic come from geom; the value rows are left
+// in ``dvs`` ([row][lane]).
+template <int D>
 __device__ __forceinline__ void folded_sweep(
     const float* __restrict__ geom, long long Ep, int C,
     const float* __restrict__ smp, long long Np,
-    const float* __restrict__ cb, int Rp, int R,
-    const float* __restrict__ fold, const float* __restrict__ foldw,
-    const int* __restrict__ sel, int lo, int hi, long long col, bool three,
-    float* sm, float (&dmu)[D], float (&dcon)[dgs::tri_size(D)], float* dvs,
-    float* vzs, int nsel) {
+    const float* __restrict__ cb, int Rp, int R, int lo, int hi,
+    long long col, bool three, float* sm, float* dvs) {
   constexpr int TRI = dgs::tri_size(D);
   const int lane = threadIdx.x % kWarp, g = lane / 4, t = lane % 4;
   float4* heads = reinterpret_cast<float4*>(sm);
   float* gb = sm + 4 * kWarp;                  // [sample][entry]
-  float* sb = gb + kWarp * kStride;            // [q][sample][entry]
-  const long long e_base = col - lane;
   const long long a0 = 1 + D + TRI + C;        // geom row of alpha_0
   const float tile = geom[col];
   float mu[D], con[TRI];
@@ -102,7 +63,6 @@ __device__ __forceinline__ void folded_sweep(
 #pragma unroll
   for (int u = 0; u < TRI; ++u) con[u] = geom[(1 + D + u) * Ep + col];
   for (int c = 0; c < C; ++c) dvs[c * kWarp + lane] = 0.0f;
-  for (int s = 0; s < nsel; ++s) vzs[s * kWarp + lane] = 0.0f;
 
   for (int R0 = 0; R0 < R; R0 += 16 * kTiles) {
     float z[kTiles][4][4];
@@ -167,101 +127,10 @@ __device__ __forceinline__ void folded_sweep(
                                three);
         }
       }
-
-      if (VJP) {
-        // The slice's share of S0 (q = 0) and W_l (q = 1 + l) for the
-        // chunk's pairs: samples the M side, entries N, rows K.
-        for (int q = 0; q <= D; ++q) {
-          const float* F =
-              q == 0 ? fold : foldw + (long long)(q - 1) * Rp * Ep;
-          float acc[2][4][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-              for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.0f;
-          for (int ks = 0; ks < 2 * kTiles; ++ks) {
-            const int r0 = R0 + 8 * ks;
-            if (r0 >= Rp) break;
-            float b_hi[4][2], b_lo[4][2];
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-                dgs::tf32_split_rt(
-                    F[(long long)(r0 + t + 4 * h) * Ep + e_base + 8 * nt + g],
-                    three, b_hi[nt][h], b_lo[nt][h]);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              float a_hi[4], a_lo[4];
-#pragma unroll
-              for (int r = 0; r < 4; ++r) {
-                const int sj = 16 * mt + g + 8 * (r % 2);
-                const float v =
-                    sj < n
-                        ? cb[(long long)(r0 + t + 4 * (r / 2)) * Np + s0 + sj]
-                        : 0.0f;
-                dgs::tf32_split_rt(v, three, a_hi[r], a_lo[r]);
-              }
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt)
-                dgs::mma_passes_rt(acc[mt][nt], a_hi, a_lo, b_hi[nt],
-                                   b_lo[nt], three);
-            }
-          }
-          float* sq = sb + q * kWarp * kStride;
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              float* p = sq + (16 * mt + g) * kStride + 8 * nt + 2 * t;
-              p[0] = acc[mt][nt][0];
-              p[1] = acc[mt][nt][1];
-              p[8 * kStride] = acc[mt][nt][2];
-              p[8 * kStride + 1] = acc[mt][nt][3];
-            }
-        }
-        __syncwarp();
-        // The combine, linear in S0 and W: the slice's share of each pair.
-        for (int j = 0; j < n; ++j) {
-          const float G = gb[j * kStride + lane];
-          if (G == 0.0f) continue;
-          const float4 h = heads[j];
-          const float xs[3] = {h.y, h.z, h.w};
-          float X[D], a[D], W[D];
-#pragma unroll
-          for (int d = 0; d < D; ++d) X[d] = mu[d] - xs[d];
-          dgs::pair_form<D>(X, con, a);
-          const float S0 = sb[j * kStride + lane];
-#pragma unroll
-          for (int l = 0; l < D; ++l)
-            W[l] = sb[(1 + l) * kWarp * kStride + j * kStride + lane];
-          const float half = 0.5f * S0;
-          float zz[D];
-#pragma unroll
-          for (int d = 0; d < D; ++d) {
-            float cw = con[dgs::tri_index(D, d, 0)] * W[0];
-#pragma unroll
-            for (int l = 1; l < D; ++l)
-              cw += con[dgs::tri_index(D, d, l)] * W[l];
-            dmu[d] += G * (cw - a[d] * S0);
-            zz[d] = W[d] - X[d] * half;
-          }
-#pragma unroll
-          for (int u = 0; u < D; ++u)
-#pragma unroll
-            for (int v = u; v < D; ++v)
-              dcon[dgs::tri_index(D, u, v)] +=
-                  u == v ? G * (X[u] * zz[u])
-                         : G * (X[v] * zz[u] + X[u] * zz[v]);
-        }
-      }
     }
 
     // The slice's Zd rows through shared memory, 16 at a time; each lane
-    // adds its entry's column into its value rows (times alpha) and its vz
-    // rows (times the values).
+    // adds its entry's column into its value rows (times alpha).
 #pragma unroll
     for (int mt = 0; mt < kTiles; ++mt) {
       const int r0 = R0 + 16 * mt;
@@ -281,13 +150,6 @@ __device__ __forceinline__ void folded_sweep(
         const float zd = gb[ii * kStride + lane];
         float* dv = dvs + c * kWarp + lane;
         *dv = fmaf(geom[(a0 + i) * Ep + col], zd, *dv);
-        if (VJP) {
-          const int slot = sel[i];
-          if (slot >= 0) {
-            float* vz = vzs + slot * kWarp + lane;
-            *vz = fmaf(geom[(1 + D + TRI + c) * Ep + col], zd, *vz);
-          }
-        }
       }
     }
   }
@@ -313,12 +175,12 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_fdv_kernel(
   constexpr int NV = dgs::bwd_record_vecs(K, CB);
   constexpr int HB = HMM ? K * 8 * dgs::kHStride : 0;
   extern __shared__ float s_dt[];
-  const int warp_floats = 4 * NV * kWarp + HB + sweep_floats<D, false>(C, 0);
+  const int warp_floats = 4 * NV * kWarp + HB + sweep_floats(C);
   float* base = s_dt + (threadIdx.x / kWarp) * warp_floats;
   float4* s_rec = reinterpret_cast<float4*>(base);
   float* hb = base + 4 * NV * kWarp;
   float* sm = hb + HB;
-  float* dvs = sm + sweep_floats<D, false>(0, 0);
+  float* dvs = sm + sweep_floats(0);
   const int lane = threadIdx.x % kWarp;
 
   const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / kWarp;
@@ -339,62 +201,14 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_fdv_kernel(
   dgs::entry_sweep<D, MASK, CB, false, false, HMM>(
       geom, Ep, C, smp, Np, ct, lo, hi, 0.0f, 0.0f, rows, col, s_rec, hb,
       three, ent, nullptr);
-  float dmu0[D], dcon0[TRI];   // the folded sweep adds nothing here
-  folded_sweep<D, false>(geom, Ep, C, smp, Np, cb, Rp, R, nullptr, nullptr,
-                         nullptr, lo, hi, col, three, sm, dmu0, dcon0, dvs,
-                         nullptr, 0);
+  folded_sweep<D>(geom, Ep, C, smp, Np, cb, Rp, R, lo, hi, col, three, sm,
+                  dvs);
   float* rec = out + col * (D + TRI + C);
 #pragma unroll
   for (int d = 0; d < D; ++d) rec[d] = ent.dmu[d];
 #pragma unroll
   for (int u = 0; u < TRI; ++u) rec[D + u] = ent.dcon[u];
   for (int c = 0; c < C; ++c) rec[D + TRI + c] = dvs[c * kWarp + lane];
-}
-
-// Folded VJP: every row from the folded sweep.  Output
-// (Ep, D + tri + C + nsel), entry-major: dmu, dconic (without the
-// corrections fvjp_combine adds), dvalues, vz.
-template <int D>
-__global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_fvjp_kernel(
-    const float* __restrict__ geom,  // (1 + D + tri + C + A, Ep) folded geom
-    long long Ep, int C,
-    const float* __restrict__ fold,  // (Rp, Ep)
-    const float* __restrict__ foldw, // (D * Rp, Ep)
-    const float* __restrict__ cb,    // (Rp, Np)
-    int Rp, int R,
-    const float* __restrict__ smp,   // (D + 1, Np): x_l, tile
-    long long Np,
-    const int* __restrict__ s_lo, const int* __restrict__ s_n,
-    const int* __restrict__ sel,     // (A,) vz slot of each group, or -1
-    int nsel, bool three, float* __restrict__ out) {
-  constexpr int TRI = dgs::tri_size(D);
-  extern __shared__ float s_dt[];
-  float* sm =
-      s_dt + (threadIdx.x / kWarp) * sweep_floats<D, true>(C, nsel);
-  float* dvs = sm + sweep_floats<D, true>(0, 0);
-  float* vzs = dvs + C * kWarp;
-  const int lane = threadIdx.x % kWarp;
-
-  const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / kWarp;
-  if (w * kWarp >= Ep) return;   // whole warps only
-  const long long col = w * kWarp + lane;
-  float dmu[D], dcon[TRI];
-#pragma unroll
-  for (int d = 0; d < D; ++d) dmu[d] = 0.0f;
-#pragma unroll
-  for (int u = 0; u < TRI; ++u) dcon[u] = 0.0f;
-  folded_sweep<D, true>(geom, Ep, C, smp, Np, cb, Rp, R, fold, foldw, sel,
-                        s_lo[w], s_lo[w] + s_n[w], col, three, sm, dmu, dcon,
-                        dvs, vzs, nsel);
-  const int nout = D + TRI + C + nsel;
-  float* rec = out + col * nout;
-#pragma unroll
-  for (int d = 0; d < D; ++d) rec[d] = dmu[d];
-#pragma unroll
-  for (int u = 0; u < TRI; ++u) rec[D + u] = dcon[u];
-  for (int c = 0; c < C; ++c) rec[D + TRI + c] = dvs[c * kWarp + lane];
-  for (int s = 0; s < nsel; ++s)
-    rec[D + TRI + C + s] = vzs[s * kWarp + lane];
 }
 
 // A launch with `bytes` of dynamic shared memory (above 48 KB by opt-in).
@@ -422,7 +236,7 @@ cudaError_t launch_fdv_one(const float* geom, long long Ep, int C,
   const size_t bytes =
       sizeof(float) * kWarps *
       (4 * dgs::bwd_record_vecs(K, CB) * kWarp +
-       (HMM ? K * 8 * dgs::kHStride : 0) + sweep_floats<D, false>(C, 0));
+       (HMM ? K * 8 * dgs::kHStride : 0) + sweep_floats(C));
   return launch_dyn(tiled_backward_fdv_kernel<D, MASK, CB, HMM>, n_ranges,
                     bytes, stream, geom, Ep, C, smp, Np, ct, cb, Rp, R, s_lo,
                     s_n, rows, three, out);
@@ -450,6 +264,7 @@ cudaError_t launch_fdv(int mask, const float* geom, long long Ep, int C,
 }
 
 }  // namespace
+
 
 extern "C" {
 
@@ -488,45 +303,6 @@ int dgs_tiled_backward_fdv(const void* geom, int Ep, int C, const void* smp,
     err = hmm ? DGS_LAUNCH(2, true) : DGS_LAUNCH(2, false);
   else if (D == 3)
     err = hmm ? DGS_LAUNCH(3, true) : DGS_LAUNCH(3, false);
-#undef DGS_LAUNCH
-  return (int)err;
-}
-
-// Launches the folded-VJP kernel: `sel` (R / C,) gives each group's vz
-// output slot or -1, `nsel` the slots; the output record of an entry is
-// [dmu, dconic, dvalues, vz].
-int dgs_tiled_backward_fvjp(const void* geom, int Ep, int C, const void* fold,
-                            const void* foldw, const void* cb, int Rp, int R,
-                            const void* smp, int Np, const void* s_lo,
-                            const void* s_n, int n_ranges, int D,
-                            const void* sel, int nsel, int passes, void* out,
-                            void* stream) {
-  if ((long long)n_ranges * kWarp != Ep || C < 1 || Rp % 16 != 0 ||
-      R > Rp || nsel < 0 || (passes != 1 && passes != 3))
-    return (int)cudaErrorInvalidValue;
-  const auto* g = static_cast<const float*>(geom);
-  const auto* f = static_cast<const float*>(fold);
-  const auto* fw = static_cast<const float*>(foldw);
-  const auto* b = static_cast<const float*>(cb);
-  const auto* s = static_cast<const float*>(smp);
-  const auto* lo = static_cast<const int*>(s_lo);
-  const auto* n = static_cast<const int*>(s_n);
-  const auto* sl = static_cast<const int*>(sel);
-  auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  const bool three = passes == 3;
-#define DGS_LAUNCH(DD)                                                        \
-  launch_dyn(tiled_backward_fvjp_kernel<DD>, n_ranges,                        \
-             sizeof(float) * kWarps * sweep_floats<DD, true>(C, nsel), st, g, \
-             (long long)Ep, C, f, fw, b, Rp, R, s, (long long)Np, lo, n, sl,  \
-             nsel, three, o)
-  cudaError_t err = cudaErrorInvalidValue;
-  if (D == 1)
-    err = DGS_LAUNCH(1);
-  else if (D == 2)
-    err = DGS_LAUNCH(2);
-  else if (D == 3)
-    err = DGS_LAUNCH(3);
 #undef DGS_LAUNCH
   return (int)err;
 }

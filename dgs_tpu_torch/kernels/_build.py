@@ -105,6 +105,14 @@ def load() -> ctypes.CDLL:
             p, i, i, p, p, p, i, i, p, i, p, p, i, i, p, i, i, p, p,
         ]
         lib.dgs_tiled_backward_fvjp.restype = i
+        lib.dgs_tiled_forward_folded_pass_rows.argtypes = [i]
+        lib.dgs_tiled_forward_folded_pass_rows.restype = i
+        lib.dgs_tiled_forward_folded_smem.argtypes = [i, i, i, i]
+        lib.dgs_tiled_forward_folded_smem.restype = i
+        for fn in (lib.dgs_tiled_backward_fvjp_window,
+                   lib.dgs_tiled_backward_fvjp_smem):
+            fn.argtypes = [i, i, i, i]
+            fn.restype = i
         lib.dgs_tiled_backward_moments_rows.argtypes = [i, i]
         lib.dgs_tiled_backward_moments_rows.restype = i
         lib.dgs_dense_forward.argtypes = [

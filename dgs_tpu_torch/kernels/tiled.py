@@ -1313,10 +1313,10 @@ def tiled_backward_fvjp(orders: Tuple[str, ...], D: int, C: int, geom,
     (D + 1, Np) [x_l, tile] operand and the beta-expanded cotangent ``cb``.
     Zd, S0 and W_l are tensor-core contractions at ``passes`` TF32 passes;
     no h chain is built.  fvjp_combine makes the (D + tri + C, Ep) gradient
-    rows.  CUDA tensors launch the folded-VJP kernel of
-    csrc/tiled_backward_folded.cu (entry-major: the transpose view of an
-    (Ep, rows) buffer; counted in ``tiled_backward_fvjp.launches``); CPU
-    tensors run tiled_backward_fvjp_plain."""
+    rows.  CUDA tensors launch csrc/tiled_backward_fvjp.cu (entry-major:
+    the transpose view of an (Ep, rows) buffer; counted in
+    ``tiled_backward_fvjp.launches``); CPU tensors run
+    tiled_backward_fvjp_plain."""
     _order_rows(orders, D)
     if passes not in (1, 3):
         raise ValueError(f"tiled_backward_fvjp: passes must be 1 or 3, got "

@@ -43,6 +43,8 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint3 { unsigned x, y, z; };
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
@@ -62,6 +64,7 @@ namespace emu {
 struct Warp {
   std::barrier<> bar{32};
   unsigned slot[32];
+  float regs[2][32 * 8];
 };
 inline thread_local Warp* warp_;
 inline thread_local int lane_;
@@ -77,6 +80,21 @@ T exchange(T v, int src) {
   std::memcpy(&r, &warp_->slot[src & 31], 4);
   warp_->bar.arrive_and_wait();
   return r;
+}
+
+// Every lane's N registers, gathered: all[l] = lane l's `mine`.  One
+// exchange where N shuffles would take N (tf32_mma.cuh's mma_tf32), and
+// one barrier: consecutive gathers alternate between two buffers, and a
+// lane can write a buffer again only after every lane has passed the
+// next gather's barrier, that is, has read it.
+inline thread_local unsigned gathers_;
+template <int N>
+void warp_gather(const float (&mine)[N], float (&all)[32][N]) {
+  static_assert(N <= 8);
+  float* buf = warp_->regs[gathers_++ & 1];
+  std::memcpy(&buf[lane_ * N], mine, sizeof(mine));
+  warp_->bar.arrive_and_wait();
+  std::memcpy(all, buf, sizeof(all));
 }
 }  // namespace emu
 

@@ -1,19 +1,23 @@
 """The folded modes' CUDA sources (csrc/tiled_forward_folded.cu,
-csrc/tiled_backward_folded.cu) and the h_matmul instantiations of the
-backwards that build h (csrc/tiled_backward_hmm.cu through
-tiled_backward.cuh, csrc/tiled_backward_moments.cu, and the folded
-dvalues) built for the host with g++ against the emulated CUDA runtime of
-cuda_emulation.py (tf32_mma.cuh's mma.sync computed from the lanes'
-fragments, its TF32 rounding the card's), run on operands of the port's
-binning and held against their plain versions at 3 TF32 passes: the
-forward within the fp32 kernel gate, the backwards within the gradient
-tolerance; pad and sentinel columns exactly zero; two runs bitwise equal.
-The cases cover R in one slice of 64 rows and in two (R = 100 at D = 2,
-three orders, C = 4), value-only orders, C = 1, 2, 4 and 6 (two channel
-passes of the classic VJP).  This checks the kernels' logic (fragment
-layouts, slices, ranges, the row tables), not the card's speed or its
-tensor cores' summation: chip_smoke.py holds the same functions on the
-H100."""
+csrc/tiled_backward_folded.cu, csrc/tiled_backward_fvjp.cu) and the
+h_matmul instantiations of the backwards that build h
+(csrc/tiled_backward_hmm.cu through tiled_backward.cuh,
+csrc/tiled_backward_moments.cu, and the folded dvalues) built for the host
+with g++ against the emulated CUDA runtime of cuda_emulation.py
+(tf32_mma.cuh's mma.sync computed from the lanes' fragments, its TF32
+rounding the card's; cp_async.cuh's copies done at once), run on operands
+of the port's binning and held against their plain versions at 3 TF32
+passes: the forward within the fp32 kernel gate, the backwards within the
+gradient tolerance; pad and sentinel columns exactly zero; two runs
+bitwise equal.  The cases cover R from 13 to 150 in one pass of the
+folded forward (384 rows) and one Zd window of the folded VJP, and R = 390
+and 546 in two passes of the forward (546 also in two Zd windows of the
+VJP, its samples swept again); blocks whose samples or
+entries straddle two tiles; value-only orders; C = 1, 2, 4 and 6 (two
+channel passes of the classic VJP).  This checks the kernels' logic
+(fragment layouts, staging, passes, ranges, the row tables), not the
+card's speed or its tensor cores' summation: chip_smoke.py holds the same
+functions on the H100."""
 
 import ctypes
 
@@ -36,15 +40,16 @@ P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    fwd, bwd, hmm, mom = cuda_emulation.build(
+    fwd, bwd, fvjp, hmm, mom = cuda_emulation.build(
         tmp_path_factory.mktemp("folded"),
         ["tiled_forward_folded", "tiled_backward_folded",
-         "tiled_backward_hmm", "tiled_backward_moments"])
+         "tiled_backward_fvjp", "tiled_backward_hmm",
+         "tiled_backward_moments"])
     fwd.dgs_tiled_forward_folded.argtypes = [
         P_, I_, P_, I_, I_, P_, I_, I_, P_, P_, I_, I_, I_, P_, I_, P_, P_]
     bwd.dgs_tiled_backward_fdv.argtypes = [
         P_, I_, I_, P_, I_, P_, P_, I_, I_, P_, P_] + [I_] * 9 + [P_, P_]
-    bwd.dgs_tiled_backward_fvjp.argtypes = [
+    fvjp.dgs_tiled_backward_fvjp.argtypes = [
         P_, I_, I_, P_, P_, P_, I_, I_, P_, I_, P_, P_, I_, I_, P_, I_, I_,
         P_, P_]
     hmm.dgs_tiled_backward_hmm.argtypes = [
@@ -52,7 +57,7 @@ def libs(tmp_path_factory):
         P_, P_]
     mom.dgs_tiled_backward_moments_hmm.argtypes = [
         P_, I_, I_, P_, I_, P_, P_, P_] + [I_] * 8 + [P_, P_]
-    return fwd, bwd, hmm, mom
+    return fwd, bwd, fvjp, hmm, mom
 
 
 def _close(got, ref, rtol, what):
@@ -118,7 +123,7 @@ def _fdv(bwd, orders, D, C, k, s_lo, s_n, hmm):
     return out.T
 
 
-def _fvjp(bwd, orders, D, C, k, s_lo, s_n):
+def _fvjp(fvjp, orders, D, C, k, s_lo, s_n):
     groups = kt.fvjp_vz_groups(orders, D)
     slot = [-1] * (k["R"] // C)
     for j, i in enumerate(groups):
@@ -126,7 +131,7 @@ def _fvjp(bwd, orders, D, C, k, s_lo, s_n):
     sel = torch.tensor(slot, dtype=torch.int32)
     Ep, Np = k["geom"].shape[1], k["mono"].shape[1]
     out = torch.full((Ep, D + tri_size(D) + C + len(groups)), float("nan"))
-    assert bwd.dgs_tiled_backward_fvjp(
+    assert fvjp.dgs_tiled_backward_fvjp(
         k["geom"].data_ptr(), Ep, C, k["fold"].data_ptr(),
         k["foldw"].data_ptr(), k["cb"].data_ptr(), k["Rp"], k["R"],
         k["local"].data_ptr(), Np, s_lo.data_ptr(), s_n.data_ptr(),
@@ -135,8 +140,19 @@ def _fvjp(bwd, orders, D, C, k, s_lo, s_n):
     return out.T
 
 
+def _straddles(tiles, block):
+    """Whether some block of ``block`` consecutive sorted rows holds two
+    tiles (of the valid ones, >= 0)."""
+    t = tiles[:tiles.numel() // block * block].reshape(-1, block)
+    lo = torch.where(t >= 0, t, float("inf")).amin(dim=1)
+    return bool((t.amax(dim=1) > lo).any())
+
+
 CASES = [(1, 4, ORDERS), (2, 4, THREE), (2, 2, ("value", "laplacian")),
-         (3, 1, ("value", "derivative")), (2, 6, ("value",))]
+         (3, 1, ("value", "derivative")), (2, 6, ("value",)),
+         (1, 4, THREE), (2, 6, ORDERS), (3, 2, ORDERS)]
+# (passes of the folded forward, Zd windows of the folded VJP) where not 1.
+TALL = {(2, 6, ORDERS): (2, 1), (3, 2, ORDERS): (2, 2)}
 
 
 @pytest.mark.parametrize("D,C,orders", CASES,
@@ -144,10 +160,20 @@ CASES = [(1, 4, ORDERS), (2, 4, THREE), (2, 2, ("value", "laplacian")),
 def test_emulated_folded_kernels_match_plain(libs, D, C, orders):
     """The folded forward, the folded dvalues (with and without h_matmul)
     and the folded VJP against their plain versions; the folded VJP's rows
-    combined against the classic backward on the same operands."""
-    fwd, bwd, _, _ = libs
-    k = _case(D, C, orders, 100 * D + C)
+    combined against the classic backward on the same operands.  R = 24
+    (D = 1, three orders, C = 4) to 546 (D = 3, four orders, C = 2: two
+    passes of the forward, two Zd windows of the VJP); the forward's
+    64-sample blocks and the VJP's 32-entry blocks straddle tiles."""
+    fwd, bwd, fvjp, _, _ = libs
+    # the two-window case with fewer Gaussians: the emulation is slow
+    k = _case(D, C, orders, 100 * D + C, P=12 if D == 3 and C == 2 else 24)
     Np, Ep = k["mono"].shape[1], k["geom"].shape[1]
+    assert _straddles(k["mono"][-1], 64)
+    assert _straddles(k["geom"][0], kt.BLOCK_E)
+    Rp, nsel = k["Rp"], len(kt.fvjp_vz_groups(orders, D))
+    assert (-(-Rp // fwd.dgs_tiled_forward_folded_pass_rows(Rp)),
+            -(-Rp // fvjp.dgs_tiled_backward_fvjp_window(D, Rp, C, nsel))
+            ) == TALL.get((D, C, orders), (1, 1))
     lo, n = kt.entry_ranges(k["state"], Np)
     got = _forward(fwd, orders, D, C, k, lo, n)
     ref = kt.tiled_forward_folded_plain(orders, D, C, k["geom"], k["fold"],
@@ -166,12 +192,12 @@ def test_emulated_folded_kernels_match_plain(libs, D, C, orders):
         rows = _fdv(bwd, orders, D, C, k, s_lo, s_n, hmm)
         _close(rows, ref_fdv, 2e-3, f"folded dvalues, h_matmul {hmm}")
         assert not bool(rows[:, dead].any())
-    rows = _fvjp(bwd, orders, D, C, k, s_lo, s_n)
+    rows = _fvjp(fvjp, orders, D, C, k, s_lo, s_n)
     _close(rows, kt.tiled_backward_fvjp_plain(
         orders, D, C, k["geom"], k["fold"], k["foldw"], k["local"], k["cb"],
         s_lo, s_n), 2e-3, "folded VJP")
     assert not bool(rows[:, dead].any())
-    assert torch.equal(_fvjp(bwd, orders, D, C, k, s_lo, s_n), rows)
+    assert torch.equal(_fvjp(fvjp, orders, D, C, k, s_lo, s_n), rows)
     classic = kt.tiled_backward_plain(orders, None, D, C,
                                       kt.base_rows(k["geom"], D, C),
                                       k["local"], k["ct"], s_lo, s_n)
@@ -184,23 +210,25 @@ def test_emulated_folded_kernels_match_plain(libs, D, C, orders):
 
 
 def test_emulated_folded_r_split(libs):
-    """R = 100 rows (D = 2, three orders, C = 4): two slices of 64 rows,
-    the second partial; the rows of each slice agree with the plain
-    versions on their own."""
-    fwd, bwd, _, _ = libs
+    """R = 100 rows (D = 2, three orders, C = 4): one pass of the folded
+    forward, seven of its eight warps holding an m16 tile of Z and the
+    eighth none, and one Zd window of the folded VJP (four R-chunks of 32
+    rows, the last past Rp = 112 zero-filled); both against their plain
+    versions."""
+    fwd, _, fvjp, _, _ = libs
     k = _case(2, 4, THREE, 7)
     assert k["R"] == 100 and k["Rp"] == 112
     lo, n = kt.entry_ranges(k["state"], k["mono"].shape[1])
     got = _forward(fwd, THREE, 2, 4, k, lo, n)
     ref = kt.tiled_forward_folded_plain(THREE, 2, 4, k["geom"], k["fold"],
                                         k["mono"], lo, n)
-    _close(got, ref, 2e-4, "folded forward, two slices")
+    _close(got, ref, 2e-4, "folded forward, one pass")
     s_lo, s_n = kt.sample_ranges(k["state"], k["geom"].shape[1])
-    _close(_fvjp(bwd, THREE, 2, 4, k, s_lo, s_n),
+    _close(_fvjp(fvjp, THREE, 2, 4, k, s_lo, s_n),
            kt.tiled_backward_fvjp_plain(THREE, 2, 4, k["geom"], k["fold"],
                                         k["foldw"], k["local"], k["cb"],
                                         s_lo, s_n), 2e-3,
-           "folded VJP, two slices")
+           "folded VJP, one window")
 
 
 HMM_CASES = [(2, 4, ORDERS, True), (3, 6, ORDERS, False),
@@ -215,7 +243,7 @@ def test_emulated_h_matmul_matches_plain(libs, D, C, orders, wrap):
     two channel passes, each contraction over its pass's channels) and in
     the moment-form backward, against their plain versions; two runs
     bitwise equal."""
-    _, _, hmm, mom = libs
+    _, _, _, hmm, mom = libs
     rng = np.random.default_rng(D + C)
     m, v, cov, c = map(torch.from_numpy, make_gaussians(
         rng, 24, D, C, sigma_range=(0.02, 0.05)))

@@ -1,7 +1,7 @@
 """The kernel modes' CUDA sources (csrc/tiled_forward_sep.cu,
 csrc/tiled_backward_moments.cu) built for the host with g++ against the
 emulated CUDA runtime of cuda_emulation.py (tf32_mma.cuh's mma.sync computed
-from the lanes' fragments with shuffles, its TF32 rounding the same as the
+from the lanes' gathered fragments, its TF32 rounding the same as the
 card's), run on operands of the port's binning and held against their plain
 versions: the separable forward at 3 passes within the fp32 gate and at 1
 pass within its sanity bound, the moment-form backward within the gradient
