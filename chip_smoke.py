@@ -88,7 +88,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    laplacian + value) within rtol 2e-3, its rows folded by
                    moment_combine against the classic backward on the same
                    operands (atol MOMENT_ATOL_REL); pad and sentinel
-                   columns exactly zero.  Then
+                   columns exactly zero; two runs bitwise equal; each
+                   case's moment-form instantiation (registers, spills,
+                   shared bytes, resident warps) and its 32-entry ranges
+                   and blocks of ranges that straddle two tiles (counted,
+                   and required).  Then
                    the op in each mode (separable, moments, both) against
                    the dense masked oracle: outputs, and gradients twice
                    and bitwise equal, with the kernels each mode launched.
@@ -99,9 +103,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    against their plain versions on wrap-free operands: D in
                    {1, 2, 3} x C in {1, 4, 6} x three orders, four orders
                    and (value, laplacian), and D = 3 at four orders and
-                   C = 4 (R = 1,092: three passes of the folded forward,
-                   several Zd windows of the folded VJP; C = 6 gives R =
-                   1,638), blocks that straddle two tiles (counted, and
+                   C = 4 (R = 1,092: three passes of the folded forward and
+                   of the folded dvalues, several Zd windows of the folded
+                   VJP; C = 6 gives R = 1,638), each case's instantiations
+                   of the three folded kernels (folded_facts), blocks that
+                   straddle two tiles (counted, and
                    required), full-cover footprints (open box), tiles
                    without samples or entries; the folded forward and VJP
                    within the
@@ -174,7 +180,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    gradients, diagnostics 0; each step's kernels by CUDA
                    events on its own operands and cotangent (classic
                    kernels 1-2 beside the two mode kernels, with bounds,
-                   the mode kernels' plain versions on (b)); (b)'s loss and
+                   the mode kernels' plain versions on (b), the moment
+                   form's instantiation); (b)'s loss and
                    gradients against the classic step's within the gate,
                    (a)'s difference and its 1-pass forward against 3 passes
                    reported; then the D = 2 headline step under
@@ -312,11 +319,12 @@ C = 4, three orders) classic, under BENCH_FOLDED=1, + BENCH_FDV=1,
 parameters: host median and range, busy ms, device items, peak bytes, the
 kernels each mode names, gradients against the classic step's at
 FOLD_ATOL_REL), each new kernel's CUDA-event ms, bound and plain version
-on its step's operands beside kernels 1-2, with the folded forward's and
-VJP's registers, spills, shared bytes, resident blocks and passes; the
-four-order step under BENCH_FDV=1, whose folded dvalues turn themselves
-off, and the tall-R case: the folded forward and VJP timed on that step's
-four-order operands (R = 1,092); and the D = 2 headline step classic,
+on its step's operands beside kernels 1-2, with the folded forward's,
+dvalues' and VJP's registers, spills, shared bytes, resident blocks and
+passes; the four-order step under BENCH_FDV=1, whose folded dvalues turn
+themselves off, and the tall-R case: the folded forward, dvalues and VJP
+timed on that step's four-order operands (R = 1,092); and the D = 2
+headline step classic,
 under the folded VJP and under h_matmul.
 
 Then the kernels line (per kernel: launches on its main path and by path,
@@ -3463,15 +3471,19 @@ def phase_parity_modes(dev):
     operands (3 passes within the fp32 gate; the 1-pass separable forward,
     outside the gate, against the 3-pass one under ONE_PASS_SANITY), the
     moment rows folded by moment_combine against the classic backward on
-    the same tile-local operands, dead columns exactly zero; then the
-    op's outputs and gradients in each mode against the dense masked
-    oracle (gradients twice, bitwise equal), with the kernels each mode
-    launched."""
+    the same tile-local operands, dead columns exactly zero, two runs of
+    the backward bitwise equal; each case reports the moment form's
+    instantiation (moment_facts) and its 32-entry ranges and blocks of
+    ranges that straddle two tiles, and the phase fails unless some do;
+    then the op's outputs and gradients in each mode against the dense
+    masked oracle (gradients twice, bitwise equal), with the kernels each
+    mode launched."""
     t_phase = time.perf_counter()
     cases = [(D, 0.03, C, False, False) for D in (1, 2, 3) for C in (1, 4, 6)]
     cases += [(2, 0.6, 4, False, True),     # full-cover footprints, open box
               (2, 0.03, 4, True, False)]    # tiles without samples / entries
     worst = 0.0
+    straddling = {"range_32": 0, "block": 0}
     for i, (D, sigma, C, holes, open_domain) in enumerate(cases):
         state, geom, mono, P, N, g = mode_case(dev, 80 + i, D, sigma, C,
                                                holes, open_domain)
@@ -3500,6 +3512,8 @@ def phase_parity_modes(dev):
             ct = torch.randn((K * C, mono.shape[1]), generator=g, device=dev)
             rows = ktiled.tiled_backward_moments(orders, D, C, geom, mono,
                                                  ct, s_lo, s_n)
+            again = ktiled.tiled_backward_moments(orders, D, C, geom, mono,
+                                                  ct, s_lo, s_n)
             ref_rows = ktiled.tiled_backward_moments_plain(
                 orders, D, C, geom, mono, ct, s_lo, s_n)
             classic = ktiled.tiled_backward(
@@ -3508,14 +3522,26 @@ def phase_parity_modes(dev):
             torch.cuda.synchronize()
             dead = check_dead_rows("moment backward", rows,
                                    dead_entries(geom, state))
+            if not torch.equal(rows, again):
+                raise AssertionError(f"moment backward D={D} C={C}: two "
+                                     "runs differ")
             bwd[",".join(orders)] = {
                 "err": err_fields(moment_errs(rows, ref_rows, orders, D)),
                 "combined_vs_classic_err": err_fields(compare_rows(
                     ktiled.moment_combine(orders, D, C, rows, geom),
                     classic, D, C, atol_rel=MOMENT_ATOL_REL)),
                 "sentinel_columns_zero": dead}
+        T = state.ent_start.shape[0] - 2
+        blocks = {"range_32": straddling_blocks(state.ent_tile[0], T,
+                                                ktiled.BLOCK_E),
+                  "block": straddling_blocks(
+                      state.ent_tile[0], T,
+                      _build.load().dgs_tiled_backward_moments_block(D))}
+        for key, count in blocks.items():
+            straddling[key] += count
         emit("parity_modes", D=D, sigma=sigma, C=C, P=P, N=N, holes=holes,
-             open_domain=open_domain,
+             open_domain=open_domain, straddling_blocks=blocks,
+             instantiation=moment_facts(ORDERS, D, C),
              entries=int((~dead_entries(geom, state)).sum()),
              pad_columns_zero=pads, **tile_facts(state),
              separable_err=err_fields(errs),
@@ -3581,8 +3607,10 @@ def phase_parity_modes(dev):
             emit("parity_modes_oracle", D=D, P=300, N=2000, separable=sep,
                  moments=mom, launches=launched, max_abs_err=err,
                  bitwise_repeatable=True)
+    if not all(straddling.values()):
+        raise AssertionError(f"no range straddles two tiles: {straddling}")
     emit("parity_modes_summary", one_pass_worst=worst,
-         seconds=time.perf_counter() - t_phase)
+         straddling_blocks=straddling, seconds=time.perf_counter() - t_phase)
     return worst
 
 
@@ -3748,13 +3776,16 @@ def mode_kernel_numbers(ev, sides, plain=True):
                                ev["passes"] if kind == "separable" else 3)
         out[kernel] = {"ms": ms, **bound, "share": bound["bound_ms"] / ms,
                        "kept_pairs": pairs}
-        if kernel in ("tiled_forward_folded", "tiled_backward_fvjp"):
+        if kernel in ("tiled_forward_folded", "tiled_backward_fdv",
+                      "tiled_backward_fvjp"):
             out[kernel]["instantiation"] = folded_facts(kernel, orders, D, C)
             # One TF32 pass: a third of the contraction, the rest the same.
             passes, ev["passes"] = ev["passes"], 1
             out[kernel]["ms_one_pass"] = cuda_ms(folded_calls(
                 kernel, ev, lo, n, s_lo, s_n, ct, cb, local, packed)[0])
             ev["passes"] = passes
+        elif kernel == "tiled_backward_moments":
+            out[kernel]["instantiation"] = moment_facts(orders, D, C)
         elif kernel in ("tiled_forward", "tiled_backward"):
             out[kernel]["instantiation"] = instantiation(
                 kernel, orders, D, C, ev["period"])
@@ -3993,14 +4024,24 @@ def bwd_groups(D, C):
 
 
 def folded_facts(kernel, orders, D, C):
-    """The build and launch facts of the redesigned folded forward or VJP
-    at (orders, D, C): registers, spill bytes and static shared bytes of its
-    instantiation (the ptxas report), the dynamic shared bytes of a launch,
-    the blocks an SM holds, and the passes over the pairs (the forward's
-    passes of 128 or 384 rows; the VJP's Zd windows)."""
+    """The build and launch facts of the redesigned folded forward, folded
+    dvalues or VJP at (orders, D, C): registers, spill bytes and static
+    shared bytes of its instantiation (the ptxas report), the dynamic shared
+    bytes of a launch, the blocks an SM holds, and the passes over the pairs
+    (the forward's passes of 128 or 384 rows; the folded dvalues' passes of
+    up to 384 Zd rows; the VJP's Zd windows).  The folded dvalues' facts are
+    those of its instantiation without h_matmul."""
     lib = _build.load()
     meta, n_mono, R, Rp = ktiled.folded_layout(orders, D, C)
-    if kernel == "tiled_forward_folded":
+    threads = 256
+    if kernel == "tiled_backward_fdv":
+        mask = ktiled._order_rows(orders, D)[0]
+        dyn = lib.dgs_tiled_backward_fdv_smem(D, mask, Rp, C, 0)
+        rows = lib.dgs_tiled_backward_fdv_pass_rows(D, mask, Rp, C, 0)
+        warps = lib.dgs_tiled_backward_fdv_warps(Rp, 0)
+        threads = 32 * warps
+        name = f"{kernel}_kernelILi{D}ELi{mask}ELb0ELi{warps}EE"
+    elif kernel == "tiled_forward_folded":
         dyn = lib.dgs_tiled_forward_folded_smem(
             D, Rp, n_mono, ktiled.total_unique(orders, D) * C)
         rows = lib.dgs_tiled_forward_folded_pass_rows(Rp)
@@ -4022,8 +4063,37 @@ def folded_facts(kernel, orders, D, C):
     static = int(smem.group(1)) if smem else 0
     return {"registers": regs, "spill_store_bytes": spill,
             "static_shared_bytes": static, "dynamic_shared_bytes": dyn,
-            "resident_blocks": resident_blocks(regs, 256, static + dyn),
-            "R": R, "rows_a_pass": rows, "passes": -(-Rp // rows)}
+            "resident_blocks": resident_blocks(regs, threads, static + dyn),
+            "threads": threads, "R": R, "rows_a_pass": rows,
+            "passes": -(-Rp // rows)}
+
+
+def moment_facts(orders, D, C, hmm=False):
+    """The build and launch facts of the moment-form backward's
+    instantiation at (orders, D, C, h_matmul): registers, spill bytes,
+    static and dynamic shared bytes, threads a block (each warp one range of
+    32 entries), the blocks and warps an SM holds."""
+    lib = _build.load()
+    mask = ktiled._order_rows(orders, D)[0]
+    cb = C if D == 2 and C <= 2 else 4
+    name = (f"tiled_backward_moments_kernelILi{D}ELi{mask}ELi{cb}"
+            f"ELb{int(hmm)}EE")
+    reports = [
+        r for r in _build.build_log().split("Compiling entry function")[1:]
+        if name in r.split("'")[1]]
+    if len(reports) != 1:
+        raise AssertionError(f"{len(reports)} ptxas reports for {name}")
+    regs = int(re.search(r"Used (\d+) registers", reports[0]).group(1))
+    spill = int(re.search(r"(\d+) bytes spill stores", reports[0]).group(1))
+    smem = re.search(r"(\d+) bytes smem", reports[0])
+    static = int(smem.group(1)) if smem else 0
+    dyn = lib.dgs_tiled_backward_moments_smem(D, mask, C, int(hmm))
+    threads = lib.dgs_tiled_backward_moments_block(D)
+    blocks = resident_blocks(regs, threads, static + dyn)
+    return {"registers": regs, "spill_store_bytes": spill,
+            "static_shared_bytes": static, "dynamic_shared_bytes": dyn,
+            "threads": threads, "resident_blocks": blocks,
+            "resident_warps": blocks * threads // 32}
 
 
 def straddling_blocks(tiles, T, block):
@@ -4137,7 +4207,8 @@ def phase_parity_folded(dev):
         for key, count in blocks.items():
             straddling[key] += count
         facts = {k: folded_facts(k, orders, D, C)
-                 for k in ("tiled_forward_folded", "tiled_backward_fvjp")}
+                 for k in ("tiled_forward_folded", "tiled_backward_fdv",
+                           "tiled_backward_fvjp")}
         for kernel, groups in (
                 ("tiled_forward_folded", fwd_groups(orders, D, C)),
                 ("tiled_backward_fdv", bwd_groups(D, C)),
@@ -4309,13 +4380,13 @@ def phase_folded_slice(dev, steps=10):
     operands beside kernels 1-2 of the classic step, the plain versions'
     ms once (the folded forward and VJP also against float64), the
     gradients against the classic step's at FOLD_ATOL_REL; for the folded
-    forward and VJP also their one-pass ms and their instantiations
-    (registers, spills, shared bytes, resident blocks, passes:
-    folded_facts), for kernels 1-2 theirs.  A step at all four orders
-    under (b) checks that the folded dvalues turned themselves off (the
-    beta-expanded cotangent is 4.4 GB, above CT_BETA_MAX_BYTES); the
-    folded forward and VJP are then timed on that step's operands (R =
-    1,092: the tall case).  Then the D = 2 headline step classic, under
+    forward, dvalues and VJP also their one-pass ms and their
+    instantiations (registers, spills, shared bytes, resident blocks,
+    passes: folded_facts), for kernels 1-2 theirs.  A step at all four
+    orders under (b) checks that the folded dvalues turned themselves off
+    (the beta-expanded cotangent is 4.4 GB, above CT_BETA_MAX_BYTES); the
+    folded forward, dvalues and VJP are then timed on that step's operands
+    (R = 1,092: the tall case).  Then the D = 2 headline step classic, under
     (c) and under (d).  Returns (launches by path, kernel numbers by
     run)."""
     launches, kernels = {}, {}
@@ -4397,10 +4468,10 @@ def phase_folded_slice(dev, steps=10):
                  ct_beta_max_bytes=ktiled.CT_BETA_MAX_BYTES,
                  folded_dvals_off=True)
             del value
-            # The tall-R case: the folded forward and VJP on this step's
-            # four-order operands (R = 1,092: the forward's three passes,
-            # the VJP's three Zd windows), with the foldw rows the step did
-            # not build.
+            # The tall-R case: the folded forward, dvalues and VJP on this
+            # step's four-order operands (R = 1,092: the forward's and the
+            # folded dvalues' three passes, the VJP's Zd windows), with the
+            # foldw rows the step did not build.
             t0 = time.perf_counter()
             value, _ = bench.loss(w4)
             (ev4,) = tiled_evaluations(value)
@@ -4410,8 +4481,8 @@ def phase_folded_slice(dev, steps=10):
                 ORDERS, 3, 4, ev4["geom"][1:1 + 3 + tri + 4].T,
                 formulas.folded_structure(ORDERS, 3)[0], vjp=True)[2]
             kernels["d3_tall_four_orders"] = mode_kernel_numbers(
-                ev4, ["tiled_forward_folded", "tiled_backward_fvjp"],
-                plain=False)
+                ev4, ["tiled_forward_folded", "tiled_backward_fdv",
+                      "tiled_backward_fvjp"], plain=False)
             emit("folded_slice", run="d3_tall_four_orders",
                  kernels=kernels["d3_tall_four_orders"],
                  seconds=time.perf_counter() - t0)

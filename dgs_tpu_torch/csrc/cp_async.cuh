@@ -1,7 +1,8 @@
 // Asynchronous 16-byte copies from device memory into shared memory
 // (cp.async, sm_80 on), for the kernels that stage their operands a chunk
 // ahead of the contraction that reads them (tiled_forward_folded.cu,
-// tiled_backward_folded.cu).
+// tiled_backward_folded.cu, tiled_backward_fvjp.cu,
+// tiled_backward_moments.cu).
 //
 // A thread issues its copies of the next chunk (cp_async16), closes them as
 // one group (cp_async_commit) and goes on computing; cp_async_wait_all
@@ -46,6 +47,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Waits until every copy group of the thread but the last committed one
+// has landed.
+__device__ __forceinline__ void cp_async_wait_one() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 #endif
 }
 

@@ -26,30 +26,53 @@
 // rows with the entry's geometry, and the segment-sum by Gaussian id
 // follows (ops/sampling.py).
 //
-// Design.  The classic backward's layout and range sweep: one warp owns 32
-// consecutive tile-sorted entries, a lane each, and sweeps its sample range
-// 32 samples at a time, staging each sample's record [tile, x_l] and its
-// K x CB cotangents (tiled_layout.cuh's backward record) and the samples'
-// monomials, split hi / lo, as the B operand ([monomial][sample]).  Per 8
-// samples (one k8 step) each lane computes its entry's pairs, adds the W,
-// hl and Y rows into its own registers and stores G S0 to shared memory
-// ([sample][entry], the A operand); the warp then runs mma.sync m16n8k8
-// for its two m16 tiles into accumulator fragments that stay in registers
-// for the whole sweep.  The
-// VJP is linear in h, so channel passes of CB (C > 4) add into the same
-// accumulators.  Warps share nothing and meet at no block barrier.
+// What bounds it, as measured (chip_smoke.py's modes_slice, and
+// chip_variants.py timing variants of this source beside it, on an H100
+// 80GB HBM3 at 700 W; PERF.md): the per-pair fp32 work (G, the
+// polynomials, the h and dv FMAs, the accumulators: about 146 operations a
+// pair at D = 3, three orders), as in tiled_backward.cu, and the latency
+// it leaves exposed at the warps an SM holds.  The contraction replaces the per-pair
+// VJP's closing terms by D (1 + D) FMAs for the W rows, 6 NT mma.sync per
+// 8 x 32 pairs and a shared-memory store of one float a pair.  The first
+// version (one warp a range, its own synchronous staging and split, two
+// warp barriers a k8 step, 194 registers at D = 3) held 10 warps an SM.
 //
-// What bounds it: the per-pair fp32 work (G, the polynomials, the h and dv
-// FMAs, the accumulators), as in tiled_backward.cu, which it keeps; the
-// contraction replaces the per-pair VJP's closing terms (about 4 D + 3 tri
-// fp32 operations a pair) by D (1 + D) FMAs for the W rows, 6 NT mma.sync
-// per 8 x 32 pairs and a shared-memory round trip of one float a pair.  Shared memory limits
-// residency: 33 KB a block of two warps at D = 3 with all four orders.
-// With a minimum of one block an SM in the launch bounds, ptxas sizes the
-// registers by the code (without it, it held them to the residency that
-// shared memory allows and spilled); the pair loop is not unrolled, which
-// keeps the widest instantiation (D = 3, all four orders) within 255
-// registers.  A simple first version.
+// Design.  A block of 4 warps (3 at D <= 2, where about six ranges share a
+// tile and fewer in a block straddle two) owns as many consecutive
+// 32-entry ranges, a warp each and a lane an entry, and sweeps the union
+// of their sample ranges 32 samples at a time, one barrier a chunk:
+//   - cp.async (16-byte copies) brings the chunk's rows two chunks ahead:
+//     the monomials and the tile (mono's rows 0 .. MR) and the pass's
+//     cotangents ct[k, c];
+//   - one chunk ahead the block transposes them into the samples' records
+//     ([tile, x_l], then the K x CB cotangents: tiled_layout.cuh's backward
+//     record) and splits the monomials into the B fragments, once for all
+//     warps;
+//   - each warp whose range meets the chunk computes its pairs (records
+//     read with 16-byte broadcast loads, staged_vector), adds the W, hl and
+//     Y rows into its lanes' registers, stores G S0 into its A block
+//     ([sample][entry]) and contracts it with the chunk's B fragments
+//     (mma.sync m16n8k8, 3 TF32 passes, issued pass-major) into the M_S0
+//     fragments it holds for the whole sweep.
+// The launch bounds ask for 4 blocks an SM at D = 3 up to 10 unique
+// components (128 registers: 16 warps) and 6 at D <= 2 with the value
+// order (96 registers: 18 warps), without spills (min_blocks).  The VJP is
+// linear in h, so channel passes of CB (C > 4) add into the same
+// accumulators.
+//
+// Tried and dropped (D = 3 three orders / D = 2 headline ms, in the calls
+// that timed them; the first version 13.3-13.6 / 1.87-1.93, kernel 2
+// 8.9-9.2 / 1.37-1.39 in the same calls): records gathered by 4-byte
+// cp.async, with one warp a block (its own range): 20.0 / 2.68, with 2, 4
+// and 8 warps: 13.5 / 2.24, 12.5 / 2.20, 13.9 / 2.50; synchronous record
+// loads: 12.9 / 2.36; the 16-byte rows and the transposition instead:
+// 11.1 / 2.03; 5 blocks an SM at D = 3 spilled; at D <= 2, 4 warps at 5
+// blocks (96 registers) 1.87 but spilling, 3 warps at 5 blocks (104
+// registers) 2.05-2.09, 2 warps at 10 blocks 1.91, the D = 3 shape (4
+// warps at 4 blocks, 117 registers) 2.02 against 1.88 and the first
+// version's 1.91 in the same call; the staging and preparing loops all
+// kept rolled: 11.6 / 1.95 (the staging loop unrolled spilled 8-116 bytes
+// in 23 instantiations).
 //
 // h_matmul (the HMM instantiations): per k-step of 8 samples the warp
 // computes h_k for its entries as TF32 tensor-core contractions over the
@@ -62,17 +85,20 @@
 // (dgs_tpu_torch/kernels/_build.py).  Never with --use_fast_math.
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "tf32_mma.cuh"
 #include "tiled_layout.cuh"
 
 namespace {
 
-constexpr int kWarps = 2;       // warps per block, each with its own range
-constexpr int kVStride = 40;    // [sample][entry] row stride of the A block
-constexpr int kBStride = 36;    // [monomial][sample] row stride of B
-
 using dgs::kWarp;
 using dgs::OrderRows;
+
+// Warps a block, each with its own range: 4 at D = 3, 3 at D <= 2 (about
+// six ranges a tile there: fewer ranges a block straddle two tiles).
+DGS_HD constexpr int warps_of(int D) { return D == 3 ? 4 : 3; }
+constexpr int kNS = 32;         // samples a chunk
+constexpr int kVStride = 40;    // [sample][entry] row stride of the A block
 
 DGS_HD constexpr int mono_rows(int D) { return 1 + D + dgs::tri_size(D); }
 // n8 tiles of the M_S0 rows.
@@ -88,15 +114,30 @@ DGS_HD constexpr int n_moment_rows(int D, int mask) {
 }
 
 template <int D, int MASK, int CB, bool HMM>
-struct Staged {
-  float4 rec[dgs::bwd_record_vecs(dgs::total_unique(D, MASK), CB) * kWarp];
-  float b_hi[8 * s0_tiles(D)][kBStride];   // monomials of the staged samples
-  float b_lo[8 * s0_tiles(D)][kBStride];
-  float v[8][kVStride];   // one k-step's A operand, G S0 [sample][entry]
-  // h_matmul: h_k of one k-step's 8 samples (tf32_mma.cuh h_matmul_block),
-  // and the lanes' M_W, M_hl and M_Y rows [row][lane]
-  float h[HMM ? dgs::total_unique(D, MASK) * 8 * dgs::kHStride : 4];
-  float acc[HMM ? D * (1 + D) + 2 * dgs::tri_size(D) : 1][kWarp];
+struct Shared {
+  static constexpr int K = dgs::total_unique(D, MASK);
+  static constexpr int NV = dgs::bwd_record_vecs(K, CB);
+  static constexpr int MR = mono_rows(D), NT = s0_tiles(D);
+  // A chunk's rows as cp.async lands them ([row][sample]): the monomials
+  // and the tile (mono rows 0 .. MR), then the pass's cotangents ct[k, c]
+  // (row k CB + c); two chunks ahead of their use.
+  static constexpr int RAW = (MR + 1 + K * CB + 3) / 4 * 4;
+  float raw[2][RAW][kNS];
+  // The chunk's records, transposed from raw ([tile, x_l], then the
+  // cotangents, tiled_layout.cuh's backward record; [vector][sample]).
+  float4 rec[2][NV * kNS];
+  // The M_S0 B fragments of a chunk, split once: (k8 step, n8 tile, lane)
+  // {hi, hi, lo, lo}, double-buffered.
+  float4 bfrag[2][kNS / 8 * NT * kWarp];
+  // A warp's A block, G S0 [sample][entry], and under h_matmul its h block
+  // (tf32_mma.cuh h_matmul_block) and its lanes' M_W, M_hl and M_Y rows
+  // [row][lane].
+  struct Warp {
+    float v[kNS][kVStride];
+    float h[HMM ? K * 8 * dgs::kHStride : 4];
+    float acc[HMM ? D * (1 + D) + 2 * dgs::tri_size(D) : 4][kWarp];
+  };
+  Warp warp[warps_of(D)];
 };
 
 // The pair's h_k: from the lane's registers, or under h_matmul from the
@@ -169,8 +210,22 @@ __device__ __forceinline__ void pair_accumulators(
   }
 }
 
+// Blocks an SM should hold, for ptxas's register budget: at D <= 2, 6 (18
+// warps, 96 registers a thread) for the order sets with the value order
+// and 5 (at most 136) for the others, some of which need more than 96; at
+// D = 3, 4 (16 warps, 128 registers) up to 10 unique components (three
+// orders and every order set below) and 2 with more (the third order); 1
+// under h_matmul, whose h block holds the shared memory.
+DGS_HD constexpr int min_blocks(int D, int mask, bool hmm) {
+  return hmm ? 1
+         : D <= 2 ? ((mask & dgs::kValue) ? 6 : 5)
+                  : (dgs::total_unique(D, mask) <= 10 ? 4 : 2);
+}
+
 template <int D, int MASK, int CB, bool HMM>
-__global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kernel(
+__global__ void __launch_bounds__(warps_of(D) * kWarp,
+                                  min_blocks(D, MASK, HMM))
+    tiled_backward_moments_kernel(
     const float* __restrict__ geom,  // (>= 1 + D + tri + C, Ep) tile-local
     long long Ep, int C,
     const float* __restrict__ mono,  // (mono_rows + 1, Np): monomials, tile
@@ -178,52 +233,68 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
     const float* __restrict__ ct,    // (K * C, Np) cotangent
     const int* __restrict__ s_lo,    // (Ep / 32,) first sample of each range
     const int* __restrict__ s_n,     // (Ep / 32,) length of the range
-    OrderRows rows, bool three,      // h_matmul's passes: 3, else 1
+    OrderRows rows,
+    bool three,                      // h_matmul's passes: 3, else 1
     float* __restrict__ out) {       // (Ep, n_rows + C), entry-major
+  using Sh = Shared<D, MASK, CB, HMM>;
+  constexpr int kWarps = warps_of(D), kThreads = kWarps * kWarp;
   constexpr int TRI = dgs::tri_size(D);
-  constexpr int K = dgs::total_unique(D, MASK);
+  constexpr int K = Sh::K, NV = Sh::NV;
   constexpr int MR = mono_rows(D), MP = 1 + D, NT = s0_tiles(D);
-  constexpr int NV = dgs::bwd_record_vecs(K, CB);
   constexpr int NROWS = n_moment_rows(D, MASK);
   constexpr int ROW_HL = MR + (has_w(MASK) ? D * MP : 0);
   constexpr int ROW_Y = ROW_HL + ((MASK & dgs::kLaplacian) ? TRI : 0);
-  // The warps' staged blocks, in dynamic shared memory (launch_one passes
-  // kWarps of them).
   extern __shared__ float s_dt[];
-  static_assert(sizeof(Staged<D, MASK, CB, HMM>) % 16 == 0,
-                "whole 16-byte vectors a warp");
-  Staged<D, MASK, CB, HMM>& sh =
-      reinterpret_cast<Staged<D, MASK, CB, HMM>*>(s_dt)[threadIdx.x / kWarp];
-  const int lane = threadIdx.x % kWarp, g = lane / 4, t = lane % 4;
+  Sh& sh = *reinterpret_cast<Sh*>(s_dt);
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int g = lane / 4, t = lane % 4;
+  typename Sh::Warp& sw = sh.warp[warp];
 
-  // Every lane owns a real column (Ep == 32 * ranges; pads have tile -1.0).
-  const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / kWarp;
-  if (w * kWarp >= Ep) return;   // whole warps only
-  const long long col = w * kWarp + lane;
+  // The warp's range (none past the last: such warps only stage and wait).
+  const long long w = (long long)blockIdx.x * kWarps + warp;
+  const bool real = w * kWarp < Ep;
+  const long long col = real ? w * kWarp + lane : lane;
   const long long nout = NROWS + C;
-  const float tile = geom[col];
+  const int lo = real ? s_lo[w] : 0;
+  const int hi = real ? lo + s_n[w] : 0;
+  // The block sweeps the union of its warps' ranges.
+  int blo = 0x7fffffff, bhi = 0;
+  for (int v = 0; v < kWarps; ++v) {
+    const long long wv = (long long)blockIdx.x * kWarps + v;
+    if (wv * kWarp < Ep && s_n[wv] > 0) {
+      blo = min(blo, s_lo[wv]);
+      bhi = max(bhi, s_lo[wv] + s_n[wv]);
+    }
+  }
+  const int s_first = blo < bhi ? blo & ~3 : 0;   // 16-byte aligned copies
+  const int n_sc = blo < bhi ? (bhi - s_first + kNS - 1) / kNS : 0;
+  if (n_sc == 0) {   // no samples in the block's ranges: zero records
+    if (real)
+      for (int f = 0; f < NROWS + C; ++f) out[col * nout + f] = 0.0f;
+    return;
+  }
+
+  const float tile = real ? geom[col] : -1.0f;
   float mu[D], con[TRI];
 #pragma unroll
   for (int d = 0; d < D; ++d) mu[d] = geom[(1 + d) * Ep + col];
 #pragma unroll
   for (int u = 0; u < TRI; ++u) con[u] = geom[(1 + D + u) * Ep + col];
-  const int lo = s_lo[w];
-  const int hi = lo + s_n[w];
 
   // Accumulator fragments of M_S0 [m16 tile][n8 tile]; the lane's own
   // M_W_l [l][m], M_hl and M_Y rows.
   // Under HMM the lane's M_W, M_hl and M_Y rows live in its column of
-  // sh.acc (the h block's registers made the widest instantiations spill).
+  // sw.acc (the h block's registers made the widest instantiations spill).
   float cS[2][NT][4], mw_r[HMM ? 1 : D][MP], hl_r[HMM ? 1 : TRI],
       Ysum_r[HMM ? 1 : TRI];
   auto mw = [&](int l, int m) -> float& {
-    return HMM ? sh.acc[l * MP + m][lane] : mw_r[HMM ? 0 : l][m];
+    return HMM ? sw.acc[l * MP + m][lane] : mw_r[HMM ? 0 : l][m];
   };
   auto hl = [&](int u) -> float& {
-    return HMM ? sh.acc[D * MP + u][lane] : hl_r[HMM ? 0 : u];
+    return HMM ? sw.acc[D * MP + u][lane] : hl_r[HMM ? 0 : u];
   };
   auto Ysum = [&](int u) -> float& {
-    return HMM ? sh.acc[D * MP + TRI + u][lane] : Ysum_r[HMM ? 0 : u];
+    return HMM ? sw.acc[D * MP + TRI + u][lane] : Ysum_r[HMM ? 0 : u];
   };
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -237,6 +308,48 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
     for (int m = 0; m < MP; ++m) mw(l, m) = 0.0f;
 #pragma unroll
   for (int u = 0; u < TRI; ++u) hl(u) = Ysum(u) = 0.0f;
+  __syncthreads();
+
+  // M_S0 of the warp's entries += its A block (G S0, split once as read)
+  // x the chunk's monomials (B fragments of buffer `buf`), 3 passes.
+  auto contract = [&](int buf) {
+#pragma unroll 1
+    for (int ks = 0; ks < kNS / 8; ++ks) {
+      float b_hi[NT][2], b_lo[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float4 b = sh.bfrag[buf][(ks * NT + nt) * kWarp + lane];
+        b_hi[nt][0] = b.x;
+        b_hi[nt][1] = b.y;
+        b_lo[nt][0] = b.z;
+        b_lo[nt][1] = b.w;
+      }
+      float a_hi[2][4], a_lo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          dgs::tf32_split(sw.v[8 * ks + t + 4 * (r / 2)][16 * mt + g +
+                                                        8 * (r % 2)],
+                          a_hi[mt][r], a_lo[mt][r]);
+      // pass-major: consecutive mma.sync write different tiles
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          dgs::mma_tf32(cS[mt][nt], a_lo[mt], b_hi[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          dgs::mma_tf32(cS[mt][nt], a_hi[mt], b_lo[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          dgs::mma_tf32(cS[mt][nt], a_hi[mt], b_hi[nt]);
+    }
+  };
 
   for (int c0 = 0; c0 < C; c0 += CB) {
     float v[CB], dv[CB];
@@ -246,44 +359,93 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
       dv[c] = 0.0f;
     }
 
-    for (int s0 = lo; s0 < hi; s0 += kWarp) {
-      const int n = min(kWarp, hi - s0);
-      __syncwarp();  // the previous records and monomials are consumed
-      {
-        const long long s = (long long)s0 + lane;
-        const bool live = lane < n;
-        if (live) {
-          float g4[4 * (NV - 1)];
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const float* ct_k =
-                ct + (dgs::packed_component<D, MASK>(k, rows) * C + c0) * Np +
-                s;
-#pragma unroll
-            for (int c = 0; c < CB; ++c)
-              g4[k * CB + c] = (c0 + c < C) ? ct_k[c * Np] : 0.0f;
-          }
-#pragma unroll
-          for (int q = K * CB; q < 4 * (NV - 1); ++q) g4[q] = 0.0f;
-          sh.rec[lane] = make_float4(
-              mono[MR * Np + s], D > 0 ? mono[Np + s] : 0.0f,
-              D > 1 ? mono[2 * Np + s] : 0.0f,
-              D > 2 ? mono[3 * Np + s] : 0.0f);
-#pragma unroll
-          for (int vv = 1; vv < NV; ++vv)
-            sh.rec[vv * kWarp + lane] =
-                make_float4(g4[4 * vv - 4], g4[4 * vv - 3], g4[4 * vv - 2],
-                            g4[4 * vv - 1]);
+    // cp.async of chunk sc's rows into raw[buf]: mono rows 0 .. MR, then
+    // ct's row of each (component, channel) of the pass, zeros past
+    // channel C or past Np.
+    auto stage = [&](int sc, int buf) {
+      const long long s0 = s_first + (long long)sc * kNS;
+      // Kept rolled: unrolled, its addresses made instantiations spill.
+#pragma unroll 1
+      for (int i = tid; i < (MR + 1 + K * CB) * (kNS / 4); i += kThreads) {
+        const int r = i / (kNS / 4), c4 = i % (kNS / 4);
+        const long long s = s0 + 4 * c4;
+        const float* src = mono;
+        bool ok = s < Np;
+        if (r <= MR) {
+          src = mono + r * Np + s;
+        } else {
+          const int kc = r - MR - 1, c = kc % CB;
+          ok = ok && c0 + c < C;
+          src = ct + (dgs::packed_component<D, MASK>(kc / CB, rows) * C +
+                      c0 + c) * Np + s;
         }
-#pragma unroll
-        for (int m = 0; m < 8 * NT; ++m) {
-          const float x = live && m < MR ? mono[m * Np + s] : 0.0f;
-          dgs::tf32_split(x, sh.b_hi[m][lane], sh.b_lo[m][lane]);
-        }
+        dgs::cp_async16(&sh.raw[buf][r][4 * c4], ok ? src : mono, ok);
       }
-      __syncwarp();
+      dgs::cp_async_commit();
+    };
 
-      for (int ks = 0; 8 * ks < n; ++ks) {
+    // Chunk sc's rows (landed in raw[buf]) into its records rec[buf] and
+    // its monomials' B fragments bfrag[buf], split once for the block:
+    // fragment (k8 step, n8 tile, lane) holds monomial 8 nt + g of samples
+    // 8 ks + t and + 4.
+    auto prepare = [&](int buf) {
+      const float(*rw)[kNS] = sh.raw[buf];
+      for (int i = tid; i < NV * kNS; i += kThreads) {
+        const int v = i / kNS, j = i % kNS;
+        float f[4];
+        if (v == 0) {
+          f[0] = rw[MR][j];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) f[1 + d] = d < D ? rw[1 + d][j] : 0.0f;
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int kc = 4 * (v - 1) + u;
+            f[u] = kc < K * CB ? rw[MR + 1 + kc][j] : 0.0f;
+          }
+        }
+        sh.rec[buf][i] = make_float4(f[0], f[1], f[2], f[3]);
+      }
+      for (int i = tid; i < kNS / 8 * NT * kWarp; i += kThreads) {
+        const int L = i % kWarp, ntk = i / kWarp, nt = ntk % NT,
+                  ks = ntk / NT;
+        const int m = 8 * nt + L / 4, n = 8 * ks + L % 4;
+        float x0 = 0.0f, x1 = 0.0f;
+        if (m < MR) {
+          x0 = rw[m][n];
+          x1 = rw[m][n + 4];
+        }
+        float h0, l0, h1, l1;
+        dgs::tf32_split(x0, h0, l0);
+        dgs::tf32_split(x1, h1, l1);
+        sh.bfrag[buf][i] = make_float4(h0, h1, l0, l1);
+      }
+    };
+
+    // One barrier a chunk: the rows land two chunks ahead, the records
+    // and fragments are prepared one chunk ahead by the whole block.
+    if (n_sc > 0) stage(0, 0);
+    if (n_sc > 1) stage(1, 1);
+    dgs::cp_async_wait_all();
+    __syncthreads();
+    if (n_sc > 0) prepare(0);
+    for (int sc = 0; sc < n_sc; ++sc) {
+      dgs::cp_async_wait_all();
+      __syncthreads();   // chunk sc + 1 landed; chunk sc is prepared
+      if (sc + 2 < n_sc) stage(sc + 2, sc & 1);
+      if (sc + 1 < n_sc) prepare((sc + 1) & 1);
+      const long long s0 = s_first + (long long)sc * kNS;
+      // The warp's samples in the chunk: j_lo .. j_hi - 1.
+      const int j_lo = (int)max(0LL, lo - s0);
+      const int j_hi = (int)min((long long)kNS, hi - s0);
+      if (j_lo >= j_hi) continue;
+      const float4* rec4 = sh.rec[sc & 1];
+      // Records read through their 32-bit shared address, in program order
+      // (tiled_layout.cuh staged_vector): nothing hoisted.
+      const dgs::StagedBase rb = dgs::staged_base(rec4);
+      const float* rec = reinterpret_cast<const float*>(rec4);
+
+      for (int ks = 0; ks < kNS / 8; ++ks) {
         if (HMM) {
           // The values' fragments are reloaded for each block of 8 samples
           // (from L1): held across the sweep they made the widest
@@ -291,16 +453,15 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
           float va_hi[2][4], va_lo[2][4];
           dgs::h_matmul_values<CB>(geom, Ep, 1 + D + TRI, C, c0, col - lane,
                                    three, va_hi, va_lo);
-          dgs::h_matmul_block<K, CB>(reinterpret_cast<const float*>(sh.rec),
-                                     8 * ks, va_hi, va_lo, three, sh.h);
+          dgs::h_matmul_block<K, CB>(rec, 8 * ks, va_hi, va_lo, three, sw.h);
           __syncwarp();
         }
 #pragma unroll 1
         for (int jj = 0; jj < 8; ++jj) {
           const int j = 8 * ks + jj;
           float gs = 0.0f;
-          const float4 head = sh.rec[j];
-          if (j < n && head.x == tile) {
+          const float4 head = dgs::staged_vector(rb, 0, j);
+          if (j >= j_lo && j < j_hi && head.x == tile) {
             const float xs[3] = {head.y, head.z, head.w};
             float X[D], a[D], q[TRI], wk[K], h[HMM ? 1 : K], W[D], Y[TRI],
                 GS;
@@ -313,7 +474,7 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
             for (int k = 0; k < (HMM ? 1 : K); ++k) h[k] = 0.0f;
 #pragma unroll
             for (int gv = 0; gv < NV - 1; ++gv) {
-              const float4 c4 = sh.rec[(1 + gv) * kWarp + j];
+              const float4 c4 = dgs::staged_vector(rb, 1 + gv, j);
               const float ctv[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
               for (int u = 0; u < 4; ++u) {
@@ -325,7 +486,7 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
                 }
               }
             }
-            const HBlock hb{sh.h + jj * dgs::kHStride + lane};
+            const HBlock hb{sw.h + jj * dgs::kHStride + lane};
             const HRegs hr{h};
             if (HMM)
               pair_accumulators<D, MASK>(a, q, wk, hb, GS, W, Y);
@@ -354,40 +515,25 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_backward_moments_kern
               for (int u = 0; u < TRI; ++u) Ysum(u) = fmaf(G, Y[u], Ysum(u));
             }
           }
-          sh.v[jj][lane] = gs;
+          sw.v[j][lane] = gs;
         }
-        __syncwarp();
-
-        // M[e, m] += sum over the 8 samples of V[e, s] mono[m, s].
-        float b_hi[NT][2], b_lo[NT][2];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            b_hi[nt][r] = sh.b_hi[8 * nt + g][8 * ks + t + 4 * r];
-            b_lo[nt][r] = sh.b_lo[8 * nt + g][8 * ks + t + 4 * r];
-          }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float a_hi[4], a_lo[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            dgs::tf32_split(sh.v[t + 4 * (r / 2)][16 * mt + g + 8 * (r % 2)],
-                            a_hi[r], a_lo[r]);
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            dgs::mma_passes<3>(cS[mt][nt], a_hi, a_lo, b_hi[nt], b_lo[nt]);
-        }
-        __syncwarp();  // the A block is consumed before the next k-step
+        if (HMM) __syncwarp();   // the h block is consumed
       }
+      __syncwarp();   // the A block is written
+      contract(sc & 1);
+      __syncwarp();   // the A block is consumed
     }
 
-    float* rec = out + col * nout;
+    if (real) {
+      float* rec = out + col * nout;
 #pragma unroll
-    for (int c = 0; c < CB; ++c)
-      if (c0 + c < C) rec[NROWS + c0 + c] = dv[c];
+      for (int c = 0; c < CB; ++c)
+        if (c0 + c < C) rec[NROWS + c0 + c] = dv[c];
+    }
+    __syncthreads();   // the rows, records and fragments are free again
   }
 
+  if (!real) return;
   // The lane's own rows, then the fragments' (entry e0 + 16 mt + g (+ 8),
   // monomial 8 nt + 2 t (+ 1)).
   float* rec = out + col * nout;
@@ -424,10 +570,7 @@ cudaError_t launch_one(const float* geom, long long Ep, int C,
                        const int* s_lo, const int* s_n, int n_ranges,
                        OrderRows rows, bool three, float* out,
                        cudaStream_t stream) {
-  const dim3 grid((n_ranges + kWarps - 1) / kWarps), block(kWarps * kWarp);
-  constexpr size_t bytes = sizeof(Staged<D, MASK, CB, HMM>) * kWarps;
-  static_assert(HMM || bytes <= 48 * 1024,
-                "above the default shared-memory limit");
+  constexpr size_t bytes = sizeof(Shared<D, MASK, CB, HMM>);
   static_assert(bytes <= 227 * 1024, "above the shared memory of an SM");
   auto* kernel = tiled_backward_moments_kernel<D, MASK, CB, HMM>;
   if (bytes > 48 * 1024) {
@@ -435,8 +578,9 @@ cudaError_t launch_one(const float* geom, long long Ep, int C,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, block, bytes, stream>>>(geom, Ep, C, mono, Np, ct, s_lo,
-                                         s_n, rows, three, out);
+  constexpr int W = warps_of(D);
+  kernel<<<(n_ranges + W - 1) / W, W * kWarp, bytes, stream>>>(
+      geom, Ep, C, mono, Np, ct, s_lo, s_n, rows, three, out);
   return cudaGetLastError();
 }
 
@@ -466,7 +610,8 @@ int launch_moments(const void* geom, int Ep, int C, const void* mono, int Np,
                    const void* ct, const void* s_lo, const void* s_n,
                    int n_ranges, int D, int mask, OrderRows rows, bool three,
                    void* out, void* stream) {
-  if ((long long)n_ranges * kWarp != Ep || C < 1)
+  if ((long long)n_ranges * kWarp != Ep || C < 1 || Np % 4 != 0 ||
+      (size_t)mono % 16 != 0 || (size_t)ct % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const auto* g = static_cast<const float*>(geom);
   const auto* m = static_cast<const float*>(mono);
@@ -491,9 +636,45 @@ int launch_moments(const void* geom, int Ep, int C, const void* mono, int Np,
   return (int)err;
 }
 
+// sizeof(Shared) of the instantiation (D, mask, CB, HMM): a launch's
+// dynamic shared bytes.
+template <int D, int CB, bool HMM>
+int shared_bytes(int mask) {
+  switch (mask) {
+#define DGS_CASE(M) \
+  case M:           \
+    return (int)sizeof(Shared<D, M, CB, HMM>);
+    DGS_CASE(1) DGS_CASE(2) DGS_CASE(3) DGS_CASE(4) DGS_CASE(5)
+    DGS_CASE(6) DGS_CASE(7) DGS_CASE(8) DGS_CASE(9) DGS_CASE(10)
+    DGS_CASE(11) DGS_CASE(12) DGS_CASE(13) DGS_CASE(14) DGS_CASE(15)
+#undef DGS_CASE
+    default:
+      return 0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// Threads a block at D, and the dynamic shared bytes of a launch at (D,
+// mask, C, h_matmul), for the smoke test's facts.
+int dgs_tiled_backward_moments_block(int D) { return warps_of(D) * kWarp; }
+
+int dgs_tiled_backward_moments_smem(int D, int mask, int C, int hmm) {
+  const int cb = (D == 2 && C <= 2) ? C : 4;
+  if (D == 1) return hmm ? shared_bytes<1, 4, true>(mask)
+                         : shared_bytes<1, 4, false>(mask);
+  if (D == 3) return hmm ? shared_bytes<3, 4, true>(mask)
+                         : shared_bytes<3, 4, false>(mask);
+  if (D != 2) return 0;
+  if (cb == 1) return hmm ? shared_bytes<2, 1, true>(mask)
+                          : shared_bytes<2, 1, false>(mask);
+  if (cb == 2) return hmm ? shared_bytes<2, 2, true>(mask)
+                          : shared_bytes<2, 2, false>(mask);
+  return hmm ? shared_bytes<2, 4, true>(mask)
+             : shared_bytes<2, 4, false>(mask);
+}
 
 // Rows of the kernel's output record before the C value-gradient rows
 // (kernels/tiled.py moment_layout's n_rows), for the wrapper's check.
@@ -506,7 +687,8 @@ int dgs_tiled_backward_moments_rows(int D, int mask) {
 // Launches the kernel on `stream` and returns cudaGetLastError() after the
 // launch (0 = launched).  Pointers are device pointers; `mask` is the order
 // set (bits of pair_math.cuh), r_* the first cotangent component of each
-// order.  Ranges are the classic backward's (32 entries).
+// order.  Ranges are the classic backward's (32 entries).  mono and ct are
+// 16-byte aligned with Np a multiple of 4 (the copies are 16 bytes).
 int dgs_tiled_backward_moments(const void* geom, int Ep, int C,
                                const void* mono, int Np, const void* ct,
                                const void* s_lo, const void* s_n,

@@ -113,8 +113,18 @@ def load() -> ctypes.CDLL:
                    lib.dgs_tiled_backward_fvjp_smem):
             fn.argtypes = [i, i, i, i]
             fn.restype = i
+        for fn in (lib.dgs_tiled_backward_fdv_pass_rows,
+                   lib.dgs_tiled_backward_fdv_smem):
+            fn.argtypes = [i, i, i, i, i]
+            fn.restype = i
+        lib.dgs_tiled_backward_fdv_warps.argtypes = [i, i]
+        lib.dgs_tiled_backward_fdv_warps.restype = i
         lib.dgs_tiled_backward_moments_rows.argtypes = [i, i]
         lib.dgs_tiled_backward_moments_rows.restype = i
+        lib.dgs_tiled_backward_moments_block.argtypes = [i]
+        lib.dgs_tiled_backward_moments_block.restype = i
+        lib.dgs_tiled_backward_moments_smem.argtypes = [i, i, i, i]
+        lib.dgs_tiled_backward_moments_smem.restype = i
         lib.dgs_dense_forward.argtypes = [
             p, i, i, p, i, i, i, i, i, i, ctypes.c_float, p, p,
         ]

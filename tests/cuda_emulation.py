@@ -8,8 +8,11 @@ its blocks one after another on one team of threads, and ``__shared__``
 variables become statics shared by the threads of the one block that runs.
 This checks the kernels' logic, not their speed or the card's arithmetic:
 ``chip_smoke.py`` holds the same functions on the H100.  Used by
-``test_torch_agg_sweep.py`` (the aggregation sweeps) and
-``test_torch_segment_kernel.py`` (the segment-sum and the totals).
+``test_torch_agg_sweep.py`` (the aggregation sweeps),
+``test_torch_segment_kernel.py`` (the segment-sum and the totals),
+``test_torch_mode_kernels.py`` and ``test_torch_folded_kernels.py`` (the
+kernel modes), with two helpers for their operands (``misaligned``,
+``straddles``).
 """
 
 import ctypes
@@ -172,6 +175,27 @@ void launch(K kernel, dim3 grid, dim3 block, size_t bytes, void*, A... args) {
 """
 
 
+def misaligned(x):
+    """x's values (a float32 CPU tensor) at an address 4 bytes past a
+    16-byte boundary, which the kernels that stage by 16-byte copies
+    refuse."""
+    import torch
+    buf = torch.empty(x.numel() + 4)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+def straddles(tiles, block):
+    """Whether some block of ``block`` consecutive sorted rows holds two
+    tiles (of the valid ones, >= 0)."""
+    import torch
+    t = tiles[:tiles.numel() // block * block].reshape(-1, block)
+    lo = torch.where(t >= 0, t, float("inf")).amin(dim=1)
+    return bool((t.amax(dim=1) > lo).any())
+
+
 def gxx(args):
     """g++ (C++20, a shared library) started on ``args``; wait() it."""
     return subprocess.Popen(["g++", "-std=c++20", "-shared", "-fPIC"] + args,
@@ -211,7 +235,7 @@ def build(tmpdir, names):
         assert n >= 1 or ".cuh\"" in src, name
         (tmpdir / (name + ".cpp")).write_text(src)
         objs.append(str(tmpdir / (name + ".so")))
-        procs.append(gxx(["-O1", "-pthread", "-I", str(tmpdir), "-I", CSRC,
+        procs.append(gxx(["-Og", "-pthread", "-I", str(tmpdir), "-I", CSRC,
                           "-o", objs[-1], str(tmpdir / (name + ".cpp"))]))
     wait(procs)
     return [ctypes.CDLL(o) for o in objs]

@@ -9,10 +9,11 @@ rounding the card's; cp_async.cuh's copies done at once), run on operands
 of the port's binning and held against their plain versions at 3 TF32
 passes: the forward within the fp32 kernel gate, the backwards within the
 gradient tolerance; pad and sentinel columns exactly zero; two runs
-bitwise equal.  The cases cover R from 13 to 150 in one pass of the
-folded forward (384 rows) and one Zd window of the folded VJP, and R = 390
-and 546 in two passes of the forward (546 also in two Zd windows of the
-VJP, its samples swept again); blocks whose samples or
+bitwise equal; operands off a 16-byte boundary refused.  The cases cover R from 13 to 150 in one pass of the
+folded forward (384 rows), of the folded dvalues (128 or 320 rows) and one
+Zd window of the folded VJP, and R = 390 and 546 in two passes of the
+forward and the folded dvalues (546 also in two Zd windows of the VJP, its
+samples swept again); blocks whose samples or
 entries straddle two tiles; value-only orders; C = 1, 2, 4 and 6 (two
 channel passes of the classic VJP).  This checks the kernels' logic
 (fragment layouts, staging, passes, ranges, the row tables), not the
@@ -49,6 +50,7 @@ def libs(tmp_path_factory):
         P_, I_, P_, I_, I_, P_, I_, I_, P_, P_, I_, I_, I_, P_, I_, P_, P_]
     bwd.dgs_tiled_backward_fdv.argtypes = [
         P_, I_, I_, P_, I_, P_, P_, I_, I_, P_, P_] + [I_] * 9 + [P_, P_]
+    bwd.dgs_tiled_backward_fdv_pass_rows.argtypes = [I_] * 5
     fvjp.dgs_tiled_backward_fvjp.argtypes = [
         P_, I_, I_, P_, P_, P_, I_, I_, P_, I_, P_, P_, I_, I_, P_, I_, I_,
         P_, P_]
@@ -110,16 +112,18 @@ def _forward(fwd, orders, D, C, k, lo, n):
     return out
 
 
-def _fdv(bwd, orders, D, C, k, s_lo, s_n, hmm):
+def _fdv(bwd, orders, D, C, k, s_lo, s_n, hmm, cb=None, refused=False):
     mask, rows = kt._order_rows(orders, D)
     Ep, Np = k["geom"].shape[1], k["mono"].shape[1]
+    cb = k["cb"] if cb is None else cb
     out = torch.full((Ep, D + tri_size(D) + C), float("nan"))
-    assert bwd.dgs_tiled_backward_fdv(
+    err = bwd.dgs_tiled_backward_fdv(
         k["geom"].data_ptr(), Ep, C, k["local"].data_ptr(), Np,
-        k["ct"].data_ptr(), k["cb"].data_ptr(), k["Rp"], k["R"],
+        k["ct"].data_ptr(), cb.data_ptr(), k["Rp"], k["R"],
         s_lo.data_ptr(), s_n.data_ptr(), Ep // kt.BLOCK_E, D, mask,
         rows["value"], rows["derivative"], rows["laplacian"], rows["third"],
-        3, int(hmm), out.data_ptr(), None) == 0
+        3, int(hmm), out.data_ptr(), None)
+    assert (err != 0) == refused
     return out.T
 
 
@@ -140,19 +144,12 @@ def _fvjp(fvjp, orders, D, C, k, s_lo, s_n):
     return out.T
 
 
-def _straddles(tiles, block):
-    """Whether some block of ``block`` consecutive sorted rows holds two
-    tiles (of the valid ones, >= 0)."""
-    t = tiles[:tiles.numel() // block * block].reshape(-1, block)
-    lo = torch.where(t >= 0, t, float("inf")).amin(dim=1)
-    return bool((t.amax(dim=1) > lo).any())
-
-
 CASES = [(1, 4, ORDERS), (2, 4, THREE), (2, 2, ("value", "laplacian")),
          (3, 1, ("value", "derivative")), (2, 6, ("value",)),
          (1, 4, THREE), (2, 6, ORDERS), (3, 2, ORDERS)]
-# (passes of the folded forward, Zd windows of the folded VJP) where not 1.
-TALL = {(2, 6, ORDERS): (2, 1), (3, 2, ORDERS): (2, 2)}
+# (passes of the folded forward, Zd windows of the folded VJP, passes of
+# the folded dvalues) where not 1.
+TALL = {(2, 6, ORDERS): (2, 1, 2), (3, 2, ORDERS): (2, 2, 2)}
 
 
 @pytest.mark.parametrize("D,C,orders", CASES,
@@ -168,12 +165,14 @@ def test_emulated_folded_kernels_match_plain(libs, D, C, orders):
     # the two-window case with fewer Gaussians: the emulation is slow
     k = _case(D, C, orders, 100 * D + C, P=12 if D == 3 and C == 2 else 24)
     Np, Ep = k["mono"].shape[1], k["geom"].shape[1]
-    assert _straddles(k["mono"][-1], 64)
-    assert _straddles(k["geom"][0], kt.BLOCK_E)
+    assert cuda_emulation.straddles(k["mono"][-1], 64)
+    assert cuda_emulation.straddles(k["geom"][0], kt.BLOCK_E)
     Rp, nsel = k["Rp"], len(kt.fvjp_vz_groups(orders, D))
+    mask = kt._order_rows(orders, D)[0]
     assert (-(-Rp // fwd.dgs_tiled_forward_folded_pass_rows(Rp)),
-            -(-Rp // fvjp.dgs_tiled_backward_fvjp_window(D, Rp, C, nsel))
-            ) == TALL.get((D, C, orders), (1, 1))
+            -(-Rp // fvjp.dgs_tiled_backward_fvjp_window(D, Rp, C, nsel)),
+            -(-Rp // bwd.dgs_tiled_backward_fdv_pass_rows(D, mask, Rp, C, 0))
+            ) == TALL.get((D, C, orders), (1, 1, 1))
     lo, n = kt.entry_ranges(k["state"], Np)
     got = _forward(fwd, orders, D, C, k, lo, n)
     ref = kt.tiled_forward_folded_plain(orders, D, C, k["geom"], k["fold"],
@@ -192,6 +191,12 @@ def test_emulated_folded_kernels_match_plain(libs, D, C, orders):
         rows = _fdv(bwd, orders, D, C, k, s_lo, s_n, hmm)
         _close(rows, ref_fdv, 2e-3, f"folded dvalues, h_matmul {hmm}")
         assert not bool(rows[:, dead].any())
+        if not hmm:      # again: bitwise equal
+            assert torch.equal(_fdv(bwd, orders, D, C, k, s_lo, s_n, hmm),
+                               rows)
+    # cb off a 16-byte boundary is refused (the copies are 16 bytes)
+    _fdv(bwd, orders, D, C, k, s_lo, s_n, False,
+         cb=cuda_emulation.misaligned(k["cb"]), refused=True)
     rows = _fvjp(fvjp, orders, D, C, k, s_lo, s_n)
     _close(rows, kt.tiled_backward_fvjp_plain(
         orders, D, C, k["geom"], k["fold"], k["foldw"], k["local"], k["cb"],

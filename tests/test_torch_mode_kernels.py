@@ -7,9 +7,10 @@ versions: the separable forward at 3 passes within the fp32 gate and at 1
 pass within its sanity bound, the moment-form backward within the gradient
 tolerance and, folded by moment_combine, against the classic backward on
 the same tile-local operands; pad and sentinel columns exactly zero; two
-runs bitwise equal.  This checks the kernels' logic (fragment layouts,
-ranges, channel passes, the row layout), not the card's speed: chip_smoke.py
-holds the same functions on the H100."""
+runs bitwise equal; operands off a 16-byte boundary refused; h_matmul's
+instantiations too.  This checks the kernels' logic
+(fragment layouts, ranges, channel passes, the row layout), not the card's
+speed: chip_smoke.py holds the same functions on the H100."""
 
 import ctypes
 
@@ -39,7 +40,10 @@ def libs(tmp_path_factory):
         [I_] * 8 + [P_, P_]
     bwd.dgs_tiled_backward_moments.argtypes = [P_, I_, I_, P_, I_, P_, P_,
                                                P_] + [I_] * 7 + [P_, P_]
+    bwd.dgs_tiled_backward_moments_hmm.argtypes = [
+        P_, I_, I_, P_, I_, P_, P_, P_] + [I_] * 8 + [P_, P_]
     bwd.dgs_tiled_backward_moments_rows.argtypes = [I_, I_]
+    bwd.dgs_tiled_backward_moments_block.argtypes = [I_]
     return fwd, bwd
 
 
@@ -78,18 +82,23 @@ def _forward(fwd, orders, D, C, geom, mono, lo, n, passes):
     return out
 
 
-def _backward(bwd, orders, D, C, geom, mono, ct, lo, n):
+def _backward(bwd, orders, D, C, geom, mono, ct, lo, n, hmm=False,
+              refused=False):
     mask, rows = kt._order_rows(orders, D)
     n_rows = kt.moment_layout(orders, D)[3]
     assert bwd.dgs_tiled_backward_moments_rows(D, mask) == n_rows
     Ep = geom.shape[1]
     out = torch.full((Ep, n_rows + C), float("nan"))
-    err = bwd.dgs_tiled_backward_moments(
-        geom.data_ptr(), Ep, C, mono.data_ptr(), mono.shape[1],
-        ct.data_ptr(), lo.data_ptr(), n.data_ptr(), Ep // kt.BLOCK_E, D,
-        mask, rows["value"], rows["derivative"], rows["laplacian"],
-        rows["third"], out.data_ptr(), None)
-    assert err == 0
+    args = (geom.data_ptr(), Ep, C, mono.data_ptr(), mono.shape[1],
+            ct.data_ptr(), lo.data_ptr(), n.data_ptr(), Ep // kt.BLOCK_E, D,
+            mask, rows["value"], rows["derivative"], rows["laplacian"],
+            rows["third"])
+    if hmm:
+        err = bwd.dgs_tiled_backward_moments_hmm(*args, 3, out.data_ptr(),
+                                                 None)
+    else:
+        err = bwd.dgs_tiled_backward_moments(*args, out.data_ptr(), None)
+    assert (err != 0) == refused
     return out.T
 
 
@@ -100,17 +109,30 @@ def _check_close(got, ref, rtol, atol_rel, what):
                                  float((got - ref).abs().max()))
 
 
-CASES = [(1, 4, ORDERS), (2, 4, ORDERS), (3, 4, ORDERS), (2, 1, ORDERS),
-         (2, 2, ("laplacian", "value")), (3, 6, ("third",)),
-         (3, 1, ("value",)), (2, 4, ("derivative",))]
+CASES = [(1, 4, ORDERS, False), (2, 4, ORDERS, False),
+         (3, 4, ORDERS, False), (2, 1, ORDERS, False),
+         (2, 2, ("laplacian", "value"), False), (3, 6, ("third",), False),
+         (3, 1, ("value",), False), (2, 4, ("derivative",), False),
+         # h_matmul: C = 6 in two channel passes, C = 1 at one
+         (3, 6, ("value", "derivative", "laplacian"), True),
+         (2, 1, ORDERS, True)]
 
 
-@pytest.mark.parametrize("D,C,orders", CASES,
-                         ids=[f"D{d}_C{c}_{len(o)}" for d, c, o in CASES])
-def test_emulated_mode_kernels_match_plain(libs, D, C, orders):
+@pytest.mark.parametrize(
+    "D,C,orders,hmm", CASES,
+    ids=[f"D{d}_C{c}_{len(o)}" + ("_hmm" if h else "")
+         for d, c, o, h in CASES])
+def test_emulated_mode_kernels_match_plain(libs, D, C, orders, hmm):
+    """The separable forward and the moment-form backward (with or without
+    h_matmul) against their plain versions; every case has 32-entry ranges
+    and blocks of ranges that straddle two tiles; the backward's second run
+    is bitwise equal, and a misaligned monomial or cotangent operand is
+    refused."""
     fwd, bwd = libs
     geom, mono, state = _operands(D, C, 100 * D + C)
     Np, Ep = mono.shape[1], geom.shape[1]
+    for block in (kt.BLOCK_E, bwd.dgs_tiled_backward_moments_block(D)):
+        assert cuda_emulation.straddles(geom[0], block)
     lo, n = kt.entry_ranges(state, Np)
     ref = kt.tiled_forward_sep_plain(orders, D, C, geom, mono, lo, n)
     got = _forward(fwd, orders, D, C, geom, mono, lo, n, passes=3)
@@ -129,14 +151,19 @@ def test_emulated_mode_kernels_match_plain(libs, D, C, orders):
     ct = torch.from_numpy(np.random.default_rng(D).standard_normal(
         (K * C, Np)).astype(np.float32))
     s_lo, s_n = kt.sample_ranges(state, Ep)
-    rows = _backward(bwd, orders, D, C, geom, mono, ct, s_lo, s_n)
+    rows = _backward(bwd, orders, D, C, geom, mono, ct, s_lo, s_n, hmm)
     ref_rows = kt.tiled_backward_moments_plain(orders, D, C, geom, mono, ct,
                                                s_lo, s_n)
     _check_close(rows, ref_rows, 2e-3, 1e-5, "moment rows")
     dead = (geom[0] < 0) | (geom[0] >= state.ent_start.shape[0] - 2)
     assert not bool(rows[:, dead].any())
     assert torch.equal(_backward(bwd, orders, D, C, geom, mono, ct, s_lo,
-                                 s_n), rows)
+                                 s_n, hmm), rows)
+    # operands off a 16-byte boundary are refused (the copies are 16 bytes)
+    for m, c in ((cuda_emulation.misaligned(mono), ct),
+                 (mono, cuda_emulation.misaligned(ct))):
+        _backward(bwd, orders, D, C, geom, m, c, s_lo, s_n, hmm,
+                  refused=True)
     combined = kt.moment_combine(orders, D, C, rows, geom)
     classic = kt.tiled_backward_plain(
         orders, None, D, C, kt.base_rows(geom, D, C),

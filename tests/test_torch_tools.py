@@ -143,6 +143,27 @@ def test_no_card_is_an_error_not_a_fallback(monkeypatch):
             mod.run(mod.settings({}))
 
 
+def test_chip_variants_types_entries_as_the_library():
+    """chip_variants.py gives a variant library's C entry the argument and
+    result types that the package's library gives it, and refuses a
+    library that exports neither kernel's entry."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_variants",
+        Path(__file__).resolve().parents[1] / "chip_variants.py")
+    cv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cv)
+    ref = types.SimpleNamespace(**{
+        e: types.SimpleNamespace(argtypes=[e], restype=len(e))
+        for e in cv.ENTRIES.values()})
+    for kind, entry in cv.ENTRIES.items():
+        lib = types.SimpleNamespace(**{entry: types.SimpleNamespace()})
+        assert cv.bind(lib, ref, "v") == kind
+        fn = getattr(lib, entry)
+        assert (fn.argtypes, fn.restype) == ([entry], len(entry))
+    with pytest.raises(RuntimeError, match="v: exports none"):
+        cv.bind(types.SimpleNamespace(), ref, "v")
+
+
 # ------------------------------------------------------ refused knobs
 
 REFUSED = [("bench", "BENCH_BN", "512"), ("bench", "BENCH_BP", "256"),
