@@ -561,8 +561,6 @@ def phase_build():
             r"Compiling entry function '(\S+)'[\s\S]*?Used (\d+) registers",
             log):
         names = [name for name in KERNELS if name in entry]
-        if "tiled_backward_kernel" in entry and "Lb1EEEv" in entry:
-            names = ["tiled_backward_hmm"]   # its last template flag, HMM
         if names:   # the longest: tiled_forward_sep is not tiled_forward
             name = max(names, key=len)
             by_kernel[name] = max(by_kernel[name], int(used))
@@ -836,9 +834,7 @@ def instantiation(kernel, orders, D, C, period):
     mask = ktiled._order_rows(orders, D)[0]
     cb = getattr(lib, f"dgs_{kernel}_pass")(D, C)
     wrapped = int(period is not None)
-    name = f"{kernel}_kernelILi{D}ELi{mask}ELi{cb}ELb{wrapped}E"
-    # The backward's template ends with its h_matmul flag (off here).
-    name += "Lb0EE" if kernel == "tiled_backward" else "E"
+    name = f"{kernel}_kernelILi{D}ELi{mask}ELi{cb}ELb{wrapped}EE"
     reports = [
         r for r in _build.build_log().split("Compiling entry function")[1:]
         if name in r.split("'")[1]]
@@ -3472,9 +3468,11 @@ def phase_parity_modes(dev):
     outside the gate, against the 3-pass one under ONE_PASS_SANITY), the
     moment rows folded by moment_combine against the classic backward on
     the same tile-local operands, dead columns exactly zero, two runs of
-    the backward bitwise equal; each case reports the moment form's
-    instantiation (moment_facts) and its 32-entry ranges and blocks of
-    ranges that straddle two tiles, and the phase fails unless some do;
+    the backward and of the forward bitwise equal; each case reports the
+    moment form's and the separable forward's instantiations (moment_facts,
+    sep_facts at 3 and 1 passes) and its 32-entry ranges, blocks of entry
+    ranges and blocks of sample ranges (the separable forward's) that
+    straddle two tiles, and the phase fails unless some do;
     then the op's outputs and gradients in each mode against the dense
     masked oracle (gradients twice, bitwise equal), with the kernels each
     mode launched."""
@@ -3483,7 +3481,7 @@ def phase_parity_modes(dev):
     cases += [(2, 0.6, 4, False, True),     # full-cover footprints, open box
               (2, 0.03, 4, True, False)]    # tiles without samples / entries
     worst = 0.0
-    straddling = {"range_32": 0, "block": 0}
+    straddling = {"range_32": 0, "block": 0, "sep_block": 0}
     for i, (D, sigma, C, holes, open_domain) in enumerate(cases):
         state, geom, mono, P, N, g = mode_case(dev, 80 + i, D, sigma, C,
                                                holes, open_domain)
@@ -3493,7 +3491,12 @@ def phase_parity_modes(dev):
         one = ktiled.tiled_forward_sep(ORDERS, D, C, geom, mono, lo, n,
                                        passes=1)
         ref = ktiled.tiled_forward_sep_plain(ORDERS, D, C, geom, mono, lo, n)
+        again = ktiled.tiled_forward_sep(ORDERS, D, C, geom, mono, lo, n,
+                                         passes=3)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"separable forward D={D} C={C}: two runs "
+                                 "differ")
         errs = compare(got, ref, ORDERS, D, C)
         pads = check_dead_rows("separable forward", got, mono[-1] < 0)
         check_dead_rows("separable forward, 1 pass", one, mono[-1] < 0)
@@ -3536,12 +3539,17 @@ def phase_parity_modes(dev):
                                                 ktiled.BLOCK_E),
                   "block": straddling_blocks(
                       state.ent_tile[0], T,
-                      _build.load().dgs_tiled_backward_moments_block(D))}
+                      _build.load().dgs_tiled_backward_moments_block(D)),
+                  "sep_block": straddling_blocks(
+                      state.s_tile[0], T,
+                      _build.load().dgs_tiled_forward_sep_block())}
         for key, count in blocks.items():
             straddling[key] += count
         emit("parity_modes", D=D, sigma=sigma, C=C, P=P, N=N, holes=holes,
              open_domain=open_domain, straddling_blocks=blocks,
              instantiation=moment_facts(ORDERS, D, C),
+             sep_instantiations={p: sep_facts(ORDERS, D, C, p)
+                                 for p in (3, 1)},
              entries=int((~dead_entries(geom, state)).sum()),
              pad_columns_zero=pads, **tile_facts(state),
              separable_err=err_fields(errs),
@@ -3776,9 +3784,11 @@ def mode_kernel_numbers(ev, sides, plain=True):
                                ev["passes"] if kind == "separable" else 3)
         out[kernel] = {"ms": ms, **bound, "share": bound["bound_ms"] / ms,
                        "kept_pairs": pairs}
-        if kernel in ("tiled_forward_folded", "tiled_backward_fdv",
-                      "tiled_backward_fvjp"):
-            out[kernel]["instantiation"] = folded_facts(kernel, orders, D, C)
+        if kernel in FOLDED_KERNELS:
+            out[kernel]["instantiation"] = (
+                hmm_facts(orders, D, C, ev["period"] is not None)
+                if kernel == "tiled_backward_hmm"
+                else folded_facts(kernel, orders, D, C))
             # One TF32 pass: a third of the contraction, the rest the same.
             passes, ev["passes"] = ev["passes"], 1
             out[kernel]["ms_one_pass"] = cuda_ms(folded_calls(
@@ -3786,6 +3796,9 @@ def mode_kernel_numbers(ev, sides, plain=True):
             ev["passes"] = passes
         elif kernel == "tiled_backward_moments":
             out[kernel]["instantiation"] = moment_facts(orders, D, C)
+        elif kernel == "tiled_forward_sep":
+            out[kernel]["instantiation"] = sep_facts(orders, D, C,
+                                                     ev["passes"])
         elif kernel in ("tiled_forward", "tiled_backward"):
             out[kernel]["instantiation"] = instantiation(
                 kernel, orders, D, C, ev["period"])
@@ -4068,16 +4081,11 @@ def folded_facts(kernel, orders, D, C):
             "passes": -(-Rp // rows)}
 
 
-def moment_facts(orders, D, C, hmm=False):
-    """The build and launch facts of the moment-form backward's
-    instantiation at (orders, D, C, h_matmul): registers, spill bytes,
-    static and dynamic shared bytes, threads a block (each warp one range of
-    32 entries), the blocks and warps an SM holds."""
-    lib = _build.load()
-    mask = ktiled._order_rows(orders, D)[0]
-    cb = C if D == 2 and C <= 2 else 4
-    name = (f"tiled_backward_moments_kernelILi{D}ELi{mask}ELi{cb}"
-            f"ELb{int(hmm)}EE")
+def instance_facts(name, threads, dyn):
+    """Registers, spill bytes and static shared bytes of the one
+    instantiation whose mangled name holds ``name`` (the ptxas report of
+    the build), with its launch's ``dyn`` dynamic shared bytes and
+    ``threads`` a block: the blocks and warps an SM holds."""
     reports = [
         r for r in _build.build_log().split("Compiling entry function")[1:]
         if name in r.split("'")[1]]
@@ -4087,13 +4095,48 @@ def moment_facts(orders, D, C, hmm=False):
     spill = int(re.search(r"(\d+) bytes spill stores", reports[0]).group(1))
     smem = re.search(r"(\d+) bytes smem", reports[0])
     static = int(smem.group(1)) if smem else 0
-    dyn = lib.dgs_tiled_backward_moments_smem(D, mask, C, int(hmm))
-    threads = lib.dgs_tiled_backward_moments_block(D)
     blocks = resident_blocks(regs, threads, static + dyn)
     return {"registers": regs, "spill_store_bytes": spill,
             "static_shared_bytes": static, "dynamic_shared_bytes": dyn,
             "threads": threads, "resident_blocks": blocks,
             "resident_warps": blocks * threads // 32}
+
+
+def moment_facts(orders, D, C, hmm=False):
+    """The build and launch facts of the moment-form backward's
+    instantiation at (orders, D, C, h_matmul) (instance_facts; each warp
+    one range of 32 entries)."""
+    lib = _build.load()
+    mask = ktiled._order_rows(orders, D)[0]
+    cb = C if D == 2 and C <= 2 else 4
+    return instance_facts(
+        f"tiled_backward_moments_kernelILi{D}ELi{mask}ELi{cb}"
+        f"ELb{int(hmm)}EE", lib.dgs_tiled_backward_moments_block(D),
+        lib.dgs_tiled_backward_moments_smem(D, mask, C, int(hmm)))
+
+
+def sep_facts(orders, D, C, passes):
+    """The same of the separable forward's instantiation at (orders, D, C,
+    TF32 passes) (each warp one range of 32 samples)."""
+    lib = _build.load()
+    mask = ktiled._order_rows(orders, D)[0]
+    cb = C if D == 2 and C <= 2 else 4
+    return instance_facts(
+        f"tiled_forward_sep_kernelILi{D}ELi{mask}ELi{cb}ELi{passes}EE",
+        lib.dgs_tiled_forward_sep_block(),
+        lib.dgs_tiled_forward_sep_smem(D, C))
+
+
+def hmm_facts(orders, D, C, wrapped):
+    """The same of h_matmul's backward at (orders, D, C, wrapped) (each
+    warp 16 entries, two warps a 32-entry range)."""
+    lib = _build.load()
+    mask = ktiled._order_rows(orders, D)[0]
+    cb = C if D == 2 and C <= 2 else 4
+    return instance_facts(
+        f"tiled_backward_hmm_kernelILi{D}ELi{mask}ELi{cb}"
+        f"ELb{int(wrapped)}EE", lib.dgs_tiled_backward_hmm_block(),
+        lib.dgs_tiled_backward_hmm_smem(D, mask, C))
 
 
 def straddling_blocks(tiles, T, block):
@@ -4162,9 +4205,13 @@ def phase_parity_folded(dev):
     operands at FOLD_ATOL_REL; pad and sentinel columns exactly zero; the
     backwards twice, bitwise equal.  D = 3 at four orders (C = 4 and 6: R
     = 1,092 and 1,638) takes several passes of the folded forward and Zd
-    windows of the folded VJP (each case reports the instantiations); the
-    phase fails unless some 64-sample block of the folded forward and some
-    32-entry block of the folded VJP straddle two tiles.  Then the op in
+    windows of the folded VJP (each case reports the instantiations); then
+    h_matmul's backward on wrapped operands (D = 1-3, C = 1, 4, 6: the
+    per-pair wrap) against the plain backward, twice bitwise equal, its
+    1-pass reading under ONE_PASS_SANITY; the phase fails unless some
+    64-sample block of the folded forward, some 32-entry block of the folded
+    VJP and some block of h_matmul's (two ranges) straddle two tiles.  Then
+    the op in
     each folded mode and under h_matmul against the dense masked oracle,
     gradients twice and
     bitwise equal, with the kernels each mode launched.  (The folded
@@ -4179,7 +4226,7 @@ def phase_parity_folded(dev):
     cases = [(D, 0.03, C, o, False, False) for D, C, o in cases]
     cases += [(2, 0.6, 4, THREE, False, True),    # full cover, open box
               (2, 0.03, 4, ORDERS, True, False)]  # tiles without a side
-    one_pass, straddling = {}, {"fwd_64": 0, "bwd_32": 0}
+    one_pass, straddling = {}, {"fwd_64": 0, "bwd_32": 0, "hmm_block": 0}
     for i, (D, sigma, C, orders, holes, open_domain) in enumerate(cases):
         (m, v, covs, con), samples, g, cfg, state = wrap_free_case(
             dev, 90 + i, D, sigma, C, holes, open_domain)
@@ -4203,12 +4250,16 @@ def phase_parity_folded(dev):
         T = state.ent_start.shape[0] - 2
         blocks = {"fwd_64": straddling_blocks(state.s_tile[0], T, 64),
                   "bwd_32": straddling_blocks(state.ent_tile[0], T,
-                                              ktiled.BLOCK_E)}
+                                              ktiled.BLOCK_E),
+                  "hmm_block": straddling_blocks(
+                      state.ent_tile[0], T,
+                      _build.load().dgs_tiled_backward_hmm_rows())}
         for key, count in blocks.items():
             straddling[key] += count
         facts = {k: folded_facts(k, orders, D, C)
                  for k in ("tiled_forward_folded", "tiled_backward_fdv",
                            "tiled_backward_fvjp")}
+        facts["tiled_backward_hmm"] = hmm_facts(orders, D, C, False)
         for kernel, groups in (
                 ("tiled_forward_folded", fwd_groups(orders, D, C)),
                 ("tiled_backward_fdv", bwd_groups(D, C)),
@@ -4263,6 +4314,8 @@ def phase_parity_folded(dev):
             got, plain_call(), D, C))
         if not torch.equal(call(), got):
             raise AssertionError(f"h_matmul D={D}: two runs differ")
+        res["tiled_backward_hmm"]["sentinel_columns_zero"] = check_dead_rows(
+            "h_matmul", got, dead)
         ev_h["passes"] = 1
         one = folded_calls("tiled_backward_hmm", ev_h, lo, n, s_lo, s_n, ct,
                            None, None, None)[0]()
@@ -4289,6 +4342,43 @@ def phase_parity_folded(dev):
              instantiations=facts, err=res, one_pass_vs_three_pass=ones,
              one_pass_label="outside the fp32 gate")
         del geom, fold, foldw, mono, cb, ct
+
+    # h_matmul on wrapped operands (periodic domain, the per-pair wrap):
+    # D = 1-3, C = 1 (one narrow pass), 4, 6 (two passes).
+    for D in (1, 2, 3):
+        for C in (1, 4, 6):
+            _, state, geom, smp, period, P, N, g = small_case(
+                dev, 70 + D, D, False, 0.03, C)
+            s_lo, s_n = ktiled.sample_ranges(state, geom.shape[1])
+            ct = torch.randn((ktiled.total_unique(ORDERS, D) * C,
+                              smp.shape[1]), generator=g, device=dev)
+            call = lambda p=3: ktiled.tiled_backward_hmm(
+                ORDERS, period, D, C, geom, smp, ct, s_lo, s_n, passes=p)
+            got, again, one = call(), call(), call(1)
+            ref = ktiled.tiled_backward_plain(ORDERS, period, D, C, geom, smp,
+                                              ct, s_lo, s_n)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"wrapped h_matmul D={D} C={C}: two "
+                                     "runs differ")
+            one_err = float((one - got).abs().max()) / float(got.abs().max())
+            if one_err > ONE_PASS_SANITY:
+                raise AssertionError(f"1-pass wrapped h_matmul D={D} C={C}: "
+                                     f"{one_err}")
+            T = state.ent_start.shape[0] - 2
+            blocks = straddling_blocks(
+                state.ent_tile[0], T,
+                _build.load().dgs_tiled_backward_hmm_rows())
+            straddling["hmm_block"] += blocks
+            emit("parity_folded_hmm_wrapped", D=D, C=C, P=P, N=N,
+                 period=period, err=err_fields(compare_rows(got, ref, D, C)),
+                 sentinel_columns_zero=check_dead_rows(
+                     "wrapped h_matmul", got, dead_entries(geom, state)),
+                 one_pass_vs_three_pass=one_err,
+                 one_pass_label="outside the fp32 gate",
+                 straddling_blocks=blocks, **tile_facts(state),
+                 instantiation=hmm_facts(ORDERS, D, C, True))
+            del geom, smp, ct, got, again, one, ref
 
     for D in (1, 2, 3):
         gen = torch.Generator(device=dev).manual_seed(60 + D)
@@ -4527,6 +4617,7 @@ def main():
                                     "tiled_forward_folded",
                                     "tiled_backward_fdv",
                                     "tiled_backward_fvjp",
+                                    "tiled_backward_hmm",
                                     "tiled_backward_kernel"))}
     if mode_spills:
         raise AssertionError(f"mode kernels spill: {mode_spills}")

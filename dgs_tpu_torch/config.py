@@ -56,13 +56,14 @@ class SamplerConfig:
 
     What the modes cost on the card (NVIDIA H100 80GB HBM3, 700.00 W;
     PERF.md section 5): every one is slower than the classic kernels.  The
-    D = 3 chunked bench step is busy 22.4-22.7 ms classic, 33.4-33.7 ms
-    under ``fast_math_dots``, 34.0-34.3 ms under ``separable_kernels``
-    with ``moment_backward``, 71.0 ms under ``folded_values``, 116.3 ms
-    with ``folded_dvals``, 375.2 ms with ``folded_vjp`` too, and 26.2 ms
-    under ``h_matmul``; peak memory 0.9 GB classic, 5.8, 7.5 and 15.6 GB
-    under the three folded modes.  One TF32 pass (``fast_math_dots``)
-    moves the folded forward by up to 3.6% of its largest output.
+    D = 3 chunked bench step is busy 22.5-22.6 ms classic, 31.4-31.6 ms
+    under ``fast_math_dots``, 31.8-32.1 ms under ``separable_kernels``
+    with ``moment_backward``, 46.1-46.2 ms under ``folded_values``,
+    79.6-79.7 ms with ``folded_dvals``, 150.5-151.1 ms with ``folded_vjp``
+    too, and 24.5-24.6 ms under ``h_matmul``; peak memory 0.8 GB classic,
+    5.7, 7.4 and 15.5 GB under the three folded modes.  One TF32 pass
+    (``fast_math_dots``) moves the folded forward by up to 6.0% of its
+    largest output.
 
     Accepted, not read: the block sizes (``block_n``, ``block_p``,
     ``block_n_bwd``, ``block_p_bwd``), the work-list capacities

@@ -62,23 +62,12 @@
 // and a longer build).  Device memory is not the limit.  No tensor cores.
 //
 // Shared memory per block: warps * (1 + ceil(K CB / 4)) * 32 * 16 bytes
-// static (+ the h block under HMM); the widest case, D = 3 with all four
-// orders (K = 20, CB = 4), takes 4 * 21 * 512 = 43,008 bytes, under the
-// 48 KB static limit.
+// static; the widest case, D = 3 with all four orders (K = 20, CB = 4),
+// takes 4 * 21 * 512 = 43,008 bytes, under the 48 KB static limit.
 //
-// h_matmul (tiled_backward_hmm.cu's instantiation, HMM): per 8 staged
-// samples the warp computes h_k for its 32 entries as TF32 tensor-core
-// contractions over the pass's channels (tf32_mma.cuh h_matmul_block: depth
-// CB padded to 8, 3 passes or 1) into a shared-memory block a lane reads
-// its entry's column of, in place of the K x CB broadcast FMAs.  Its blocks
-// are one warp (the h block, K x 8 x 36 floats, and the records fit the
-// static limit at K = 20).  The dvalues FMAs stay on the CUDA cores.
-//
-// The kernel lives in this header so that tiled_backward.cu (the classic
-// kernel), tiled_backward_hmm.cu (h_matmul) and tiled_backward_folded.cu
-// (the folded dvalues, which runs the same sweep without the dvalues)
-// instantiate it in their own translation units, built in parallel.
-// Never built with --use_fast_math (see pair_math.cuh).
+// The kernel lives in this header so that tiled_backward.cu instantiates it
+// in its own translation unit (tiled_backward_folded.cu and
+// tiled_backward_fvjp.cu include it for the headers it includes).  Never built with --use_fast_math (see pair_math.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,9 +79,6 @@ namespace dgs {
 
 constexpr int kBwdWarps = 4;   // warps per block, each with its own range
 
-// Warps per block of an instantiation: one under h_matmul.
-DGS_HD constexpr int bwd_warps(bool hmm) { return hmm ? 1 : kBwdWarps; }
-
 // One tile-sorted entry's parameters and gradient accumulators.
 template <int D, int CB>
 struct Entry {
@@ -101,13 +87,10 @@ struct Entry {
 };
 
 // One (sample record, entry) pair added into the entry's accumulators.
-// DV adds the value gradients; HMM takes h from the h block column ``hcol``
-// (hcol[k * 8 * kHStride]) instead of the channel FMAs.
-template <int D, int MASK, int CB, bool WRAP, bool DV, bool HMM>
+template <int D, int MASK, int CB, bool WRAP>
 __device__ __forceinline__ void backward_pair(StagedBase s_base, int j,
                                               const float4& head,
                                               float period, float inv_period,
-                                              const float* hcol,
                                               Entry<D, CB>& e) {
   constexpr int TRI = tri_size(D);
   constexpr int K = total_unique(D, MASK);
@@ -120,19 +103,17 @@ __device__ __forceinline__ void backward_pair(StagedBase s_base, int j,
   pair_polys<D, MASK>(e.con, a, q);
   component_weights<D, MASK>(e.con, a, q, G, w);
 #pragma unroll
-  for (int k = 0; k < K; ++k) h[k] = HMM ? hcol[k * 8 * kHStride] : 0.0f;
-  if (DV || !HMM) {
+  for (int k = 0; k < K; ++k) h[k] = 0.0f;
 #pragma unroll
-    for (int g = 0; g < record_vecs(K * CB); ++g) {
-      const float4 c4 = staged_vector(s_base, 1 + g, j);
-      const float ct[4] = {c4.x, c4.y, c4.z, c4.w};
+  for (int g = 0; g < record_vecs(K * CB); ++g) {
+    const float4 c4 = staged_vector(s_base, 1 + g, j);
+    const float ct[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = 4 * g + u;
-        if (i < K * CB) {
-          if (!HMM) h[i / CB] = fmaf(ct[u], e.v[i % CB], h[i / CB]);
-          if (DV) e.dv[i % CB] = fmaf(ct[u], w[i / CB], e.dv[i % CB]);
-        }
+    for (int u = 0; u < 4; ++u) {
+      const int i = 4 * g + u;
+      if (i < K * CB) {
+        h[i / CB] = fmaf(ct[u], e.v[i % CB], h[i / CB]);
+        e.dv[i % CB] = fmaf(ct[u], w[i / CB], e.dv[i % CB]);
       }
     }
   }
@@ -140,20 +121,18 @@ __device__ __forceinline__ void backward_pair(StagedBase s_base, int j,
 }
 
 // The warp's sweep of its sample range [lo, hi) for its 32 entries (a lane
-// each, entry column ``col`` of the (>= 1 + D + tri + C, Ep) geom): channel
+// each, entry column ``col`` of the (1 + D + tri + C, Ep) geom): channel
 // passes of CB, each staging the range 32 samples at a time into the warp's
-// records ``s_rec`` (and under HMM computing h per 8 samples into ``hb``),
-// adding every kept pair into ``ent``.  With DV each pass's value gradients
-// are written to ``out_rec`` (the entry's record, from column D + tri on);
-// the caller writes the mean and conic rows.  ``three``: 3 TF32 passes for
-// h under HMM, else 1.
-template <int D, int MASK, int CB, bool WRAP, bool DV, bool HMM>
+// records ``s_rec`` and adding every kept pair into ``ent``; each pass's
+// value gradients are written to ``out_rec`` (the entry's record, from
+// column D + tri on); the caller writes the mean and conic rows.
+template <int D, int MASK, int CB, bool WRAP>
 __device__ __forceinline__ void entry_sweep(
     const float* __restrict__ geom, long long Ep, int C,
     const float* __restrict__ smp, long long Np,
     const float* __restrict__ ct, int lo, int hi, float period,
     float inv_period, const OrderRows& rows, long long col, float4* s_rec,
-    float* hb, bool three, Entry<D, CB>& ent, float* out_rec) {
+    Entry<D, CB>& ent, float* out_rec) {
   constexpr int TRI = tri_size(D);
   constexpr int K = total_unique(D, MASK);
   constexpr int NV = bwd_record_vecs(K, CB);
@@ -168,10 +147,6 @@ __device__ __forceinline__ void entry_sweep(
                               : 0.0f;
       ent.dv[c] = 0.0f;
     }
-    float va_hi[2][4], va_lo[2][4];
-    if (HMM)
-      h_matmul_values<CB>(geom, Ep, 1 + D + TRI, C, c0, col - lane, three,
-                          va_hi, va_lo);
 
     for (int s0 = lo; s0 < hi; s0 += kWarp) {
       const int n = min(kWarp, hi - s0);
@@ -188,66 +163,44 @@ __device__ __forceinline__ void entry_sweep(
       }
       __syncwarp();
 
-      if (HMM) {
-        // h of 8 samples at a time on the tensor cores, then their pairs.
-        for (int j0 = 0; j0 < n; j0 += 8) {
-          h_matmul_block<K, CB>(reinterpret_cast<const float*>(s_rec), j0,
-                                va_hi, va_lo, three, hb);
-          __syncwarp();
-          for (int j = j0; j < min(j0 + 8, n); ++j) {
-            const float4 head = staged_vector(s_base, 0, j);
-            if (head.x == tile)
-              backward_pair<D, MASK, CB, WRAP, DV, HMM>(
-                  s_base, j, head, period, inv_period,
-                  hb + (j - j0) * kHStride + lane, ent);
-          }
-          __syncwarp();  // the h block is consumed
-        }
-      } else {
-        // A lane keeps the samples of its own tile (all of them where the
-        // warp's entries share a tile; sentinel lanes match nothing).
-        for (int j = 0; j < n; ++j) {
-          const float4 head = staged_vector(s_base, 0, j);
-          if (head.x == tile)
-            backward_pair<D, MASK, CB, WRAP, DV, HMM>(
-                s_base, j, head, period, inv_period, nullptr, ent);
-        }
+      // A lane keeps the samples of its own tile (all of them where the
+      // warp's entries share a tile; sentinel lanes match nothing).
+      for (int j = 0; j < n; ++j) {
+        const float4 head = staged_vector(s_base, 0, j);
+        if (head.x == tile)
+          backward_pair<D, MASK, CB, WRAP>(s_base, j, head, period,
+                                           inv_period, ent);
       }
     }
 
-    if (DV) {
 #pragma unroll
-      for (int c = 0; c < CB; ++c)
-        if (c0 + c < C) out_rec[D + TRI + c0 + c] = ent.dv[c];
-    }
+    for (int c = 0; c < CB; ++c)
+      if (c0 + c < C) out_rec[D + TRI + c0 + c] = ent.dv[c];
   }
 }
 
-template <int D, int MASK, int CB, bool WRAP, bool HMM>
-__global__ void __launch_bounds__(bwd_warps(HMM) * kWarp)
-    tiled_backward_kernel(
-        const float* __restrict__ geom,  // (1 + D + tri + C, Ep): tile, mu', conic, values
-        long long Ep, int C,
-        const float* __restrict__ smp,   // (D + 1, Np): coords, tile
-        long long Np,
-        const float* __restrict__ ct,    // (K * C, Np) cotangent, sorted-sample order
-        const int* __restrict__ s_lo,    // (Ep / 32,) first sample of each warp's range
-        const int* __restrict__ s_n,     // (Ep / 32,) length of the range
-        float period, float inv_period, OrderRows rows, bool three,
-        float* __restrict__ out) {       // (Ep, D + tri + C), entry-major
+template <int D, int MASK, int CB, bool WRAP>
+__global__ void __launch_bounds__(kBwdWarps * kWarp) tiled_backward_kernel(
+    const float* __restrict__ geom,  // (1 + D + tri + C, Ep): tile, mu', conic, values
+    long long Ep, int C,
+    const float* __restrict__ smp,   // (D + 1, Np): coords, tile
+    long long Np,
+    const float* __restrict__ ct,    // (K * C, Np) cotangent, sorted-sample order
+    const int* __restrict__ s_lo,    // (Ep / 32,) first sample of each warp's range
+    const int* __restrict__ s_n,     // (Ep / 32,) length of the range
+    float period, float inv_period, OrderRows rows,
+    float* __restrict__ out) {       // (Ep, D + tri + C), entry-major
   constexpr int TRI = tri_size(D);
   constexpr int K = total_unique(D, MASK);
   constexpr int NV = bwd_record_vecs(K, CB);
-  constexpr int WARPS = bwd_warps(HMM);
-  __shared__ float4 s_all[WARPS][NV * kWarp];
-  __shared__ float s_h[WARPS][HMM ? K * 8 * kHStride : 1];
-  static_assert(sizeof(s_all) + (HMM ? sizeof(s_h) : 0) <= 48 * 1024,
+  __shared__ float4 s_all[kBwdWarps][NV * kWarp];
+  static_assert(sizeof(s_all) <= 48 * 1024,
                 "the staged records must fit the static shared-memory limit");
   const int lane = threadIdx.x % kWarp;
 
   // Every lane owns a real column, since the launcher requires Ep == 32 *
   // the number of ranges (pad entries carry tile -1.0 and never pair).
-  const long long w = (long long)blockIdx.x * WARPS + threadIdx.x / kWarp;
+  const long long w = (long long)blockIdx.x * kBwdWarps + threadIdx.x / kWarp;
   if (w * kWarp >= Ep) return;   // whole warps only: no barrier follows
   const long long col = w * kWarp + lane;
   float* rec = out + col * (D + TRI + C);   // the entry's output record
@@ -262,49 +215,47 @@ __global__ void __launch_bounds__(bwd_warps(HMM) * kWarp)
     ent.con[t] = geom[(1 + D + t) * Ep + col];
     ent.dcon[t] = 0.0f;
   }
-  entry_sweep<D, MASK, CB, WRAP, true, HMM>(
-      geom, Ep, C, smp, Np, ct, s_lo[w], s_lo[w] + s_n[w], period,
-      inv_period, rows, col, s_all[threadIdx.x / kWarp],
-      s_h[threadIdx.x / kWarp], three, ent, rec);
+  entry_sweep<D, MASK, CB, WRAP>(geom, Ep, C, smp, Np, ct, s_lo[w],
+                                 s_lo[w] + s_n[w], period, inv_period, rows,
+                                 col, s_all[threadIdx.x / kWarp], ent, rec);
 #pragma unroll
   for (int d = 0; d < D; ++d) rec[d] = ent.dmu[d];
 #pragma unroll
   for (int t = 0; t < TRI; ++t) rec[D + t] = ent.dcon[t];
 }
 
-template <int D, int MASK, int CB, bool HMM>
+template <int D, int MASK, int CB>
 cudaError_t launch_backward_one(const float* geom, long long Ep, int C,
                                 const float* smp, long long Np,
                                 const float* ct, const int* s_lo,
                                 const int* s_n, int n_ranges, int do_wrap,
-                                float period, OrderRows rows, bool three,
-                                float* out, cudaStream_t stream) {
-  constexpr int WARPS = bwd_warps(HMM);
-  const dim3 grid((n_ranges + WARPS - 1) / WARPS), block(WARPS * kWarp);
+                                float period, OrderRows rows, float* out,
+                                cudaStream_t stream) {
+  const dim3 grid((n_ranges + kBwdWarps - 1) / kBwdWarps),
+      block(kBwdWarps * kWarp);
   const float inv = exact_inv_period(period);
   if (do_wrap)
-    tiled_backward_kernel<D, MASK, CB, true, HMM><<<grid, block, 0, stream>>>(
-        geom, Ep, C, smp, Np, ct, s_lo, s_n, period, inv, rows, three, out);
+    tiled_backward_kernel<D, MASK, CB, true><<<grid, block, 0, stream>>>(
+        geom, Ep, C, smp, Np, ct, s_lo, s_n, period, inv, rows, out);
   else
-    tiled_backward_kernel<D, MASK, CB, false, HMM><<<grid, block, 0, stream>>>(
-        geom, Ep, C, smp, Np, ct, s_lo, s_n, period, inv, rows, three, out);
+    tiled_backward_kernel<D, MASK, CB, false><<<grid, block, 0, stream>>>(
+        geom, Ep, C, smp, Np, ct, s_lo, s_n, period, inv, rows, out);
   return cudaGetLastError();
 }
 
-template <int D, int CB, bool HMM>
+template <int D, int CB>
 cudaError_t launch_backward_mask(int mask, const float* geom, long long Ep,
                                  int C, const float* smp, long long Np,
                                  const float* ct, const int* s_lo,
                                  const int* s_n, int n_ranges, int do_wrap,
-                                 float period, OrderRows rows, bool three,
-                                 float* out, cudaStream_t stream) {
+                                 float period, OrderRows rows, float* out,
+                                 cudaStream_t stream) {
   switch (mask) {
-#define DGS_CASE(M)                                                         \
-  case M:                                                                   \
-    return launch_backward_one<D, M, CB, HMM>(geom, Ep, C, smp, Np, ct,     \
-                                              s_lo, s_n, n_ranges, do_wrap, \
-                                              period, rows, three, out,     \
-                                              stream);
+#define DGS_CASE(M)                                                          \
+  case M:                                                                    \
+    return launch_backward_one<D, M, CB>(geom, Ep, C, smp, Np, ct, s_lo,     \
+                                         s_n, n_ranges, do_wrap, period,     \
+                                         rows, out, stream);
     DGS_CASE(1) DGS_CASE(2) DGS_CASE(3) DGS_CASE(4) DGS_CASE(5)
     DGS_CASE(6) DGS_CASE(7) DGS_CASE(8) DGS_CASE(9) DGS_CASE(10)
     DGS_CASE(11) DGS_CASE(12) DGS_CASE(13) DGS_CASE(14) DGS_CASE(15)
@@ -314,43 +265,10 @@ cudaError_t launch_backward_mask(int mask, const float* geom, long long Ep,
   }
 }
 
-// The channel-pass width the launchers pick for (D, C): no zero channels
+// The channel-pass width the launcher picks for (D, C): no zero channels
 // for C = 1 and C = 2 where the narrow passes are built (D = 2).
 DGS_HD constexpr int backward_pass(int D, int C) {
   return (D == 2 && C <= 2) ? C : 4;
-}
-
-// The C entries' body: checks, then the launch of the instantiation for
-// (D, the pass width, mask).
-template <bool HMM>
-int launch_backward(const void* geom, int Ep, int C, const void* smp, int Np,
-                    const void* ct, const void* s_lo, const void* s_n,
-                    int n_ranges, int D, int mask, int do_wrap, float period,
-                    OrderRows rows, bool three, void* out, void* stream) {
-  if ((long long)n_ranges * kWarp != Ep || C < 1)
-    return (int)cudaErrorInvalidValue;
-  const auto* g = static_cast<const float*>(geom);
-  const auto* s = static_cast<const float*>(smp);
-  const auto* c = static_cast<const float*>(ct);
-  const auto* lo = static_cast<const int*>(s_lo);
-  const auto* n = static_cast<const int*>(s_n);
-  auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int cb = backward_pass(D, C);
-#define DGS_LAUNCH(DD, CB)                                                   \
-  launch_backward_mask<DD, CB, HMM>(mask, g, Ep, C, s, Np, c, lo, n,         \
-                                    n_ranges, do_wrap, period, rows, three,  \
-                                    o, st)
-  cudaError_t err = cudaErrorInvalidValue;
-  if (D == 1)
-    err = DGS_LAUNCH(1, 4);
-  else if (D == 2)
-    err = cb == 1 ? DGS_LAUNCH(2, 1) : cb == 2 ? DGS_LAUNCH(2, 2)
-                                               : DGS_LAUNCH(2, 4);
-  else if (D == 3)
-    err = DGS_LAUNCH(3, 4);
-#undef DGS_LAUNCH
-  return (int)err;
 }
 
 }  // namespace dgs

@@ -27,25 +27,58 @@
 // in registers, and sweeps its entry range 32 entries at a time.  The warp
 // stages its samples' monomials once, split for the passes (the B operand,
 // [monomial][sample] in shared memory), and each staged chunk's entry
-// records [tile, conic, CB values].  Per 16 entries (one m16 tile) it loads
-// the A fragments of [u, b, c] and of each a-coefficient group straight
-// from the geom rows, runs mma.sync m16n8k8 over the 4 n8 tiles of its
-// samples (tf32_mma.cuh: 3 passes, or 1 under fast-math), and stores power
-// and a_d of the 16 x 32 pair block to shared memory; then each lane reads
-// its sample's column of that block and adds the kept pairs into its
-// accumulators in entry order (bitwise repeatable).  Warps share nothing
-// and meet at no block barrier.
+// records [tile, conic, CB values, mu_l].  Per 16 entries (one m16 tile) it
+// loads the A fragments of [u, b, c] and of each a-coefficient group
+// straight from the geom rows, runs mma.sync m16n8k8 over the 4 n8 tiles of
+// its samples (tf32_mma.cuh: 3 passes, or 1 under fast-math) and stores
+// power and a_d of the 16 x 32 pair block to shared memory, each quantity
+// as soon as its contraction ends; then each lane reads its sample's column
+// of that block and adds the kept pairs into its accumulators in entry
+// order (bitwise repeatable).  An a-coefficient group is 1 + D <= 4 deep: its A fragment holds hi in
+// columns 0-3 and lo in 4-7, so that three passes take two mma.sync
+// against [mono_hi; mono_hi] and [mono_lo; 0] (three before).  Warps share
+// nothing and meet at no block barrier.
 //
-// What bounds it: the per-pair fp32 work after the contraction (the exp,
-// the polynomials, the K*CB accumulator FMAs), as in tiled_forward.cu; the
-// contraction replaces about 2 + D + tri + D(1 + D) fp32 operations a pair
-// by 4 + 2D mma.sync a 16 x 32 block a pass, and adds the shared-memory
-// round trip of 1 + D floats a pair.  Shared memory limits residency:
-// kWarps * (records + 2 * KP * 40 + (1 + D) * 16 * 40 floats), 34.8 KB a
-// block at D = 3, C = 4.  With a minimum of one block an SM in the launch
-// bounds, ptxas sizes the registers by the code (without it, it held them to
-// the residency that shared memory allows and spilled).  A simple first
-// version: no cp.async, no persistent tiles.
+// What bounds it, as measured (chip_variants.py beside the first version's
+// source on tools.bench's operands; NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md): latency in the per-pair fp32 work after the contraction (the
+// exp, the polynomials, the K*CB accumulator FMAs: as tiled_forward.cu
+// less a = C X and the power), at 12 warps an SM (shared memory: 34.8 KB a
+// 2-warp block at D = 3, C = 4; 142 registers at three orders, 3 passes;
+// with a minimum of one block an SM in the launch bounds ptxas sizes the
+// registers by the code).  One TF32 pass takes 7% less time than three.
+// Against the first version (D = 3 chunked, three orders, 3 / 1 passes):
+// 7.44-7.57 / 6.91-7.01 ms against 7.65-7.72 / 6.93-7.08; D = 2 headline
+// 1.23 against 1.24: the two-mma a_d is the one change that held.
+//
+// Tried and dropped (D = 3 ms at 3 / 1 passes, D = 2 at 3; the first
+// version 7.65-7.72 / 6.89-7.08, 1.24 in the same calls):
+//   - blocks of 4 warps sharing each chunk (rows by 16-byte cp.async two
+//     chunks ahead; records, the constant column and the split A fragments
+//     prepared once a block; one barrier a chunk) with the round trip as
+//     one 16-byte vector a pair: 8.38-8.46 / 7.49-7.70, 1.21 (128
+//     registers, 200-268 bytes spilled); without spills at 12 warps 8.37;
+//     the mma.sync issued pass-major over split accumulators 8.09-8.16 /
+//     7.82-7.90, 1.41-1.45; without the contraction it took 5.75, without
+//     the pair loop 1.91: the shared staging and the barrier cost more
+//     than the per-warp staging they replace;
+//   - the same blocks with this design's scalar round trip: 8.02 / 7.59,
+//     1.33 (B fragments in registers, 12 warps); 10.38 / 7.67, 1.14 (in
+//     shared memory, 8 warps);
+//   - the pair work in the accumulators' own layout (samples the M side,
+//     entries the N side, no round trip; the value contraction on the
+//     tensor cores at 3 passes, the weights the A operand in place, two
+//     components per mma.sync): 9.17-9.23 / 8.31-8.41, 1.32 (128
+//     registers); 8.64 / 8.00 with blocks of 8 warps; 9.59 / 8.94 at 12
+//     warps: splitting each weight for 3 passes costs what the round trip
+//     saved;
+//   - the round trip as one 16-byte vector a pair in this design: 10.49 /
+//     7.62, 1.69 (174 registers: every chain's result is held until the
+//     store); with pass-major issue as well 8.09 / 7.66, 1.68; at 16 warps
+//     (128 registers) 132 bytes spilled, 8.17;
+//   - the record's tile compared before its other vectors are read, and
+//     the mean left out of the record (read from geom where a pair's
+//     power is recomputed): 7.97-8.02 / 7.36-7.46, 1.36 (148 registers).
 //
 // Build: with the other sources into libdgs_kernels.so
 // (dgs_tpu_torch/kernels/_build.py, nvcc -gencode
@@ -169,7 +202,7 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_forward_sep_kernel(
         // past 1 + D zero).
         // The constant column (u, b_d: the largest terms) is not rounded
         // to TF32: it starts the accumulators instead (init_p, init_a).
-        float ap_hi[KS][4], ap_lo[KS][4], aa_hi[D][4], aa_lo[D][4];
+        float ap_hi[KS][4], ap_lo[KS][4], aq[D][4];
         float init_p[2], init_a[D][2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -197,10 +230,8 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_forward_sep_kernel(
                                 ? geom[(np0 + MP * (1 + d) + t) * Ep + e]
                                 : 0.0f;
             const dgs::Tf32<PASSES> s = dgs::tf32_operand<PASSES>(x);
-            aa_hi[d][r] = s.hi;
-            aa_lo[d][r] = s.lo;
-            aa_hi[d][r + 2] = 0.0f;
-            aa_lo[d][r + 2] = 0.0f;
+            aq[d][r] = s.hi;
+            aq[d][r + 2] = s.lo;
           }
         }
 #pragma unroll
@@ -223,8 +254,12 @@ __global__ void __launch_bounds__(kWarps * kWarp, 1) tiled_forward_sep_kernel(
                 dgs::mma_passes<PASSES>(c, ap_hi[ks], ap_lo[ks], b_hi[ks],
                                         b_lo[ks]);
             } else {
-              dgs::mma_passes<PASSES>(c, aa_hi[q - 1], aa_lo[q - 1], b_hi[0],
-                                      b_lo[0]);
+              // [hi | lo] against [mono_hi; mono_hi], then [mono_lo; 0]
+              const float b1[2] = {b_hi[0][0],
+                                   PASSES == 3 ? b_hi[0][0] : 0.0f};
+              const float b2[2] = {b_lo[0][0], 0.0f};
+              dgs::mma_tf32(c, aq[q - 1], b1);
+              if (PASSES == 3) dgs::mma_tf32(c, aq[q - 1], b2);
             }
             float* row = sh.pa[16 * q + g];
             row[8 * nt + 2 * t] = c[0];
@@ -327,9 +362,33 @@ cudaError_t launch(int mask, const float* geom, long long Ep, int C,
   }
 }
 
+// The channel-pass width for (D, C).
+DGS_HD constexpr int sep_pass(int D, int C) {
+  return (D == 2 && C <= 2) ? C : 4;
+}
+
+template <int D, int CB>
+int shared_bytes() {
+  return (int)(sizeof(Staged<D, CB>) * kWarps);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Threads a block (a lane a sample), and the dynamic shared bytes of a
+// launch at (D, C), for the smoke test's facts.
+int dgs_tiled_forward_sep_block() { return kWarps * kWarp; }
+
+int dgs_tiled_forward_sep_smem(int D, int C) {
+  const int cb = sep_pass(D, C);
+  if (D == 1) return shared_bytes<1, 4>();
+  if (D == 3) return shared_bytes<3, 4>();
+  if (D != 2) return 0;
+  return cb == 1 ? shared_bytes<2, 1>()
+         : cb == 2 ? shared_bytes<2, 2>()
+                   : shared_bytes<2, 4>();
+}
 
 // Launches the kernel on `stream` and returns cudaGetLastError() after the
 // launch (0 = launched).  Pointers are device pointers; `mask` is the order
@@ -349,7 +408,7 @@ int dgs_tiled_forward_sep(const void* geom, int Ep, int C, const void* mono,
   const auto* n = static_cast<const int*>(ent_n);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  const int cb = (D == 2 && C <= 2) ? C : 4;
+  const int cb = sep_pass(D, C);
 #define DGS_LAUNCH(DD, CB) \
   launch<DD, CB>(mask, g, Ep, C, m, Np, lo, n, n_ranges, passes, rows, o, st)
   cudaError_t err = cudaErrorInvalidValue;

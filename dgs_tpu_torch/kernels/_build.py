@@ -125,6 +125,10 @@ def load() -> ctypes.CDLL:
         lib.dgs_tiled_backward_moments_block.restype = i
         lib.dgs_tiled_backward_moments_smem.argtypes = [i, i, i, i]
         lib.dgs_tiled_backward_moments_smem.restype = i
+        lib.dgs_tiled_forward_sep_smem.argtypes = [i, i]
+        lib.dgs_tiled_forward_sep_smem.restype = i
+        lib.dgs_tiled_backward_hmm_smem.argtypes = [i, i, i]
+        lib.dgs_tiled_backward_hmm_smem.restype = i
         lib.dgs_dense_forward.argtypes = [
             p, i, i, p, i, i, i, i, i, i, ctypes.c_float, p, p,
         ]
@@ -156,6 +160,9 @@ def load() -> ctypes.CDLL:
         lib.dgs_tiled_wrap_scaled.argtypes = [ctypes.c_float]
         lib.dgs_tiled_wrap_scaled.restype = i
         for fn in (lib.dgs_tiled_forward_block, lib.dgs_tiled_backward_block,
+                   lib.dgs_tiled_forward_sep_block,
+                   lib.dgs_tiled_backward_hmm_block,
+                   lib.dgs_tiled_backward_hmm_rows,
                    lib.dgs_dense_forward_block, lib.dgs_dense_backward_block,
                    lib.dgs_agg_block, lib.dgs_agg_backward_max_nfreq):
             fn.argtypes = []

@@ -1408,11 +1408,10 @@ def tiled_backward_hmm(orders: Tuple[str, ...], period: Optional[float],
                        passes: int = 3) -> torch.Tensor:
     """tiled_backward under ``h_matmul``: the same rows, with each pair
     block's h_k = g_k . values a TF32 tensor-core contraction over the
-    channels (depth C padded to 8; ``passes`` 3, or 1 under fast-math) in
-    place of the C broadcast FMAs.  CUDA tensors launch the h_matmul
-    instantiation of csrc/tiled_backward.cu (counted in
-    ``tiled_backward_hmm.launches``); CPU tensors run tiled_backward_plain
-    (h is the same function)."""
+    channels (``passes`` 3, or 1 under fast-math) in place of the C
+    broadcast FMAs.  CUDA tensors launch csrc/tiled_backward_hmm.cu (counted
+    in ``tiled_backward_hmm.launches``); CPU tensors run
+    tiled_backward_plain (h is the same function)."""
     _order_rows(orders, D)
     if passes not in (1, 3):
         raise ValueError(f"tiled_backward_hmm: passes must be 1 or 3, got "

@@ -1,8 +1,8 @@
 """The folded modes' CUDA sources (csrc/tiled_forward_folded.cu,
 csrc/tiled_backward_folded.cu, csrc/tiled_backward_fvjp.cu) and the
-h_matmul instantiations of the backwards that build h
-(csrc/tiled_backward_hmm.cu through tiled_backward.cuh,
-csrc/tiled_backward_moments.cu, and the folded dvalues) built for the host
+h_matmul backwards (csrc/tiled_backward_hmm.cu, and the h_matmul
+instantiations of csrc/tiled_backward_moments.cu and of the folded
+dvalues) built for the host
 with g++ against the emulated CUDA runtime of cuda_emulation.py
 (tf32_mma.cuh's mma.sync computed from the lanes' fragments, its TF32
 rounding the card's; cp_async.cuh's copies done at once), run on operands
@@ -57,6 +57,7 @@ def libs(tmp_path_factory):
     hmm.dgs_tiled_backward_hmm.argtypes = [
         P_, I_, I_, P_, I_, P_, P_, P_, I_, I_, I_, I_, F_] + [I_] * 5 + [
         P_, P_]
+    hmm.dgs_tiled_backward_hmm_rows.argtypes = []
     mom.dgs_tiled_backward_moments_hmm.argtypes = [
         P_, I_, I_, P_, I_, P_, P_, P_] + [I_] * 8 + [P_, P_]
     return fwd, bwd, fvjp, hmm, mom
@@ -237,7 +238,9 @@ def test_emulated_folded_r_split(libs):
 
 
 HMM_CASES = [(2, 4, ORDERS, True), (3, 6, ORDERS, False),
-             (1, 2, THREE, True), (2, 1, ("laplacian", "value"), False)]
+             (1, 2, THREE, True), (2, 1, ("laplacian", "value"), False),
+             (2, 6, THREE, True)]
+ONE_PASS_SANITY = 2e-2   # chip_smoke.py's bound on a 1-pass reading
 
 
 @pytest.mark.parametrize("D,C,orders,wrap", HMM_CASES,
@@ -245,9 +248,12 @@ HMM_CASES = [(2, 4, ORDERS, True), (3, 6, ORDERS, False),
                               for d, c, o, w in HMM_CASES])
 def test_emulated_h_matmul_matches_plain(libs, D, C, orders, wrap):
     """h_matmul in the classic backward (wrapped and wrap-free; C = 6 runs
-    two channel passes, each contraction over its pass's channels) and in
-    the moment-form backward, against their plain versions; two runs
-    bitwise equal."""
+    two channel passes, each contraction over its pass's channels; blocks of
+    two 32-entry ranges that straddle two tiles) and in the moment-form
+    backward, against their plain versions; two runs bitwise equal, the
+    1-pass reading within ONE_PASS_SANITY of the 3-pass one, sentinel
+    columns exactly zero, a misaligned sample or cotangent operand
+    refused."""
     _, _, _, hmm, mom = libs
     rng = np.random.default_rng(D + C)
     m, v, cov, c = map(torch.from_numpy, make_gaussians(
@@ -259,6 +265,8 @@ def test_emulated_h_matmul_matches_plain(libs, D, C, orders, wrap):
     geom = kt.prepare_entries(state, m, v, c, kt.BLOCK_E, cfg=cfg)[2]
     smp, _, Np = kt.prepare_samples(state, s, kt.BLOCK_N, cfg=cfg)
     Ep = geom.shape[1]
+    for block in (kt.BLOCK_E, hmm.dgs_tiled_backward_hmm_rows()):
+        assert cuda_emulation.straddles(geom[0], block)
     K = kt.total_unique(orders, D)
     ct = torch.from_numpy(rng.standard_normal((K * C, Np)).astype(
         np.float32))
@@ -266,19 +274,28 @@ def test_emulated_h_matmul_matches_plain(libs, D, C, orders, wrap):
     mask, rows = kt._order_rows(orders, D)
     period = cfg.period if wrap else None
 
-    def classic():
+    def classic(passes=3, smp=smp, ct=ct, refused=False):
         out = torch.full((Ep, D + tri_size(D) + C), float("nan"))
-        assert hmm.dgs_tiled_backward_hmm(
+        err = hmm.dgs_tiled_backward_hmm(
             geom.data_ptr(), Ep, C, smp.data_ptr(), Np, ct.data_ptr(),
             s_lo.data_ptr(), s_n.data_ptr(), Ep // kt.BLOCK_E, D, mask,
             int(wrap), float(cfg.period), rows["value"], rows["derivative"],
-            rows["laplacian"], rows["third"], 3, out.data_ptr(), None) == 0
+            rows["laplacian"], rows["third"], passes, out.data_ptr(), None)
+        assert (err != 0) == refused
         return out.T
 
     got = classic()
     _close(got, kt.tiled_backward_plain(orders, period, D, C, geom, smp, ct,
                                         s_lo, s_n), 2e-3, "h_matmul classic")
     assert torch.equal(classic(), got)
+    dead = (geom[0] < 0) | (geom[0] >= tgrid.num_tiles(cfg, D))
+    assert bool(dead.any()) and not bool(got[:, dead].any())
+    one = classic(1)
+    assert float((one - got).abs().max()) <= ONE_PASS_SANITY * float(
+        got.abs().max())
+    # operands off a 16-byte boundary are refused (the copies are 16 bytes)
+    classic(smp=cuda_emulation.misaligned(smp), refused=True)
+    classic(ct=cuda_emulation.misaligned(ct), refused=True)
 
     gs = kt.prepare_entries(state, m, v, c, kt.BLOCK_E, cfg=cfg,
                             separable=True)[2]

@@ -4,10 +4,13 @@ emulated CUDA runtime of cuda_emulation.py (tf32_mma.cuh's mma.sync computed
 from the lanes' gathered fragments, its TF32 rounding the same as the
 card's), run on operands of the port's binning and held against their plain
 versions: the separable forward at 3 passes within the fp32 gate and at 1
-pass within its sanity bound, the moment-form backward within the gradient
+pass within its sanity bound (a coarse-tile case where the 1-pass
+contraction puts kept pairs above PSD_TOL, so that the kernel recomputes
+their power per pair), the moment-form backward within the gradient
 tolerance and, folded by moment_combine, against the classic backward on
-the same tile-local operands; pad and sentinel columns exactly zero; two
-runs bitwise equal; operands off a 16-byte boundary refused; h_matmul's
+the same tile-local operands; blocks of ranges that straddle two tiles;
+pad and sentinel columns exactly zero; two runs bitwise equal; the
+backward's operands off a 16-byte boundary refused; h_matmul's
 instantiations too.  This checks the kernels' logic
 (fragment layouts, ranges, channel passes, the row layout), not the card's
 speed: chip_smoke.py holds the same functions on the H100."""
@@ -38,6 +41,7 @@ def libs(tmp_path_factory):
                                      "tiled_backward_moments"])
     fwd.dgs_tiled_forward_sep.argtypes = [P_, I_, I_, P_, I_, P_, P_] + \
         [I_] * 8 + [P_, P_]
+    fwd.dgs_tiled_forward_sep_block.argtypes = []
     bwd.dgs_tiled_backward_moments.argtypes = [P_, I_, I_, P_, I_, P_, P_,
                                                P_] + [I_] * 7 + [P_, P_]
     bwd.dgs_tiled_backward_moments_hmm.argtypes = [
@@ -47,13 +51,18 @@ def libs(tmp_path_factory):
     return fwd, bwd
 
 
-def _operands(D, C, seed, tile=0.1275, P=None, holes=False):
-    """Tile-local operands of a seeded case: (geom, mono, state, cfg)."""
+def _operands(D, C, seed, tile=0.1275, P=None, holes=False,
+              at_means=False):
+    """Tile-local operands of a seeded case: (geom, mono, state, cfg).
+    ``at_means``: the first P / 2 samples lie within 1e-3 of a mean."""
     rng = np.random.default_rng(seed)
     P = P or (60 if D < 3 else 50)
     m, v, cov, c = map(torch.from_numpy, make_gaussians(
         rng, P, D, C, sigma_range=(0.02, 0.05)))
     s = torch.from_numpy(make_samples(rng, 96, D))
+    if at_means:
+        s[:P // 2] = m[:P // 2] + torch.from_numpy(
+            1e-3 * rng.standard_normal((P // 2, D)).astype(np.float32))
     if holes:       # tiles with entries only, with samples only, with neither
         s[:, 0] = -s[:, 0].abs()
         m[:, -1] = -m[:, -1].abs()
@@ -80,6 +89,36 @@ def _forward(fwd, orders, D, C, geom, mono, lo, n, passes):
         out.data_ptr(), None)
     assert err == 0
     return out
+
+
+def _tf32(x):
+    """x (float32) rounded to TF32 as tf32_mma.cuh rounds: to nearest, ties
+    away from zero, on the 13 dropped mantissa bits."""
+    u = x.contiguous().view(torch.int32)
+    r = torch.where((u & 0x7f800000) != 0x7f800000,
+                    (u + 0x1000) & -0x2000, u)
+    return r.view(torch.float32)
+
+
+def _recomputed_pairs(D, C, geom, mono, state):
+    """The kept pairs (same tile) whose 1-pass contracted power (a float64
+    model of the kernel's: the constant column u exact, every other
+    operand rounded to TF32) exceeds PSD_TOL while their per-pair power
+    (-1/2 X^T C X) does not: the pairs the kernel recomputes."""
+    tri = kt.tri_size(D)
+    MR, MP = kt.mono_rows(D), 1 + D
+    np0 = 1 + D + tri + C
+    prow = torch.cat([geom[np0:np0 + MP], geom[1 + D:1 + D + tri]], 0)
+    coef = torch.cat([prow[:1], _tf32(prow[1:])], 0).double()
+    mono_r = torch.cat([mono[:1], _tf32(mono[1:MR])], 0).double()
+    contracted = mono_r.T @ coef                              # (Np, Ep)
+    Xs = [geom[1 + d][None, :] - mono[1 + d][:, None] for d in range(D)]
+    con = [geom[1 + D + u][None, :] for u in range(tri)]
+    pair = -0.5 * sum(r * X for r, X in zip(
+        formulas.conic_apply(Xs, con, D), Xs))
+    same = (geom[0][None, :] == mono[MR][:, None]) & (geom[0][None, :] >= 0)
+    return int((same & (contracted > kt.PSD_TOL)
+                & (pair <= kt.PSD_TOL)).sum())
 
 
 def _backward(bwd, orders, D, C, geom, mono, ct, lo, n, hmm=False,
@@ -116,23 +155,35 @@ CASES = [(1, 4, ORDERS, False), (2, 4, ORDERS, False),
          # h_matmul: C = 6 in two channel passes, C = 1 at one
          (3, 6, ("value", "derivative", "laplacian"), True),
          (2, 1, ORDERS, True)]
+# A coarse tile (0.2, the D = 3 bench's) with samples at means: the 1-pass
+# contraction's roundoff puts kept pairs whose power is ~0 above PSD_TOL.
+COARSE = 0.2
+CASES += [(3, 4, ("value", "derivative", "laplacian"), False, COARSE)]
 
 
 @pytest.mark.parametrize(
-    "D,C,orders,hmm", CASES,
-    ids=[f"D{d}_C{c}_{len(o)}" + ("_hmm" if h else "")
-         for d, c, o, h in CASES])
-def test_emulated_mode_kernels_match_plain(libs, D, C, orders, hmm):
+    "D,C,orders,hmm,tile", [c + (0.1275,) * (5 - len(c)) for c in CASES],
+    ids=[f"D{c[0]}_C{c[1]}_{len(c[2])}" + ("_hmm" if c[3] else "")
+         + ("_coarse" if len(c) > 4 else "") for c in CASES])
+def test_emulated_mode_kernels_match_plain(libs, D, C, orders, hmm, tile):
     """The separable forward and the moment-form backward (with or without
     h_matmul) against their plain versions; every case has 32-entry ranges
-    and blocks of ranges that straddle two tiles; the backward's second run
-    is bitwise equal, and a misaligned monomial or cotangent operand is
-    refused."""
+    and blocks of ranges that straddle two tiles, the forward's blocks of
+    ranges too; both kernels' second runs are bitwise equal (the forward at
+    3 and at 1 pass), and a misaligned monomial or cotangent operand of the
+    backward is refused.  The coarse case has pairs that the 1-pass forward
+    recomputes per pair."""
     fwd, bwd = libs
-    geom, mono, state = _operands(D, C, 100 * D + C)
+    geom, mono, state = _operands(D, C, 100 * D + C, tile=tile,
+                                  at_means=tile == COARSE)
     Np, Ep = mono.shape[1], geom.shape[1]
     for block in (kt.BLOCK_E, bwd.dgs_tiled_backward_moments_block(D)):
         assert cuda_emulation.straddles(geom[0], block)
+    # a block of the separable forward: a lane a sample
+    for block in (kt.BLOCK_N, fwd.dgs_tiled_forward_sep_block()):
+        assert cuda_emulation.straddles(mono[-1], block)
+    if tile == COARSE:
+        assert _recomputed_pairs(D, C, geom, mono, state) > 0
     lo, n = kt.entry_ranges(state, Np)
     ref = kt.tiled_forward_sep_plain(orders, D, C, geom, mono, lo, n)
     got = _forward(fwd, orders, D, C, geom, mono, lo, n, passes=3)
@@ -144,8 +195,11 @@ def test_emulated_mode_kernels_match_plain(libs, D, C, orders, hmm):
     assert not bool(got[:, mono[-1] < 0].any())      # pad columns
     one = _forward(fwd, orders, D, C, geom, mono, lo, n, passes=1)
     assert float((one - got).abs().max()) <= 2e-2 * float(got.abs().max())
+    assert not bool(one[:, mono[-1] < 0].any())
     assert torch.equal(_forward(fwd, orders, D, C, geom, mono, lo, n, 3),
                        got)
+    assert torch.equal(_forward(fwd, orders, D, C, geom, mono, lo, n, 1),
+                       one)
 
     K = kt.total_unique(orders, D)
     ct = torch.from_numpy(np.random.default_rng(D).standard_normal(
