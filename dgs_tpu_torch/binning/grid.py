@@ -21,6 +21,7 @@ import torch
 
 from ..config import SamplerConfig, tri_index
 from ..oracle.dense import radii as compute_radii, radii_axis
+from ..utils import profiling
 
 
 class BinningState(NamedTuple):
@@ -92,25 +93,28 @@ def gaussian_rects(cfg: SamplerConfig, means: torch.Tensor,
     open domains clamp them into [0, grid].  A footprint spanning the whole
     grid collapses to one full cover; a zero radius gives an empty rect.
     ``radii`` is (P,) (isotropic box) or (P, D) (per-axis box)."""
-    P, D = means.shape
-    cfg = cfg.with_dims(D)
-    grid, _, _ = _grid_info(cfg, D)
-    dev = means.device
-    lower = torch.tensor(cfg.lower, dtype=means.dtype, device=dev)
-    g = _i32(grid, dev)
-    r = radii if radii.ndim == 2 else radii[:, None]
-    lo = torch.floor((means - lower - r) / cfg.tile_size).to(torch.int32)
-    hi = torch.ceil((means - lower + r) / cfg.tile_size).to(torch.int32)
-    if cfg.period is None:
-        zero = torch.zeros_like(g)
-        lo = torch.clamp(lo, min=zero, max=g)
-        hi = torch.clamp(hi, min=zero, max=g)
-    full = (hi - lo) >= g
-    lo = torch.where(full, 0, lo)
-    hi = torch.where(full, g.expand_as(hi), hi)
-    empty = torch.any(r <= 0.0, dim=-1, keepdim=True)
-    hi = torch.where(empty, lo, hi)
-    return lo, hi
+    with profiling.named_scope("dgs::binning.rects"):
+        P, D = means.shape
+        cfg = cfg.with_dims(D)
+        grid, _, _ = _grid_info(cfg, D)
+        dev = means.device
+        # Two blocking host-to-device copies: the host waits for the card.
+        profiling.count("sync.gaussian_rects", 2)
+        lower = torch.tensor(cfg.lower, dtype=means.dtype, device=dev)
+        g = _i32(grid, dev)
+        r = radii if radii.ndim == 2 else radii[:, None]
+        lo = torch.floor((means - lower - r) / cfg.tile_size).to(torch.int32)
+        hi = torch.ceil((means - lower + r) / cfg.tile_size).to(torch.int32)
+        if cfg.period is None:
+            zero = torch.zeros_like(g)
+            lo = torch.clamp(lo, min=zero, max=g)
+            hi = torch.clamp(hi, min=zero, max=g)
+        full = (hi - lo) >= g
+        lo = torch.where(full, 0, lo)
+        hi = torch.where(full, g.expand_as(hi), hi)
+        empty = torch.any(r <= 0.0, dim=-1, keepdim=True)
+        hi = torch.where(empty, lo, hi)
+        return lo, hi
 
 
 ELLIP_CULL_SWEEPS = 4     # coordinate-descent sweeps of ellip_keep
@@ -148,28 +152,30 @@ def ellip_keep(cfg: SamplerConfig, means: torch.Tensor, conics: torch.Tensor,
     the minimum of y^T Q y over the centred box is approached by
     ELLIP_CULL_SWEEPS sweeps of clamped coordinate descent.  Degenerate
     (zero-conic) and ``skip`` rows are always kept."""
-    P, D = means.shape
-    lower = torch.tensor(cfg.lower, dtype=means.dtype, device=means.device)
-    blo = (lower[None, None, :] + cand.to(means.dtype) * cfg.tile_size
-           - means[:, None, :])                       # (P, dup, D)
-    bhi = blo + cfg.tile_size
-    Q = [[conics[:, tri_index(D, i, j)][:, None] for j in range(D)]
-         for i in range(D)]
-    y = [torch.clamp(torch.zeros(blo.shape[:2], dtype=means.dtype,
-                                 device=means.device),
-                     blo[..., d], bhi[..., d]) for d in range(D)]
-    for _ in range(ELLIP_CULL_SWEEPS):
+    with profiling.named_scope("dgs::binning.cull"):
+        P, D = means.shape
+        profiling.count("sync.ellip_keep")   # a blocking host-to-device copy
+        lower = torch.tensor(cfg.lower, dtype=means.dtype, device=means.device)
+        blo = (lower[None, None, :] + cand.to(means.dtype) * cfg.tile_size
+               - means[:, None, :])                       # (P, dup, D)
+        bhi = blo + cfg.tile_size
+        Q = [[conics[:, tri_index(D, i, j)][:, None] for j in range(D)]
+             for i in range(D)]
+        y = [torch.clamp(torch.zeros(blo.shape[:2], dtype=means.dtype,
+                                     device=means.device),
+                         blo[..., d], bhi[..., d]) for d in range(D)]
+        for _ in range(ELLIP_CULL_SWEEPS):
+            for d in range(D):
+                num = sum(Q[d][e] * y[e] for e in range(D) if e != d)
+                y[d] = torch.clamp(-num / torch.clamp(Q[d][d], min=1e-30),
+                                   blo[..., d], bhi[..., d])
+        f = sum(Q[d][d] * y[d] * y[d] for d in range(D))
         for d in range(D):
-            num = sum(Q[d][e] * y[e] for e in range(D) if e != d)
-            y[d] = torch.clamp(-num / torch.clamp(Q[d][d], min=1e-30),
-                               blo[..., d], bhi[..., d])
-    f = sum(Q[d][d] * y[d] * y[d] for d in range(D))
-    for d in range(D):
-        for e in range(d + 1, D):
-            f = f + 2.0 * Q[d][e] * y[d] * y[e]
-    level = cfg.radius_sigma * cfg.radius_sigma * (1.0 + ELLIP_CULL_TOL)
-    degenerate = torch.all(conics == 0.0, dim=1)[:, None]
-    return (f <= level) | degenerate | skip
+            for e in range(d + 1, D):
+                f = f + 2.0 * Q[d][e] * y[d] * y[e]
+        level = cfg.radius_sigma * cfg.radius_sigma * (1.0 + ELLIP_CULL_TOL)
+        degenerate = torch.all(conics == 0.0, dim=1)[:, None]
+        return (f <= level) | degenerate | skip
 
 
 def duplicate_entries(cfg: SamplerConfig, means: torch.Tensor,
@@ -181,6 +187,12 @@ def duplicate_entries(cfg: SamplerConfig, means: torch.Tensor,
     periodic grid, sorts by (tile, gid) and truncates to the static
     capacity.  Returns (ent_gid (E,), ent_tile (E,), ent_start (T+2,),
     rect_overflow, entry_overflow), all int32."""
+    with profiling.named_scope("dgs::binning"):
+        return _duplicate_entries(cfg, means, radii, R, E_cap, conics)
+
+
+def _duplicate_entries(cfg, means, radii, R, E_cap, conics):
+    """duplicate_entries' body, inside its span."""
     P, D = means.shape
     grid, strides, T = _grid_info(cfg, D)
     dev = means.device
@@ -198,6 +210,9 @@ def duplicate_entries(cfg: SamplerConfig, means: torch.Tensor,
                        dim=-1).reshape(dup, D)
     cand = lo[:, None, :] + offs[None, :, :]  # (P, dup, D)
     valid = torch.all(cand < hi[:, None, :], dim=-1)
+    # Two blocking host-to-device copies (grid, strides): the host waits
+    # for the card.
+    profiling.count("sync.duplicate_entries", 2)
     g = _i32(grid, dev)
     if conics is not None and D >= 2:
         # Exact ellipsoid-vs-tile cull on the unwrapped candidates; full
@@ -214,51 +229,55 @@ def duplicate_entries(cfg: SamplerConfig, means: torch.Tensor,
     tile = (cand * _i32(strides, dev)).sum(dim=-1, dtype=torch.int32)
     tile = torch.where(valid, tile, T)  # the sentinel tile sorts last
 
-    # One packed (tile << gid_bits) | gid key sorts tile-major, gid-minor,
-    # which is the stable-by-tile order (generation is gid-ascending).
-    gid_bits = int(P).bit_length()
-    tile_bits = int(T).bit_length()
-    gid_flat = torch.arange(P, dtype=torch.int32,
-                            device=dev)[:, None].expand(P, dup)
-    gid_flat = torch.where(tile == T, P, gid_flat)
-    if gid_bits + tile_bits <= 31:
-        key = ((tile << gid_bits) | gid_flat).reshape(P * dup)
-        key = torch.sort(key).values
-        ent_tile = key >> gid_bits
-        ent_gid = key & ((1 << gid_bits) - 1)
-    else:
-        ent_tile, order = torch.sort(tile.reshape(P * dup), stable=True)
-        ent_gid = gid_flat.reshape(P * dup)[order]
+    with profiling.named_scope("dgs::binning.sort"):
+        # One packed (tile << gid_bits) | gid key sorts tile-major, gid-minor,
+        # which is the stable-by-tile order (generation is gid-ascending).
+        gid_bits = int(P).bit_length()
+        tile_bits = int(T).bit_length()
+        gid_flat = torch.arange(P, dtype=torch.int32,
+                                device=dev)[:, None].expand(P, dup)
+        gid_flat = torch.where(tile == T, P, gid_flat)
+        if gid_bits + tile_bits <= 31:
+            key = ((tile << gid_bits) | gid_flat).reshape(P * dup)
+            key = torch.sort(key).values
+            ent_tile = key >> gid_bits
+            ent_gid = key & ((1 << gid_bits) - 1)
+        else:
+            ent_tile, order = torch.sort(tile.reshape(P * dup), stable=True)
+            ent_gid = gid_flat.reshape(P * dup)[order]
 
-    entry_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    if E_cap < P * dup:
-        n_valid = torch.sum(ent_tile < T)
-        entry_overflow = torch.clamp(n_valid - E_cap, min=0).to(torch.int32)
-        ent_tile = ent_tile[:E_cap]
-        ent_gid = ent_gid[:E_cap]
+        entry_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        if E_cap < P * dup:
+            n_valid = torch.sum(ent_tile < T)
+            entry_overflow = torch.clamp(n_valid - E_cap,
+                                         min=0).to(torch.int32)
+            ent_tile = ent_tile[:E_cap]
+            ent_gid = ent_gid[:E_cap]
 
-    ent_start = torch.searchsorted(
-        ent_tile.contiguous(),
-        torch.arange(T + 2, dtype=torch.int32, device=dev),
-        right=False, out_int32=True,
-    )
-    return ent_gid, ent_tile, ent_start, overflow, entry_overflow
+        ent_start = torch.searchsorted(
+            ent_tile.contiguous(),
+            torch.arange(T + 2, dtype=torch.int32, device=dev),
+            right=False, out_int32=True,
+        )
+        return ent_gid, ent_tile, ent_start, overflow, entry_overflow
 
 
 def image_shift(cfg: SamplerConfig, ent_tile, ent_lo):
     """(E, D) float periodic image index k of each entry: the unique k with
     lo_d <= t_d + k_d * g_d < hi_d.  Sentinel rows give garbage k; callers
     mask them."""
-    D = ent_lo.shape[1]
-    grid, strides, _ = _grid_info(cfg, D)
-    t = ent_tile.reshape(-1)
-    ks = []
-    for d in range(D):
-        g = grid[d]
-        td = torch.remainder(torch.div(t, strides[d], rounding_mode="floor"),
-                             g).to(torch.float32)
-        ks.append(-torch.floor((td - ent_lo[:, d].to(torch.float32)) / g))
-    return torch.stack(ks, dim=1)
+    with profiling.named_scope("dgs::binning.shift"):
+        D = ent_lo.shape[1]
+        grid, strides, _ = _grid_info(cfg, D)
+        t = ent_tile.reshape(-1)
+        ks = []
+        for d in range(D):
+            g = grid[d]
+            td = torch.remainder(
+                torch.div(t, strides[d], rounding_mode="floor"),
+                g).to(torch.float32)
+            ks.append(-torch.floor((td - ent_lo[:, d].to(torch.float32)) / g))
+        return torch.stack(ks, dim=1)
 
 
 def tile_centers(cfg: SamplerConfig, tile_flat, D: int):
@@ -315,6 +334,14 @@ def build(
     cfg/means/covariances) skips the Gaussian side when only the query
     points change.  The structure is not differentiable: it is built from
     detached inputs."""
+    with profiling.named_scope("dgs::binning"):
+        return _build(cfg, means, covariances, samples, sample_binning,
+                      gaussian_binning)
+
+
+def _build(cfg, means, covariances, samples, sample_binning,
+           gaussian_binning) -> BinningState:
+    """build's body, inside its span."""
     means, covariances = means.detach(), covariances.detach()
     samples = samples.detach()
     P, D = means.shape
@@ -399,17 +426,19 @@ def forward_geometry(state: BinningState, block_n: int, block_e: int):
     """(base, nblocks) over entry blocks for each sorted-sample block; with
     ``block_e == 1`` these are each block's exact entry range
     [base, base + nblocks)."""
-    return _range_geometry(
-        state.s_tile[0], block_n, state.ent_start, block_e,
-        state.s_tile.shape[1],
-    )
+    with profiling.named_scope("dgs::binning.geometry"):
+        return _range_geometry(
+            state.s_tile[0], block_n, state.ent_start, block_e,
+            state.s_tile.shape[1],
+        )
 
 
 def backward_geometry(state: BinningState, block_e: int, block_n: int):
     """(base, nblocks) over sorted-sample blocks for each entry block; with
     ``block_n == 1`` these are each block's exact sample range
     [base, base + nblocks)."""
-    return _range_geometry(
-        state.ent_tile[0], block_e, state.s_start, block_n,
-        state.ent_tile.shape[1],
-    )
+    with profiling.named_scope("dgs::binning.geometry"):
+        return _range_geometry(
+            state.ent_tile[0], block_e, state.s_start, block_n,
+            state.ent_tile.shape[1],
+        )

@@ -30,6 +30,7 @@ import torch
 
 from ..config import ORDERS, n_components, tri_size
 from ..ops import formulas
+from ..utils import profiling
 from ._util import _pad_axis, _round_up
 from .tiled import ORDER_BITS
 
@@ -175,7 +176,8 @@ def _dense_forward_cuda(orders, period, means, values, conics, samples):
     splits, per_split = split_plan(-(-N // BLOCK_N), P, FWD_CHUNK)
     out = torch.empty((splits, K_u * C, N), dtype=torch.float32,
                       device=means.device)
-    with torch.cuda.device(means.device):
+    with torch.cuda.device(means.device), \
+            profiling.named_scope("dgs::kernel.dense_fwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dgs_dense_forward(
             geom.data_ptr(), P, C, smp.data_ptr(), N, D, mask, splits,
@@ -288,7 +290,8 @@ def _dense_backward_cuda(orders, period, means, values, conics, samples, gs):
     splits, per_split = split_plan(Pp // BLOCK_P, N, BWD_CHUNK)
     out = torch.empty((splits, D + tri + C, Pp), dtype=torch.float32,
                       device=means.device)
-    with torch.cuda.device(means.device):
+    with torch.cuda.device(means.device), \
+            profiling.named_scope("dgs::kernel.dense_bwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dgs_dense_backward(
             geom.data_ptr(), Pp, C, smp.data_ptr(), N, ct.data_ptr(), D,

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 
 def segment_sum_plain(rows, order, starts) -> torch.Tensor:
     """(P, F) sums: row g adds the columns ``rows[:, order[j]]`` for j in
@@ -70,8 +72,10 @@ def segment_sum(rows, order, starts) -> torch.Tensor:
     if P == 0 or F == 0:
         return out
     sf, se = rows.stride()
-    with torch.cuda.device(dev):
-        err = _build.load().dgs_segment_sum(
+    lib = _build.load()
+    with torch.cuda.device(dev), \
+            profiling.named_scope("dgs::kernel.segment_sum"):
+        err = lib.dgs_segment_sum(
             rows.data_ptr(), sf, se, F, order.data_ptr(), starts.data_ptr(),
             P, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -50,6 +50,7 @@ import torch
 from ..binning import grid as binning
 from ..config import tri_size
 from ..ops import formulas
+from ..utils import profiling
 from ._util import _pad_axis, _round_up
 
 # Sorted samples per forward range: one warp of csrc/tiled_forward.cu owns
@@ -495,7 +496,8 @@ def _tiled_forward_cuda(orders, period, D, C, geom, smp, ent_lo, ent_n):
         raise RuntimeError("tiled_forward: kernel library range size differs "
                            "from kernels.tiled.BLOCK_N")
     out = torch.empty((K * C, Np), dtype=torch.float32, device=geom.device)
-    with torch.cuda.device(geom.device):
+    with torch.cuda.device(geom.device), \
+            profiling.named_scope("dgs::kernel.tiled_fwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dgs_tiled_forward(
             geom.data_ptr(), geom.shape[1], C, smp.data_ptr(), Np,
@@ -763,7 +765,8 @@ def tiled_forward_sep(orders: Tuple[str, ...], D: int, C: int, geom, mono,
     K = total_unique(orders, D)
     lib = _build.load()
     out = torch.empty((K * C, Np), dtype=torch.float32, device=geom.device)
-    with torch.cuda.device(geom.device):
+    with torch.cuda.device(geom.device), \
+            profiling.named_scope("dgs::kernel.tiled_fwd_sep"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dgs_tiled_forward_sep(
             geom.data_ptr(), geom.shape[1], C, mono.data_ptr(), Np,
@@ -1019,10 +1022,18 @@ def moment_combine(orders, D: int, C: int, dent, geom) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# The span of each kernel that _run launches: "dgs::kernel." and the
+# kernel's name with forward / backward shortened to fwd / bwd.
+_SPANS = {k: "dgs::kernel." + k.replace("forward", "fwd").replace(
+    "backward", "bwd") for k in (
+        "tiled_backward", "tiled_backward_hmm", "tiled_backward_moments",
+        "tiled_forward_folded", "tiled_backward_fdv", "tiled_backward_fvjp")}
+
+
 def _run(kernel: str, device, fn, *args):
     """Call the C entry ``fn`` with ``args`` and the current stream of
-    ``device``; raise on a launch error."""
-    with torch.cuda.device(device):
+    ``device`` inside the kernel's span; raise on a launch error."""
+    with torch.cuda.device(device), profiling.named_scope(_SPANS[kernel]):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed (cudaError {err})")

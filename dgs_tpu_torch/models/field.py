@@ -15,6 +15,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import profiling
+
 
 class GaussianField(nn.Module):
     def __init__(self, means, log_scales, rotations, values):
@@ -83,10 +85,12 @@ class GaussianField(nn.Module):
         return torch.stack(cols, dim=-1)
 
     def covariances(self) -> torch.Tensor:  # (P, tri)
-        return self._packed_quadratic(torch.exp(2.0 * self.log_scales))
+        with profiling.named_scope("dgs::field"):
+            return self._packed_quadratic(torch.exp(2.0 * self.log_scales))
 
     def conics(self) -> torch.Tensor:  # (P, tri)
-        return self._packed_quadratic(torch.exp(-2.0 * self.log_scales))
+        with profiling.named_scope("dgs::field"):
+            return self._packed_quadratic(torch.exp(-2.0 * self.log_scales))
 
 
 def init_field(generator: torch.Generator, P: int, D: int, C: int, *,

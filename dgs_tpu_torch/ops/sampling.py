@@ -31,6 +31,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..config import ORDERS, n_components, out_shape, tri_size
+from ..utils import profiling
 from . import formulas
 
 ALL_ORDERS = ORDERS
@@ -89,13 +90,15 @@ class _AllPairs(torch.autograd.Function):
     def forward(ctx, means, values, conics, samples, orders, period, impl):
         ctx.save_for_backward(means, values, conics, samples)
         ctx.orders, ctx.period, ctx.impl = orders, period, impl
-        return impl[0](orders, period, means, values, conics, samples)
+        with profiling.named_scope("dgs::op.dense"):
+            return impl[0](orders, period, means, values, conics, samples)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *gs):
-        d_means, d_values, d_conics = ctx.impl[1](
-            ctx.orders, ctx.period, *ctx.saved_tensors, gs)
+        with profiling.named_scope("dgs::op.dense_bwd"):
+            d_means, d_values, d_conics = ctx.impl[1](
+                ctx.orders, ctx.period, *ctx.saved_tensors, gs)
         return d_means, d_values, d_conics, None, None, None, None
 
 
@@ -332,53 +335,59 @@ class _TiledForward(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        from ..kernels import tiled as ktiled
+        with profiling.named_scope("dgs::op.tiled_bwd"):
+            return _tiled_backward(ctx, grad)
 
-        geom, smp, gid = ctx.saved_tensors[:3]
-        D, C, orders, passes = ctx.D, ctx.C, ctx.orders, ctx.passes
-        separable, moments, folded, fold_dv, fold_vjp, hmm = ctx.modes
-        tri = tri_size(D)
-        s_lo, s_n = ktiled.sample_ranges(ctx.state, geom.shape[1])
-        grad = grad.contiguous()
-        if folded:
-            local = ktiled.local_samples(smp, D)
-            meta = formulas.folded_structure(orders, D)[0]
-            cb = (ktiled.ct_beta_rows(meta, C, grad, smp) if fold_dv
-                  else None)
-            if fold_vjp:
-                fold, foldw = ctx.saved_tensors[3:]
-                rows = ktiled.tiled_backward_fvjp(orders, D, C, geom, fold,
-                                                  foldw, local, cb, s_lo,
-                                                  s_n, passes=passes)
-                dent = ktiled.fvjp_combine(orders, D, C, rows, geom)
-            elif fold_dv:
-                dent = ktiled.tiled_backward_fdv(orders, D, C, geom, local,
-                                                 grad, cb, s_lo, s_n,
-                                                 passes=passes, h_matmul=hmm)
-            else:
-                dent = _classic_backward(orders, None, D, C,
-                                         ktiled.base_rows(geom, D, C),
-                                         local, grad, s_lo, s_n, hmm,
-                                         passes)
-        elif moments:
-            rows = ktiled.tiled_backward_moments(orders, D, C, geom, smp,
-                                                 grad, s_lo, s_n,
-                                                 passes=passes, h_matmul=hmm)
-            dent = ktiled.moment_combine(orders, D, C, rows, geom)
-        elif separable:
+
+def _tiled_backward(ctx, grad):
+    """_TiledForward's backward, inside its span."""
+    from ..kernels import tiled as ktiled
+
+    geom, smp, gid = ctx.saved_tensors[:3]
+    D, C, orders, passes = ctx.D, ctx.C, ctx.orders, ctx.passes
+    separable, moments, folded, fold_dv, fold_vjp, hmm = ctx.modes
+    tri = tri_size(D)
+    s_lo, s_n = ktiled.sample_ranges(ctx.state, geom.shape[1])
+    grad = grad.contiguous()
+    if folded:
+        local = ktiled.local_samples(smp, D)
+        meta = formulas.folded_structure(orders, D)[0]
+        cb = (ktiled.ct_beta_rows(meta, C, grad, smp) if fold_dv
+              else None)
+        if fold_vjp:
+            fold, foldw = ctx.saved_tensors[3:]
+            rows = ktiled.tiled_backward_fvjp(orders, D, C, geom, fold,
+                                              foldw, local, cb, s_lo,
+                                              s_n, passes=passes)
+            dent = ktiled.fvjp_combine(orders, D, C, rows, geom)
+        elif fold_dv:
+            dent = ktiled.tiled_backward_fdv(orders, D, C, geom, local,
+                                             grad, cb, s_lo, s_n,
+                                             passes=passes, h_matmul=hmm)
+        else:
             dent = _classic_backward(orders, None, D, C,
                                      ktiled.base_rows(geom, D, C),
-                                     ktiled.local_samples(smp, D), grad,
-                                     s_lo, s_n, hmm, passes)
-        else:
-            dent = _classic_backward(orders, ctx.kernel_period, D, C, geom,
-                                     smp, grad, s_lo, s_n, hmm, passes)
-        # The mean rows are d/dmu' of the period-shifted means (or of the
-        # tile-local means), and dmu'/dmu = 1 (the image shift and the tile
-        # centre are piecewise constant).
-        d = segment_sum_rows(dent, gid, ctx.P, ctx.slots)
-        return (d[:, :D], d[:, D + tri:], d[:, D:D + tri],
-                None, None, None, None, None, None, None, None)
+                                     local, grad, s_lo, s_n, hmm,
+                                     passes)
+    elif moments:
+        rows = ktiled.tiled_backward_moments(orders, D, C, geom, smp,
+                                             grad, s_lo, s_n,
+                                             passes=passes, h_matmul=hmm)
+        dent = ktiled.moment_combine(orders, D, C, rows, geom)
+    elif separable:
+        dent = _classic_backward(orders, None, D, C,
+                                 ktiled.base_rows(geom, D, C),
+                                 ktiled.local_samples(smp, D), grad,
+                                 s_lo, s_n, hmm, passes)
+    else:
+        dent = _classic_backward(orders, ctx.kernel_period, D, C, geom,
+                                 smp, grad, s_lo, s_n, hmm, passes)
+    # The mean rows are d/dmu' of the period-shifted means (or of the
+    # tile-local means), and dmu'/dmu = 1 (the image shift and the tile
+    # centre are piecewise constant).
+    d = segment_sum_rows(dent, gid, ctx.P, ctx.slots)
+    return (d[:, :D], d[:, D + tri:], d[:, D:D + tri],
+            None, None, None, None, None, None, None, None)
 
 
 def _classic_backward(orders, period, D, C, geom, smp, grad, s_lo, s_n,
@@ -456,28 +465,29 @@ def tiled_packed(orders: Tuple[str, ...], cfg, means, values, conics,
         raise NotImplementedError(
             "DGS_ABLATE is a TPU kernel-ablation hook of dgs_tpu; "
             "dgs_tpu_torch does not port it")
-    orders = tuple(orders)
-    N, D = samples.shape
-    C = values.shape[1]
-    Np = ktiled._round_up(N, ktiled.BLOCK_N)
-    modes = kernel_modes(cfg, D, kernel_period, separable, moments,
-                         folded=folded,
-                         beta_bytes=ct_beta_bytes(orders, D, C, Np))
-    separable, moments, folded = modes[:3]
-    if mono is not None and (separable or moments or folded):
-        smp = mono
-        n_mono = ktiled.folded_layout(orders, D, C)[1] if folded else None
-        if folded and mono.shape[0] != n_mono + 1:
-            smp = torch.cat([mono[:n_mono], mono[-1:]], dim=0)
-    else:
-        smp = ktiled.prepare_samples(
-            state, samples, ktiled.BLOCK_N, cfg=cfg,
-            separable=separable or moments,
-            folded_deg=ktiled.folded_degree(orders) if folded else None)[0]
-    ent_lo, ent_n = ktiled.entry_ranges(state, Np)
-    return _TiledForward.apply(means, values, conics, orders, cfg,
-                               kernel_period, state, smp, ent_lo, ent_n,
-                               modes)
+    with profiling.named_scope("dgs::op.pack"):
+        orders = tuple(orders)
+        N, D = samples.shape
+        C = values.shape[1]
+        Np = ktiled._round_up(N, ktiled.BLOCK_N)
+        modes = kernel_modes(cfg, D, kernel_period, separable, moments,
+                             folded=folded,
+                             beta_bytes=ct_beta_bytes(orders, D, C, Np))
+        separable, moments, folded = modes[:3]
+        if mono is not None and (separable or moments or folded):
+            smp = mono
+            n_mono = ktiled.folded_layout(orders, D, C)[1] if folded else None
+            if folded and mono.shape[0] != n_mono + 1:
+                smp = torch.cat([mono[:n_mono], mono[-1:]], dim=0)
+        else:
+            smp = ktiled.prepare_samples(
+                state, samples, ktiled.BLOCK_N, cfg=cfg,
+                separable=separable or moments,
+                folded_deg=ktiled.folded_degree(orders) if folded else None)[0]
+        ent_lo, ent_n = ktiled.entry_ranges(state, Np)
+        return _TiledForward.apply(means, values, conics, orders, cfg,
+                                   kernel_period, state, smp, ent_lo, ent_n,
+                                   modes)
 
 
 def sample_columns(s_perm) -> torch.Tensor:
@@ -498,28 +508,34 @@ def tiled_outputs(packed_t, orders: Tuple[str, ...], D: int, C: int,
     order when ``pos`` (sample_columns) is given, in tile-sorted order when
     it is None; ``unique_outputs`` keeps (N, n_unique, C) canonical
     components, else the symmetric mirror gives the reference shapes."""
-    if not padded_outputs:
-        out = packed_t[:, :N].T            # (N, K*C)
-        if pos is not None:
-            out = out[pos]
+    with profiling.named_scope("dgs::op.outputs"):
+        if not padded_outputs:
+            out = packed_t[:, :N].T            # (N, K*C)
+            if pos is not None:
+                out = out[pos]
 
-    outs, k0 = [], 0
-    for order in orders:
-        nu = formulas.n_unique(order, D)
-        if padded_outputs:
-            outs.append(packed_t[k0 * C:(k0 + nu) * C, :].reshape(nu, C, -1))
+        outs, k0 = [], 0
+        for order in orders:
+            nu = formulas.n_unique(order, D)
+            if padded_outputs:
+                rows = packed_t[k0 * C:(k0 + nu) * C, :]
+                outs.append(rows.reshape(nu, C, -1))
+                k0 += nu
+                continue
+            block = out[:, k0 * C:(k0 + nu) * C].reshape(N, nu, C)
+            if unique_outputs:
+                outs.append(block)
+            else:
+                fmap = formulas.full_to_unique(order, D)
+                if len(fmap) != nu:
+                    # A blocking host-to-device copy: the host waits for
+                    # the card's queue to drain.
+                    profiling.count("sync.tiled_outputs")
+                    fmap = torch.tensor(fmap, device=block.device)
+                    block = block[:, fmap, :]
+                outs.append(block.reshape(out_shape(order, N, D, C)))
             k0 += nu
-            continue
-        block = out[:, k0 * C:(k0 + nu) * C].reshape(N, nu, C)
-        if unique_outputs:
-            outs.append(block)
-        else:
-            fmap = formulas.full_to_unique(order, D)
-            if len(fmap) != nu:
-                block = block[:, torch.tensor(fmap, device=block.device), :]
-            outs.append(block.reshape(out_shape(order, N, D, C)))
-        k0 += nu
-    return tuple(outs)
+        return tuple(outs)
 
 
 def sample_binned(cfg, means, values, conics, covariances, samples,

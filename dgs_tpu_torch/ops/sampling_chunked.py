@@ -34,6 +34,7 @@ import torch
 from ..binning import grid as binning
 from ..config import SamplerConfig
 from ..oracle.dense import radii as compute_radii, radii_axis
+from ..utils import profiling
 from . import sampling
 
 
@@ -89,7 +90,8 @@ def _radii(cfg: SamplerConfig, covariances, D: int):
     """Footprint radii as the chunked path bins with them: per axis under
     cfg.axis_radii, else one per Gaussian."""
     fn = radii_axis if cfg.axis_radii else compute_radii
-    return fn(covariances, D, cfg.radius_sigma, cfg.eig_floor)
+    with profiling.named_scope("dgs::op.radii"):
+        return fn(covariances, D, cfg.radius_sigma, cfg.eig_floor)
 
 
 def plan_chunked(cfg: SamplerConfig, means, covariances, samples,
@@ -194,6 +196,15 @@ def sample_chunked_multi(
     there; the port has none, so it reports only what can overflow in it.
     All must be 0 for exact results.  ``block_n`` / ``block_e`` size
     dgs_tpu's chunks and are not read."""
+    with profiling.named_scope("dgs::op.chunked"):
+        return _chunked_multi(orders, cfg, means, values, conics, radii, cs,
+                              plan, unique_outputs, padded_outputs)
+
+
+def _chunked_multi(orders, cfg, means, values, conics, radii, cs, plan,
+                   unique_outputs, padded_outputs):
+    """sample_chunked_multi's body; its callers open the op's span."""
+    profiling.count("calls.chunked")
     P, D = means.shape
     C = values.shape[1]
     cfg = cfg.with_dims(D)
@@ -241,9 +252,9 @@ def sample_chunked(cfg, means, values, conics, covariances, samples,
     dgs_tpu's signature; the sample side is ``cs``."""
     D = means.shape[1]
     cfg = cfg.with_dims(D)
-    rad = _radii(cfg, covariances.detach(), D)
-    outs, diag = sample_chunked_multi(
-        tuple(orders), cfg, means, values, conics, rad, cs, plan,
-        block_n=cfg.block_n, block_e=cfg.block_p,
-        unique_outputs=unique_outputs, padded_outputs=padded_outputs)
+    with profiling.named_scope("dgs::op.chunked"):
+        rad = _radii(cfg, covariances.detach(), D)
+        outs, diag = _chunked_multi(tuple(orders), cfg, means, values,
+                                    conics, rad, cs, plan, unique_outputs,
+                                    padded_outputs)
     return dict(zip(orders, outs)), diag

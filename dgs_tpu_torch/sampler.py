@@ -30,6 +30,7 @@ from .binning import grid as binning
 from .config import SamplerConfig, tri_size
 from .ops import aggregation, sampling, sampling_chunked
 from .oracle.dense import radii as compute_radii
+from .utils import profiling
 from .utils.debug import check_finite, snapshot_call
 
 
@@ -76,6 +77,10 @@ class GaussianSampler:
 
     def preprocess(self, means, values, covariances, conics, samples):
         """Build and store the acceleration structure."""
+        with profiling.named_scope("dgs::facade.preprocess"):
+            self._preprocess(means, values, covariances, conics, samples)
+
+    def _preprocess(self, means, values, covariances, conics, samples):
         P, D = means.shape
         self._validate(means, values, covariances, conics, samples)
         base = self.config
@@ -102,8 +107,9 @@ class GaussianSampler:
                 cfg, samples, plan, cfg.block_n)
         if self.method != "tiled":
             self.state = None
-            self.radii = compute_radii(covariances.detach(), D,
-                                       cfg.radius_sigma, cfg.eig_floor)
+            with profiling.named_scope("dgs::op.radii"):
+                self.radii = compute_radii(covariances.detach(), D,
+                                           cfg.radius_sigma, cfg.eig_floor)
             return
         state = snapshot_call(self.debug, "preprocess", binning.build, cfg,
                               means, covariances, samples)
@@ -173,7 +179,10 @@ class GaussianSampler:
 
     def sample_all(self, orders=sampling.ALL_ORDERS):
         """Fused evaluation of several orders in one pairwise pass."""
-        return self._run(tuple(orders))
+        if self.method != "chunked":   # the chunked op counts its calls
+            profiling.count("calls.sample_all")
+        with profiling.named_scope("dgs::facade.sample_all"):
+            return self._run(tuple(orders))
 
     # -- neighbor aggregation ---------------------------------------------
 

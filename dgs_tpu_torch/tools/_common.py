@@ -38,7 +38,7 @@ from typing import Callable, Dict, Iterator, List, Mapping, Optional
 import torch
 
 from ..utils.profiling import (device_busy, device_op_times,
-                               device_scope_times, trace)
+                               device_scope_times, idle_gaps_by_span, trace)
 
 
 class UnsupportedKnob(ValueError):
@@ -166,12 +166,14 @@ def trace_dir(prof_dir: Optional[str]) -> Iterator[str]:
 
 def profile_ops(step: Callable, steps: int, top: int,
                 prof_dir: Optional[str], dev: torch.device):
-    """(ops, scopes) of ``steps`` calls of ``step`` under the profiler,
-    after one warm-up call: device time by kernel (copy, set) with the host
-    op that launched it as ``source`` (utils.profiling.device_op_times),
-    and device time by the port's function that launched it
-    (device_scope_times), each the ``top`` largest.  Empty lists on the
-    CPU, which has no device items."""
+    """(ops, scopes, gaps) of ``steps`` calls of ``step`` under the
+    profiler, after one warm-up call: device time by kernel (copy, set) with
+    the host op that launched it as ``source``
+    (utils.profiling.device_op_times), device time by the port's function
+    that launched it (device_scope_times), each the ``top`` largest, and
+    the device's idle time by the port's span open when it fell idle
+    (idle_gaps_by_span).  Empty lists on the CPU, which has no device
+    items."""
     step()
     sync(dev)
     with trace_dir(prof_dir) as d:
@@ -179,7 +181,8 @@ def profile_ops(step: Callable, steps: int, top: int,
             for _ in range(steps):
                 step()
         return (device_op_times(d, top=top, steps=steps),
-                device_scope_times(d, top=top, steps=steps))
+                device_scope_times(d, top=top, steps=steps),
+                idle_gaps_by_span(d, steps=steps))
 
 
 def overflow(diag: Mapping) -> Dict[str, int]:

@@ -49,14 +49,14 @@ def run(s: dict) -> list:
     for _ in range(STEPS):
         train()
     fn = train if s["which"] == "step" else build
-    ops, scopes = _common.profile_ops(fn, STEPS, s["top"], s["prof_dir"],
-                                      dev)
+    ops, scopes, gaps = _common.profile_ops(fn, STEPS, s["top"],
+                                            s["prof_dir"], dev)
     over = int(nbr.overflow) + (int(build().overflow)
                                 if s["which"] == "pre" else 0)
     if over:
         raise RuntimeError(f"aggregation overflow: {over}")
     records += [{"tool": "profile_aggregate", "profile": s["which"], **r,
-                 **card} for r in ops + scopes]
+                 **card} for r in ops + scopes + gaps]
     return records
 
 

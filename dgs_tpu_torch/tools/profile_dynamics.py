@@ -139,10 +139,10 @@ def run(s: dict) -> list:
         **card}]
     if s["which"] != "none":
         half = eval_half if s["which"] == "eval" else rollout_half
-        ops, scopes = _common.profile_ops(half, STEPS, s["top"],
-                                          s["prof_dir"], dev)
+        ops, scopes, gaps = _common.profile_ops(half, STEPS, s["top"],
+                                                s["prof_dir"], dev)
         records += [{"tool": "profile_dynamics", "profile": s["which"], **r,
-                     **card} for r in ops + scopes]
+                     **card} for r in ops + scopes + gaps]
     return records
 
 

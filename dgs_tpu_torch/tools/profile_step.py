@@ -15,8 +15,11 @@ Prints one JSON line a device item ({name, ms_per_step, calls, source}:
 ``source`` is the host op that launched the item), one a scope ({scope,
 ms_per_step, items}: the device time that each function of the port
 launched, autograd's backward ops under "backward of" their forward op's
-function, which attributes a step's many small torch ops) and a summary
-line last (the items' total, the step's host median and range, D, method,
+function, which attributes a step's many small torch ops), one a span of
+the port ({span, ms_per_step, gaps}: the device's idle time a step by the
+innermost ``dgs::`` span open when it fell idle, "(outside dgs spans)"
+where none was; ``utils.profiling.idle_gaps_by_span``) and a summary line
+last (the items' total, the step's host median and range, D, method,
 tile).  BENCH_MOMENTS, BENCH_FASTMATH, BENCH_FOLDED and BENCH_SPAN_F/B
 (default 1) become config flags as in tools/profile_step.py, which does not
 read BENCH_SEP, BENCH_FDV, BENCH_FVJP or BENCH_HMM.  The Chrome trace goes to
@@ -65,11 +68,12 @@ def run(s: dict) -> list:
                    s["orders"])
     step = bench.train_step(w)
     (_, diag), times = _common.time_steps(step, s["steps"], dev)
-    ops, scopes = _common.profile_ops(step, s["steps"], s["top"],
-                                      s["prof_dir"], dev)
+    ops, scopes, gaps = _common.profile_ops(step, s["steps"], s["top"],
+                                            s["prof_dir"], dev)
     over = _common.overflow(diag)
     card = _common.card(dev)
-    records = [{"tool": "profile_step", **r, **card} for r in ops + scopes]
+    records = [{"tool": "profile_step", **r, **card}
+               for r in ops + scopes + gaps]
     records.append({
         "tool": "profile_step", "top_total_ms_per_step": (
             sum(op["ms_per_step"] for op in ops) if ops else None),

@@ -1,13 +1,20 @@
 """Tracing and profiling on the card with ``torch.profiler``.
 
 The counterpart of ``dgs_tpu/utils/profiling.py``: ``named_scope`` marks a
-pipeline stage, ``trace`` captures a Chrome trace into a directory and
-``device_op_times`` sums the device time of each kernel (copies and sets
-too) in the newest one, and ``device_scope_times`` the device time that each
-function of the port launched (the trace records the Python stack).
+pipeline stage (a span), ``count`` adds to a named counter, ``trace``
+captures a Chrome trace into a directory and ``device_op_times`` sums the
+device time of each kernel (copies and sets too) in the newest one,
+``device_scope_times`` the device time that each function of the port
+launched (the trace records the Python stack), and ``idle_gaps_by_span``
+the device's idle time by the ``dgs::`` span open when it fell idle.
 ``device_busy`` measures a step's device busy time as the union of the
 device's activity intervals, so that overlapping or nested items count once
 (``interval_union``).
+
+Spans and counters cost a flag check while no ``torch.profiler`` runs, and
+record only while one does: the port marks its layer boundaries with spans
+named ``dgs::<layer>`` and counts its host synchronisations and top-level
+calls (``sync.<site>``, ``calls.<op>``) with them.
 """
 
 from __future__ import annotations
@@ -24,10 +31,44 @@ from typing import Dict, Iterable, Iterator, List, Tuple
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-named_scope = record_function  # annotate pipeline stages
-
 # Chrome-trace categories of the device's own activity.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# The prefix of the port's span names, and the record of idle time that
+# falls outside every span.
+SPAN_PREFIX = "dgs::"
+OUTSIDE_SPANS = "(outside dgs spans)"
+
+_profiler_enabled = torch.autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+_counts: Dict[str, int] = defaultdict(int)
+
+
+def named_scope(name: str):
+    """A span named ``name`` around the body of a ``with``: while a
+    ``torch.profiler`` runs, ``record_function(name)``, a user annotation
+    on the profiler's clock, on the calling thread, enclosing the device
+    work launched inside it; while none runs, one shared no-op context
+    (a flag check, no annotation)."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a ``torch.profiler`` runs;
+    nothing otherwise.  Host integers only: no device tensor is read."""
+    if _profiler_enabled():
+        _counts[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of every counter ``count`` has added to since the last
+    ``reset_counters``."""
+    return dict(_counts)
+
+
+def reset_counters() -> None:
+    _counts.clear()
 
 
 @contextlib.contextmanager
@@ -186,19 +227,54 @@ def device_scope_times(log_dir: str, top: int = 25,
             for k, v in sorted(dur.items(), key=lambda kv: -kv[1])[:top]]
 
 
+def _merged(intervals) -> List[List[float]]:
+    """The [start, end) intervals merged where they overlap, in order."""
+    out: List[List[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_gaps_by_span(log_dir: str, steps: int = 1) -> List[Dict]:
+    """The device's idle time by the port's span, in the newest trace of
+    ``log_dir`` (a trace of ``trace``): for each interval between the
+    device's busy intervals (kernels, copies, sets), the innermost
+    ``dgs::`` span (the latest begun) open at the interval's start on a
+    thread that launches device work, OUTSIDE_SPANS where none is open.
+    Records {span, ms_per_step, gaps} sorted by time, over ``steps``
+    traced steps; none where the trace holds no device activity."""
+    events = [e for e in _events(log_dir) if e.get("ph") == "X"]
+    busy = _merged((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in DEVICE_CATEGORIES)
+    launchers = {e.get("tid") for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    spans = sorted((e for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e["name"].startswith(SPAN_PREFIX)
+                    and e.get("tid") in launchers), key=lambda e: e["ts"])
+    dur: Dict[str, float] = defaultdict(float)
+    cnt: Dict[str, int] = defaultdict(int)
+    j, open_spans = 0, []
+    for (_, a), (b, _) in zip(busy, busy[1:]):
+        while j < len(spans) and spans[j]["ts"] <= a:
+            open_spans.append(spans[j])
+            j += 1
+        open_spans = [e for e in open_spans
+                      if e["ts"] + e.get("dur", 0) >= a]
+        name = open_spans[-1]["name"] if open_spans else OUTSIDE_SPANS
+        dur[name] += b - a
+        cnt[name] += 1
+    return [{"span": k, "ms_per_step": v / (1000.0 * steps), "gaps": cnt[k]}
+            for k, v in sorted(dur.items(), key=lambda kv: -kv[1])]
+
+
 def interval_union(spans: Iterable[Tuple[float, float]]) -> float:
     """Total length of the union of the [start, end) intervals ``spans``:
     overlapping or nested intervals count once."""
-    spans = sorted(spans)
-    if not spans:
-        return 0.0
-    total, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            total, lo, hi = total + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    return total + hi - lo
+    return float(sum(b - a for a, b in _merged(spans)))
 
 
 def device_busy(fn, iters: int):
