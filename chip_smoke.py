@@ -25,6 +25,10 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --folded   # the folded modes' and h_matmul's
                                      # two phases only (parity_folded,
                                      # folded_slice)
+    python3 chip_smoke.py --binning  # the binning's key kernel against its
+                                     # plain chain, its times and its
+                                     # ptxas and SASS counts only (see
+                                     # binning_times)
 
 Several modes may be given; they run in the order given.  The per-pair
 operation counts and the card's peak rates of the bounds are
@@ -123,6 +127,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    each folded mode and under h_matmul against the dense
                    masked oracle, gradients twice and bitwise equal, with
                    the kernels each mode launched.
+     parity_binning - the binning's key kernel (csrc/binning_keys.cu,
+                   binning.candidate_keys) bitwise against
+                   candidate_keys_plain, the keys and the rect overflow, on
+                   the operands each main path hands it, captured from the
+                   path's own call: the D = 2 headline's binning
+                   (per-axis radii, no cull), the aggregation structure's
+                   ((P,) radii, no conics; periodic as the path runs, and
+                   the same operands in an open domain) and
+                   tools.bench's D = 3 chunked workload (per-axis radii,
+                   the cull; bench.entry_operands); on the last its
+                   CUDA-event ms beside the plain chain's and its bound
+                   (the kernels line's row).
   4. slice       - the evaluation path at full width: GaussianSampler
                    (method "tiled") preprocess + sample_all(value,
                    derivative, laplacian) at P = 100,000 Gaussians x
@@ -339,8 +355,10 @@ aggregation point; the segment-sum's row also index_add_'s time as
 library_ms, both layouts and the D = 3 cases; the tiled kernels' and
 the segment-sum's rows also the chunked D = 3 shapes by_shape, and
 launches_by_path chunked_slice and chunked_step, sharded and
-sharded_two_ranks (the two ranks' launches summed)) and, last, the result
-line
+sharded_two_ranks (the two ranks' launches summed); the binning's key
+kernel's row its numbers on the D = 3 chunked workload's operands from
+parity_binning, with its ptxas registers and SASS instruction counts)
+and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no JAX and nothing of the JAX package.
 """
@@ -378,7 +396,8 @@ from dgs_tpu_torch.sampler import GaussianSampler
 from dgs_tpu_torch.tools import bench
 from dgs_tpu_torch.utils import native
 from dgs_tpu_torch.utils.profiling import device_busy
-from dgs_tpu_torch.utils.roofline import (MEM_BYTES_S, agg_bound,
+from dgs_tpu_torch.utils.roofline import (FP32_INSTR_S, MEM_BYTES_S,
+                                          SFU_OPS_S, agg_bound,
                                           kernel_bound, mode_bound,
                                           pair_count, step_roofline)
 
@@ -407,7 +426,8 @@ KERNELS = {"tiled_forward": ktiled.tiled_forward,
            "agg_totals": kagg.totals,
            "agg_forward": kagg.forward,
            "agg_backward": kagg.backward,
-           "segment_sum": segment.segment_sum}
+           "segment_sum": segment.segment_sum,
+           "binning_keys": binning.candidate_keys}
 
 
 def reset_launches():
@@ -1043,8 +1063,10 @@ def phase_slice(dev, P=100_000, N=1_000_000):
         outs = run()
         torch.cuda.synchronize()
         e2e.append((time.perf_counter() - t0) * 1e3)
-    # Evaluation takes no gradient: five forward launches, no backward.
-    launches = expect_launches("5 evaluations", tiled_forward=5)
+    # Evaluation takes no gradient: five forward launches, no backward;
+    # each preprocess bins the Gaussians once.
+    launches = expect_launches("5 evaluations", tiled_forward=5,
+                               binning_keys=5)
 
     state = sampler.state
     _, diag = sampling.sample_binned(cfg, means, values, conics, covs,
@@ -1140,7 +1162,8 @@ def phase_train_step(dev, P=100_000, N=1_000_000):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = expect_launches("5 training steps", tiled_forward=5,
-                               tiled_backward=5, segment_sum=5)
+                               tiled_backward=5, segment_sum=5,
+                               binning_keys=5)
     diag = {k: int(v) for k, v in diag.items() if k != "perm"}
     if any(diag.values()):
         raise AssertionError(f"overflow diagnostics not zero: {diag}")
@@ -1214,12 +1237,13 @@ def phase_pigs(dev, P=PIGS_P, steps=120, n_collocation=PIGS_COLLOCATION):
         n_collocation=n_collocation, learning_rate=PIGS_LR,
         sigma=2.0 / math.sqrt(P), log_every=max(steps // 6, 1), device=dev)
     wall = time.perf_counter() - t0
-    # Each step evaluates the collocation and the data points: two
-    # launches of each kernel.
+    # Each step bins and evaluates the collocation and the data points:
+    # two launches of each kernel.
     launches = expect_launches(f"{steps} PIGS steps",
                                tiled_forward=2 * steps,
                                tiled_backward=2 * steps,
-                               segment_sum=2 * steps)
+                               segment_sum=2 * steps,
+                               binning_keys=2 * steps)
     for h in history:
         over = {k: h[k] for k in pigs.DIAGNOSTICS if h[k]}
         if over:
@@ -1491,7 +1515,8 @@ def phase_pigs_dense(dev, P=10_000, steps=120, n_collocation=16_384):
             log_every=max(steps // 6, 1), device=dev)
         wall = time.perf_counter() - t0
         kernels = (("dense_forward", "dense_backward") if method == "pallas"
-                   else ("tiled_forward", "tiled_backward", "segment_sum"))
+                   else ("tiled_forward", "tiled_backward", "segment_sum",
+                         "binning_keys"))
         launches = expect_launches(f"{steps} PIGS steps ({method})",
                                    **{k: 2 * steps for k in kernels})
         for h in history:
@@ -1854,7 +1879,10 @@ def phase_agg_slice(dev, P=AGG_P):
 
     reset_launches()
     pre_ms = host_ms(lambda: sampler.preprocess_aggregate(method="pallas"), 5)
-    pre_launches = expect_launches("6 structure builds", agg_totals=6)
+    # A structure build bins twice (suggest_grid_capacities, then
+    # preprocess_grid).
+    pre_launches = expect_launches("6 structure builds", agg_totals=6,
+                                   binning_keys=12)
     agg = sampler.neighbors
     if int(agg.overflow):
         raise AssertionError(f"aggregation overflow {int(agg.overflow)}")
@@ -1978,12 +2006,13 @@ def phase_dynamics(dev, P=DYN_P, steps=60, n_eval=DYN_EVAL):
     # The value fit takes fit_steps steps of the tiled kernels and each of
     # the two evaluators probes a fresh batch once; then per step: one
     # aggregation forward and one backward (two entry points) per rollout
-    # depth, and one tiled evaluation of the stacked depths.
+    # depth, and one tiled evaluation of the stacked depths.  Its six
+    # binnings are all made before the first step (as many at 10 steps).
     launches = expect_launches(
         f"{steps} dynamics steps", agg_totals=1,
         agg_forward=DYN_ROLLOUT * steps, agg_backward=2 * DYN_ROLLOUT * steps,
         tiled_forward=fit_steps + 2 + steps, tiled_backward=fit_steps + steps,
-        segment_sum=DYN_ROLLOUT * steps + fit_steps + steps)
+        segment_sum=DYN_ROLLOUT * steps + fit_steps + steps, binning_keys=6)
     for h in history:
         if h["nbr_overflow"] or h["eval_overflow"]:
             raise AssertionError(f"overflow at step {h['step']}: {h}")
@@ -2491,7 +2520,8 @@ def chunked_numbers(dev, orders, sampler, evals=10, steps=10, plain=True):
     reset_launches()
     e2e = host_ms(lambda: sampler.sample_all(orders), evals)
     eval_launches = expect_launches(f"{evals + 1} chunked evaluations",
-                                    tiled_forward=evals + 1)
+                                    tiled_forward=evals + 1,
+                                    binning_keys=evals + 1)
     outs = sampler.sample_all(orders)
     want = {"value": [N, C], "derivative": [N, D, C],
             "laplacian": [N, D, D, C], "third": [N, D, D, D, C]}
@@ -2507,7 +2537,8 @@ def chunked_numbers(dev, orders, sampler, evals=10, steps=10, plain=True):
     step_times = host_ms(step, steps)
     step_launches = expect_launches(
         f"{steps + 1} chunked training steps", tiled_forward=steps + 1,
-        tiled_backward=steps + 1, segment_sum=steps + 1)
+        tiled_backward=steps + 1, segment_sum=steps + 1,
+        binning_keys=steps + 1)
     loss, diag = step()
     loss = float(loss)
     grads = [p.grad.clone() for p in params]
@@ -2778,6 +2809,186 @@ def dense_times(dev, reps=10, steps=30):
         emit("dense_steps", path=path, step_ms_median=statistics.median(times),
              step_ms_min=min(times), step_ms_max=max(times))
     segment_memory(dev)
+    emit("spin", **_spin)
+
+
+# The binning's key kernel's work a candidate tile, in FP32 / integer
+# instructions, estimated by hand and not counted: the rect, the
+# candidate's tests and its tile id (all candidates); and at D axes the
+# cull's 4 D sweep steps (D - 1 products and sums, a clamp, one IEEE
+# division: one SFU reciprocal and about 8 instructions of refinement), its
+# box and its form (candidates inside the rect, which reach the cull).  It
+# leaves out address arithmetic, the lanes a warp idles while others cull,
+# and the division's slow path; key_build_facts counts the instantiations'
+# SASS instructions beside it.
+KEY_OPS = 50
+
+
+def cull_ops(D):
+    return 4 * D * (2 * (D - 1) + 3 + 8) + 4 * D + 3 * D * D
+
+
+def key_build_facts():
+    """The key kernel's instantiations from the build: ptxas registers and
+    spill bytes, whether fast-math was on, and the instructions of each
+    instantiation's SASS (cuobjdump beside nvcc; null where it fails)."""
+    log = _build.build_log()
+    ptxas = [dict(D=int(D), registers=int(regs),
+                  spill_store_bytes=int(spill))
+             for D, spill, regs in re.findall(
+                 r"Compiling entry function '\S*binning_keys_kernelILi(\d)"
+                 r"\S*'[\s\S]*?(\d+) bytes spill stores[\s\S]*?"
+                 r"Used (\d+) registers", log)]
+    sass = None
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    try:
+        dump = subprocess.run([tool, "-sass", _build._OUT],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        dump = None
+    if dump is not None:
+        sass = {}
+        for fn in re.split(r"\n\s*Function : ", dump)[1:]:
+            m = re.match(r"\S*binning_keys_kernelILi(\d)", fn)
+            if m:
+                sass[int(m.group(1))] = len(re.findall(
+                    r"/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)[@A-Z]", fn))
+    return dict(ptxas=ptxas, fast_math="use_fast_math" in log,
+                sass_instructions=sass)
+
+
+@contextlib.contextmanager
+def key_operands():
+    """The operands (cfg, means, radii, R, conics) of every key kernel
+    launch made inside the block, in order, as candidate_keys hands them to
+    launch_keys (the launches still run)."""
+    calls, real = [], binning.launch_keys
+
+    def spy(lib, cfg, means, radii, R, conics, *rest):
+        calls.append((cfg, means, radii, R, conics))
+        return real(lib, cfg, means, radii, R, conics, *rest)
+
+    binning.launch_keys = spy
+    try:
+        yield calls
+    finally:
+        binning.launch_keys = real
+
+
+def keys_parity(case, cfg, means, radii, R, conics):
+    """candidate_keys (the kernel) against candidate_keys_plain on the same
+    CUDA operands: keys and rect overflow bitwise equal, or raise; the
+    case's fields."""
+    launches = binning.candidate_keys.launches
+    got = binning.candidate_keys(cfg, means, radii, R, conics)
+    if binning.candidate_keys.launches != launches + 1:
+        raise AssertionError(f"binning_keys {case}: the kernel did not run")
+    want = binning.candidate_keys_plain(cfg, means, radii, R, conics)
+    for a, b, what in zip(got, want, ("keys", "overflow")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"binning_keys {case}: {what} differ from "
+                                 "candidate_keys_plain")
+    P, D = means.shape
+    T = binning.num_tiles(cfg, D)
+    tiles = (got[0] >> P.bit_length() if binning.key_packed(P, T)
+             else got[0])
+    return dict(case=case, D=D, P=P, R=R, radii=list(radii.shape),
+                conics=conics is not None, periodic=cfg.period is not None,
+                candidates=tiles.numel(), kept=int((tiles < T).sum()),
+                overflow=int(got[1]), bitwise=True)
+
+
+def binning_keys_numbers(cfg, means, rad, con, R):
+    """The key kernel on one operand set: bitwise against
+    candidate_keys_plain, then CUDA-event ms of each and of
+    duplicate_entries each way, and the kernel's bound (bytes read and
+    written once; KEY_OPS and cull_ops instructions of the candidates, the
+    cull's only inside the rects)."""
+    P, D = means.shape
+    dup = R ** D
+    fields = keys_parity("d3_chunked", cfg, means, rad, R, con)
+    lo, hi = binning.gaussian_rects(cfg, means, rad)
+    in_rect = int(torch.prod(torch.clamp(hi - lo, min=0, max=R), dim=1).sum())
+    E_cap = P * dup
+    kernel_keys = binning.candidate_keys
+    ms = cuda_ms(lambda: binning.candidate_keys(cfg, means, rad, R, con))
+    plain_ms = cuda_ms(
+        lambda: binning.candidate_keys_plain(cfg, means, rad, R, con))
+    entries_ms = cuda_ms(lambda: binning.duplicate_entries(
+        cfg, means, rad, R, E_cap, conics=con))
+    try:
+        binning.candidate_keys = (lambda c, m, r, k, q=None:
+                                  binning.candidate_keys_plain(c, m, r, k, q))
+        entries_plain_ms = cuda_ms(lambda: binning.duplicate_entries(
+            cfg, means, rad, R, E_cap, conics=con))
+    finally:
+        binning.candidate_keys = kernel_keys
+    n_bytes = 4 * (P * (D + rad[0].numel() + con.shape[1]) + P * dup + 1)
+    t_bytes = n_bytes / MEM_BYTES_S
+    t_ops = max((P * dup * KEY_OPS + in_rect * cull_ops(D)) / FP32_INSTR_S,
+                in_rect * 4 * D / SFU_OPS_S)
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    return dict(fields, in_rect=in_rect, ms=ms, plain_ms=plain_ms,
+                duplicate_entries_ms=entries_ms,
+                duplicate_entries_plain_ms=entries_plain_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                share=bound_ms / ms)
+
+
+def d3_key_operands(dev):
+    """tools.bench's D = 3 chunked workload (100k Gaussians of init_field,
+    1M samples, tile 0.2, axis radii, the cull), planned, and what each of
+    its steps hands duplicate_entries: (cfg, means, radii, conics, R)."""
+    _, w = modes_workload(dev, {})
+    cfg, means, rad, con, R, _ = bench.entry_operands(w)
+    return cfg, means, rad, con, R
+
+
+def phase_parity_binning(dev):
+    """The binning's key kernel bitwise against candidate_keys_plain at the
+    operands each main path hands it (captured from the path's own call):
+    the D = 2 headline's binning, the aggregation structure's
+    (periodic, and the same operands in an open domain) and the D = 3
+    chunked workload.  Returns the kernels line's numbers, on the last."""
+    t0 = time.perf_counter()
+    cases = []
+    (means, values, covs, conics), samples, cfg, _ = headline(
+        dev, 100_000, 1_000_000)
+    with key_operands() as calls:
+        GaussianSampler(config=cfg).preprocess(means, values, covs, conics,
+                                               samples)
+    cases += [("headline_d2", *calls[0])]
+    del means, values, covs, conics, samples
+    sampler, _, _ = agg_point(dev)
+    with key_operands() as calls:
+        sampler.preprocess_aggregate(method="pallas")
+    acfg, *rest = calls[-1]        # preprocess_grid's, as the path runs
+    open_cfg = dataclasses.replace(
+        acfg, period=None, upper_bounds=tuple(lo + 2.0 for lo in acfg.lower))
+    cases += [("agg_periodic", acfg, *rest), ("agg_open", open_cfg, *rest)]
+    del sampler
+    for case in cases:
+        emit("parity_binning", **keys_parity(*case))
+    cfg, means, rad, con, R = d3_key_operands(dev)
+    numbers = dict(binning_keys_numbers(cfg, means, rad, con, R),
+                   **key_build_facts())
+    emit("parity_binning", **numbers, seconds=time.perf_counter() - t0)
+    return numbers
+
+
+def binning_times(dev):
+    """The binning's key kernel (csrc/binning_keys.cu) alone (python3
+    chip_smoke.py --binning): its build facts, then on tools.bench's D = 3
+    chunked workload at R = 4 and 5, bitwise against its plain version, its
+    CUDA-event ms beside the plain chain's, duplicate_entries' each way and
+    its bound."""
+    emit("binning_keys_build", **key_build_facts())
+    cfg, means, rad, con, plan_R = d3_key_operands(dev)
+    for R in (4, 5):
+        emit("binning_keys", plan_R=plan_R,
+             **binning_keys_numbers(cfg, means, rad, con, R))
     emit("spin", **_spin)
 
 
@@ -3073,10 +3284,12 @@ def sharded_one_rank(dev):
         lambda *leaves: pm.sharded_aggregate(mesh, *leaves, agg), params)
     torch.cuda.synchronize()
     k = SHARD_PIGS_STEPS
+    # The binnings: the evaluation's, two a PIGS step of each kind, and
+    # three of the sharded aggregation structure.
     launches = expect_launches(
         "the sharded paths at one rank", tiled_forward=1 + 4 * k,
         tiled_backward=4 * k, segment_sum=4 * k + 1, agg_totals=1,
-        agg_forward=1, agg_backward=2)
+        agg_forward=1, agg_backward=2, binning_keys=1 + 4 * k + 3)
 
     over = {k: int(diag[k]) for k in pigs.DIAGNOSTICS if int(diag[k])}
     if over or int(agg.overflow):
@@ -3214,7 +3427,8 @@ def sharded_two_ranks(dev):
     torch.cuda.synchronize()
     launches = expect_launches(
         "the sharded paths on two ranks", tiled_forward=3, tiled_backward=2,
-        segment_sum=3, agg_totals=1, agg_forward=1, agg_backward=2)
+        segment_sum=3, agg_totals=1, agg_forward=1, agg_backward=2,
+        binning_keys=6)
 
     over = {k: int(diag[k]) for k in pigs.DIAGNOSTICS if int(diag[k])}
     over.update({f"pigs_{k}": int(metrics[k]) for k in pigs.DIAGNOSTICS
@@ -3308,34 +3522,38 @@ def sharded_times(dev):
 # environment, kernels its path launches, kernels its profile must name).
 TILED = ("tiled_forward", "tiled_backward", "segment_sum")
 AGG = ("agg_forward", "agg_backward", "segment_sum")
+KEYS = ("binning_keys",)
 ALL_PROF = {"PROF_TOP": "100000"}
 TOOL_RUNS = (
-    ("tool_bench_d2", "bench", {}, TILED, ()),
-    ("tool_bench_d3", "bench", {"BENCH_D": "3"}, TILED, ()),
+    ("tool_bench_d2", "bench", {}, TILED + KEYS, ()),
+    ("tool_bench_d3", "bench", {"BENCH_D": "3"}, TILED + KEYS, ()),
     # bench.py's all-pairs method at dense config 2's width.
     ("tool_bench_pallas", "bench",
      {"BENCH_METHOD": "pallas", "BENCH_D": "3", "BENCH_P": "10000",
       "BENCH_N": "100000", "BENCH_ORDERS": ",".join(ORDERS)},
      ("dense_forward", "dense_backward"), ()),
-    ("tool_profile_step_d2", "profile_step", ALL_PROF, TILED, TILED),
+    ("tool_profile_step_d2", "profile_step", ALL_PROF, TILED + KEYS,
+     TILED),
     ("tool_profile_step_d3", "profile_step",
      {"BENCH_D": "3", "BENCH_METHOD": "chunked", "BENCH_TILE": "0.2",
-      "BENCH_ELLIP": "1", **ALL_PROF}, TILED, TILED),
-    ("tool_profile_bench", "profile_bench", {}, TILED, ()),
-    ("tool_train_100k", "train_100k", {}, TILED + AGG + ("agg_totals",), ()),
-    ("tool_bench_aggregate", "bench_aggregate", {}, AGG + ("agg_totals",),
-     ()),
+      "BENCH_ELLIP": "1", **ALL_PROF}, TILED + KEYS, TILED),
+    ("tool_profile_bench", "profile_bench", {}, TILED + KEYS, ()),
+    ("tool_train_100k", "train_100k", {},
+     TILED + AGG + ("agg_totals",) + KEYS, ()),
+    ("tool_bench_aggregate", "bench_aggregate", {},
+     AGG + ("agg_totals",) + KEYS, ()),
     ("tool_profile_aggregate", "profile_aggregate", ALL_PROF,
-     AGG + ("agg_totals",), AGG),
+     AGG + ("agg_totals",) + KEYS, AGG),
     ("tool_profile_dynamics_rollout", "profile_dynamics",
-     {"DYN_PROFILE": "rollout", **ALL_PROF}, TILED + AGG + ("agg_totals",),
-     AGG),
+     {"DYN_PROFILE": "rollout", **ALL_PROF},
+     TILED + AGG + ("agg_totals",) + KEYS, AGG),
     ("tool_profile_dynamics_eval", "profile_dynamics",
-     {"DYN_PROFILE": "eval", **ALL_PROF}, TILED + AGG + ("agg_totals",),
-     TILED),
-    ("tool_sweep_tile", "sweep_tile", {"SWEEP_STEPS": "3"}, TILED, ()),
-    ("tool_sweep_chunked", "sweep_chunked", {"SWEEP_STEPS": "3"}, TILED,
+     {"DYN_PROFILE": "eval", **ALL_PROF},
+     TILED + AGG + ("agg_totals",) + KEYS, TILED),
+    ("tool_sweep_tile", "sweep_tile", {"SWEEP_STEPS": "3"}, TILED + KEYS,
      ()),
+    ("tool_sweep_chunked", "sweep_chunked", {"SWEEP_STEPS": "3"},
+     TILED + KEYS, ()),
 )
 
 
@@ -4602,7 +4820,7 @@ def main():
              "--agg": agg_times, "--segment": segment_times,
              "--chunked": chunked_times, "--sharded": sharded_times,
              "--tools": phase_tools, "--modes": modes_times,
-             "--folded": folded_times}
+             "--folded": folded_times, "--binning": binning_times}
     if sys.argv[1:]:
         for mode in sys.argv[1:]:
             modes[mode](dev)
@@ -4634,6 +4852,7 @@ def main():
     phase_parity_chunked(dev)
     phase_parity_modes(dev)
     phase_parity_folded(dev)
+    k_keys = phase_parity_binning(dev)
     slice_launches, k_fwd = phase_slice(dev)
     train_launches, k_bwd, k_seg, train_step = phase_train_step(dev)
     k_seg["d3_r8"], k_seg["d3_real"] = phase_segment(dev)
@@ -4714,6 +4933,10 @@ def main():
         # Not a TPU kernel: the reference's segment-sum is an XLA op.
         "segment_sum": ("segment_sum.cu", "dgs_tpu/ops/sampling.py:409",
                         "train_step", k_seg),
+        # Not a TPU kernel either: the reference builds the binning's keys
+        # with XLA's elementwise ops.
+        "binning_keys": ("binning_keys.cu", "dgs_tpu/binning/grid.py:212",
+                         "chunked_step", k_keys),
     }
     for name, (_, _, main_path, _) in kernels.items():
         if paths[main_path][name] < 1:

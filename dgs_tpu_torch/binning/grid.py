@@ -15,8 +15,10 @@ torch needs it.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import SamplerConfig, tri_index
@@ -194,6 +196,136 @@ def duplicate_entries(cfg: SamplerConfig, means: torch.Tensor,
 def _duplicate_entries(cfg, means, radii, R, E_cap, conics):
     """duplicate_entries' body, inside its span."""
     P, D = means.shape
+    T = _grid_info(cfg, D)[2]
+    dev = means.device
+    dup = R ** D
+    flat, overflow = candidate_keys(cfg, means, radii, R, conics)
+
+    with profiling.named_scope("dgs::binning.sort"):
+        # One packed (tile << gid_bits) | gid key sorts tile-major, gid-minor,
+        # which is the stable-by-tile order (generation is gid-ascending).
+        gid_bits = int(P).bit_length()
+        if key_packed(P, T):
+            key = torch.sort(flat).values
+            ent_tile = key >> gid_bits
+            ent_gid = key & ((1 << gid_bits) - 1)
+        else:
+            gid_flat = torch.arange(P, dtype=torch.int32,
+                                    device=dev)[:, None].expand(P, dup)
+            gid_flat = torch.where(flat.reshape(P, dup) == T, P, gid_flat)
+            ent_tile, order = torch.sort(flat, stable=True)
+            ent_gid = gid_flat.reshape(P * dup)[order]
+
+        entry_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        if E_cap < P * dup:
+            n_valid = torch.sum(ent_tile < T)
+            entry_overflow = torch.clamp(n_valid - E_cap,
+                                         min=0).to(torch.int32)
+            ent_tile = ent_tile[:E_cap]
+            ent_gid = ent_gid[:E_cap]
+
+        ent_start = torch.searchsorted(
+            ent_tile.contiguous(),
+            torch.arange(T + 2, dtype=torch.int32, device=dev),
+            right=False, out_int32=True,
+        )
+        return ent_gid, ent_tile, ent_start, overflow, entry_overflow
+
+
+def key_packed(P: int, T: int) -> bool:
+    """Whether a (tile << gid_bits) | gid key of P Gaussians over T tiles
+    (and the sentinels P and T) fits in 31 bits."""
+    return int(P).bit_length() + int(T).bit_length() <= 31
+
+
+def candidate_keys(cfg: SamplerConfig, means: torch.Tensor,
+                   radii: torch.Tensor, R: int,
+                   conics: Optional[torch.Tensor] = None):
+    """The sort keys of the R^D candidate tiles of each Gaussian, before
+    the sort: (flat (P * R^D,) int32, rect_overflow () int32).
+
+    Candidate c of Gaussian g sits at g * R^D + c.  A candidate outside the
+    Gaussian's rect, culled by the ellipsoid (``conics`` given and D >= 2),
+    or off an open grid has tile T.  ``flat`` holds the packed keys
+    (tile << gid_bits) | gid, gid P where the tile is T, where they fit in
+    31 bits (``key_packed``), else the tiles.  ``means`` (P, D), ``radii``
+    (P,) or (P, D) and ``conics`` (P, D (D + 1) / 2) are float32 on one
+    device.  CUDA tensors launch the CUDA kernel (csrc/binning_keys.cu,
+    counted in ``candidate_keys.launches``), which reads the grid as
+    arguments and copies nothing to the device; CPU tensors run
+    candidate_keys_plain."""
+    dev = means.device
+    if means.ndim != 2 or not 1 <= means.shape[1] <= 3:
+        raise ValueError("candidate_keys: means must be (P, D) with D in "
+                         f"1..3, got {tuple(means.shape)}")
+    P, D = means.shape
+    shapes = {"means": [(P, D)], "radii": [(P,), (P, D)]}
+    if conics is not None:
+        shapes["conics"] = [(P, D * (D + 1) // 2)]
+    for arg, t in (("means", means), ("radii", radii), ("conics", conics)):
+        if arg in shapes and (t.device != dev or t.dtype != torch.float32
+                              or tuple(t.shape) not in shapes[arg]):
+            raise ValueError(
+                f"candidate_keys: {arg} must be a float32 tensor of shape "
+                f"{' or '.join(map(str, shapes[arg]))} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if R < 1:
+        raise ValueError(f"candidate_keys: R must be at least 1, got {R}")
+    if dev.type == "cpu":
+        return candidate_keys_plain(cfg, means, radii, R, conics)
+    if dev.type != "cuda":
+        raise ValueError(f"candidate_keys: no kernel for device {dev}")
+    from ..kernels import _build
+
+    lib = _build.load()
+    with torch.cuda.device(dev), \
+            profiling.named_scope("dgs::binning.keys"):
+        out = torch.empty(P * R ** D, dtype=torch.int32, device=dev)
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        if P == 0:
+            return out, overflow
+        err = launch_keys(
+            lib, cfg, means.contiguous(), radii.contiguous(), R,
+            None if conics is None else conics.contiguous(), out, overflow,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"candidate_keys: CUDA launch failed (cudaError {err})")
+    candidate_keys.launches += 1
+    return out, overflow
+
+
+candidate_keys.launches = 0
+
+
+def launch_keys(lib, cfg, means, radii, R, conics, out, overflow,
+                stream) -> int:
+    """Launch ``lib``'s dgs_binning_keys (csrc/binning_keys.cu) on checked,
+    contiguous operands into ``out`` (P * R^D,) and the zeroed
+    ``overflow`` (); its error code.  The grid, strides and lower corner go
+    as arguments, with the float32 values torch's own ops use: the tile as
+    a factor, its reciprocal as the divisor of the rect (torch divides a
+    CUDA tensor by a Python float so), the level as torch compares it."""
+    P, D = means.shape
+    cfg = cfg.with_dims(D)
+    grid, strides, T = _grid_info(cfg, D)
+    cull = conics is not None and D >= 2
+    tile = np.float32(cfg.tile_size)
+    level = np.float32(cfg.radius_sigma * cfg.radius_sigma
+                       * (1.0 + ELLIP_CULL_TOL))
+    ints, floats = ctypes.c_int * D, ctypes.c_float * D
+    return lib.dgs_binning_keys(
+        means.data_ptr(), radii.data_ptr(), int(radii.ndim == 2),
+        conics.data_ptr() if cull else None, D, P, R,
+        ints(*grid), ints(*strides), floats(*cfg.lower), float(tile),
+        float(np.float32(1.0) / tile), int(cfg.period is not None),
+        float(level), T, int(P).bit_length(), int(key_packed(P, T)),
+        out.data_ptr(), overflow.data_ptr(), stream)
+
+
+def candidate_keys_plain(cfg, means, radii, R, conics):
+    """candidate_keys in plain torch: the same function on any device."""
+    P, D = means.shape
     grid, strides, T = _grid_info(cfg, D)
     dev = means.device
     dup = R ** D
@@ -228,38 +360,13 @@ def _duplicate_entries(cfg, means, radii, R, E_cap, conics):
                  & torch.all(cand >= 0, dim=-1))
     tile = (cand * _i32(strides, dev)).sum(dim=-1, dtype=torch.int32)
     tile = torch.where(valid, tile, T)  # the sentinel tile sorts last
-
-    with profiling.named_scope("dgs::binning.sort"):
-        # One packed (tile << gid_bits) | gid key sorts tile-major, gid-minor,
-        # which is the stable-by-tile order (generation is gid-ascending).
-        gid_bits = int(P).bit_length()
-        tile_bits = int(T).bit_length()
-        gid_flat = torch.arange(P, dtype=torch.int32,
-                                device=dev)[:, None].expand(P, dup)
-        gid_flat = torch.where(tile == T, P, gid_flat)
-        if gid_bits + tile_bits <= 31:
-            key = ((tile << gid_bits) | gid_flat).reshape(P * dup)
-            key = torch.sort(key).values
-            ent_tile = key >> gid_bits
-            ent_gid = key & ((1 << gid_bits) - 1)
-        else:
-            ent_tile, order = torch.sort(tile.reshape(P * dup), stable=True)
-            ent_gid = gid_flat.reshape(P * dup)[order]
-
-        entry_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        if E_cap < P * dup:
-            n_valid = torch.sum(ent_tile < T)
-            entry_overflow = torch.clamp(n_valid - E_cap,
-                                         min=0).to(torch.int32)
-            ent_tile = ent_tile[:E_cap]
-            ent_gid = ent_gid[:E_cap]
-
-        ent_start = torch.searchsorted(
-            ent_tile.contiguous(),
-            torch.arange(T + 2, dtype=torch.int32, device=dev),
-            right=False, out_int32=True,
-        )
-        return ent_gid, ent_tile, ent_start, overflow, entry_overflow
+    if not key_packed(P, T):
+        return tile.reshape(P * dup), overflow
+    gid_bits = int(P).bit_length()
+    gid_flat = torch.arange(P, dtype=torch.int32,
+                            device=dev)[:, None].expand(P, dup)
+    gid_flat = torch.where(tile == T, P, gid_flat)
+    return ((tile << gid_bits) | gid_flat).reshape(P * dup), overflow
 
 
 def image_shift(cfg: SamplerConfig, ent_tile, ent_lo):

@@ -141,6 +141,11 @@ def load() -> ctypes.CDLL:
         lib.dgs_segment_sum.argtypes = [p, ll, ll, i, p, p, i, p, p]
         lib.dgs_segment_sum.restype = i
         f = ctypes.c_float
+        ip, fp = ctypes.POINTER(i), ctypes.POINTER(f)
+        lib.dgs_binning_keys.argtypes = [
+            p, p, i, p, i, i, i, ip, ip, fp, f, f, i, f, i, i, i, p, p, p,
+        ]
+        lib.dgs_binning_keys.restype = i
         lib.dgs_agg_totals.argtypes = [p, i, p, i, i, p, i, i, f, p, p]
         lib.dgs_agg_totals.restype = i
         lib.dgs_agg_forward.argtypes = [

@@ -194,6 +194,19 @@ def kept_pairs(w: Workload):
     return int((ents * smps).sum()), int(ents.sum())
 
 
+def entry_operands(w: Workload):
+    """What each step of a "chunked" workload hands duplicate_entries:
+    (cfg, means, radii, conics or None, R, E_cap), under the plan's R and
+    entry capacity."""
+    cfg, D, P = w.cfg, w.field.D, w.field.P
+    with torch.no_grad():
+        means = w.field.means.detach()
+        radii = sampling_chunked._radii(cfg, w.field.covariances(), D)
+        conics = (w.field.conics() if cfg.ellip_cull and D >= 2 else None)
+    R = w.plan.rect
+    return cfg, means, radii, conics, R, min(P * R ** D, w.plan.entries)
+
+
 def measure(w: Workload, steps: int, dev) -> dict:
     """Time ``steps`` training steps of the workload, then its device busy
     time and launches a step and its peak bytes; raises on a diagnostic

@@ -10,6 +10,7 @@ This checks the kernels' logic, not their speed or the card's arithmetic:
 ``chip_smoke.py`` holds the same functions on the H100.  Used by
 ``test_torch_agg_sweep.py`` (the aggregation sweeps),
 ``test_torch_segment_kernel.py`` (the segment-sum and the totals),
+``test_torch_binning_keys.py`` (the binning's keys),
 ``test_torch_mode_kernels.py`` and ``test_torch_folded_kernels.py`` (the
 kernel modes), with two helpers for their operands (``misaligned``,
 ``straddles``).
@@ -147,6 +148,9 @@ inline int atomicMax(int* p, int v) {
   int o = a.load();
   while (v > o && !a.compare_exchange_weak(o, v)) {}
   return o;
+}
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
 }
 
 namespace emu {

@@ -109,10 +109,13 @@ def chunked_inputs(P=64, N=256):
     return field, samples, cfg, plan, cs
 
 
-# One chunked call counts gaussian_rects twice (the entries, then
+# One chunked call on the CPU, where duplicate_entries builds its keys in
+# plain torch, counts gaussian_rects twice (the entries, then
 # prepare_entries' periodic image) at two copies each, duplicate_entries'
 # grid and strides, the cull's lower corner, and with outputs in sample
-# order the Hessian's mirror map.
+# order the Hessian's mirror map.  (On the card the key kernel takes the
+# grid as arguments: the entries' rects, grid, strides and cull copy
+# nothing.)
 SITES = {"sync.gaussian_rects": 4, "sync.duplicate_entries": 2,
          "sync.ellip_keep": 1}
 
